@@ -1,0 +1,163 @@
+"""Multi-stage retrieval (paper §2.4) — reference single-device semantics.
+
+Each page is stored under named vectors:
+  - ``initial``        full multi-vector set (~700–1024 x d), exact MaxSim
+  - ``mean_pooling``   compact pooled set (~13–34 x d)
+  - ``global_pooling`` one vector per page
+
+A retrieval config is a cascade of stages; stage i scores only the
+candidates surviving stage i-1 and keeps its top-``k``:
+
+  1-stage:  [Stage("initial", k)]                       (exact baseline)
+  2-stage:  [Stage("mean_pooling", K), Stage("initial", k)]
+  3-stage:  [Stage("global_pooling", K0), Stage("mean_pooling", K),
+             Stage("initial", k)]
+
+The serving engine (``repro_torch.retrieval.engine``) executes the same
+cascade over a segmented store; ``search`` here is its oracle in tests.
+
+Selection is ``top_k``: a stable descending sort, so equal scores keep the
+lower index first — the order ``jax.lax.top_k`` gives. Dead slots and
+filler all score NEG, so which ids fill a result when k exceeds the live
+documents depends on exactly this tie order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core import maxsim as ms
+
+
+@dataclass(frozen=True)
+class Stage:
+    """One cascade stage plus its dispatch policy.
+
+    The policy fields only affect execution by the serving engine; this
+    module's ``search`` is the plain oracle and ignores them.
+
+    use_kernel     score the full-corpus scan (first) stage with the CUDA
+                   scan kernel (``kernels.maxsim.ops.maxsim_scores``);
+                   single-vector scans stay one matrix product
+    chunk          > 0 scans the corpus in chunks of that many documents,
+                   bounding the plain scan's [B, chunk, Q, D] similarity
+                   block
+    rerank_kernel  score this rerank (non-first) stage with the fused
+                   gather + MaxSim kernel (``kernels.maxsim.ops
+                   .maxsim_rerank``) instead of gathering a [B, L, D, d]
+                   candidate copy; single-vector rerank stages ignore it
+    """
+    vector: str            # named vector to score with
+    k: int                 # candidates kept after this stage
+    use_kernel: bool = False
+    chunk: int = 0
+    rerank_kernel: bool = False
+
+
+def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
+                     chunk: int | None = None) -> tuple:
+    """Return ``stages`` with the scan (first) stage's dispatch policy
+    replaced; ``None`` keeps the existing value."""
+    first, rest = stages[0], tuple(stages[1:])
+    kw = {}
+    if use_kernel is not None:
+        kw["use_kernel"] = use_kernel
+    if chunk is not None:
+        kw["chunk"] = chunk
+    return (dataclasses.replace(first, **kw),) + rest
+
+
+def with_rerank_policy(stages: tuple, *,
+                       rerank_kernel: bool | None = None) -> tuple:
+    """Return ``stages`` with every RERANK (non-first) stage's dispatch
+    policy replaced; ``None`` keeps the existing values."""
+    if rerank_kernel is None or len(stages) <= 1:
+        return tuple(stages)
+    return (stages[0],) + tuple(
+        dataclasses.replace(s, rerank_kernel=rerank_kernel)
+        for s in stages[1:])
+
+
+def two_stage(prefetch_k: int = 256, top_k: int = 100,
+              pooled: str = "mean_pooling") -> tuple:
+    return (Stage(pooled, prefetch_k), Stage("initial", top_k))
+
+
+def three_stage(k0: int = 1024, prefetch_k: int = 256, top_k: int = 100,
+                pooled: str = "mean_pooling") -> tuple:
+    return (Stage("global_pooling", k0), Stage(pooled, prefetch_k),
+            Stage("initial", top_k))
+
+
+def one_stage(top_k: int = 100) -> tuple:
+    return (Stage("initial", top_k),)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the k largest entries along the last axis,
+    descending, ties broken by the lower index (``jax.lax.top_k``'s
+    order). ``torch.topk`` does not guarantee that order."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _store_accessors():
+    """The store's key schema is owned by ``repro_torch.retrieval.store``;
+    retrieval depends on core, so the oracle imports the accessors at call
+    time (core is fully imported before any search runs)."""
+    from repro_torch.retrieval.store import rerank_arrays, validity
+    return rerank_arrays, validity
+
+
+def _score_stage(stage: Stage, store: dict, q: torch.Tensor,
+                 q_mask: torch.Tensor | None,
+                 cand: torch.Tensor | None) -> torch.Tensor:
+    """Scores for one stage. q [B,Q,d]; cand [B,C] doc ids or None (=all).
+
+    Returns [B, C] (or [B, N] when cand is None). Dead slots of a
+    capacity-padded store score NEG at every stage.
+    """
+    rerank_arrays, validity = _store_accessors()
+    vecs, mask = rerank_arrays(store, stage.vector)
+    valid = validity(store)
+    if vecs.shape[-1] < q.shape[-1]:
+        # Matryoshka stage: score with the matching query dim prefix
+        q = q[..., : vecs.shape[-1]]
+    if vecs.ndim == 2:                       # single-vector stage
+        scores = ms.maxsim_single_vector(q, vecs, q_mask)      # [B, N]
+        if valid is not None:
+            scores = scores.masked_fill(~valid[None, :], ms.NEG)
+        if cand is not None:
+            scores = torch.gather(scores, 1, cand)
+        return scores
+    if cand is None:
+        scores = ms.maxsim_batched(q, vecs, q_mask, mask)      # [B, N]
+        if valid is not None:
+            scores = scores.masked_fill(~valid[None, :], ms.NEG)
+        return scores
+
+    scores = torch.stack([
+        ms.maxsim_scan(q[b], vecs[cand[b]],
+                       None if q_mask is None else q_mask[b],
+                       None if mask is None else mask[cand[b]])
+        for b in range(q.shape[0])])
+    if valid is not None:
+        scores = scores.masked_fill(~valid[cand], ms.NEG)
+    return scores
+
+
+def search(store: dict, q: torch.Tensor, stages: tuple,
+           q_mask: torch.Tensor | None = None) -> tuple:
+    """Run the cascade. Returns (scores [B, k_final], ids [B, k_final]),
+    ids sorted by descending final-stage score."""
+    cand = None
+    scores = None
+    for stage in stages:
+        s = _score_stage(stage, store, q, q_mask, cand)        # [B, C|N]
+        k = min(stage.k, s.shape[-1])
+        top_s, top_i = top_k(s, k)
+        cand = top_i if cand is None else torch.gather(cand, 1, top_i)
+        scores = top_s
+    return scores, cand

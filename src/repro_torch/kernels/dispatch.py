@@ -1,0 +1,72 @@
+"""Kernel dispatch: the device rule, launch counters and device resolution.
+
+The rule every kernel wrapper follows: a CUDA tensor launches the
+hand-written kernel (or the launch raises), a CPU tensor runs the kernel's
+plain PyTorch version. There is no availability probe and no fallback from
+a failed launch to the plain version.
+
+Each wrapper calls ``record(name)`` right after it launches its kernel and
+nowhere else, so ``launch_count`` counts real kernel launches: a run can
+show that its main path went through the kernels by zeroing the counters
+(``reset_counts``) before it and reading them after.
+
+Kernel families: ``maxsim_scan``, ``maxsim_rerank``, ``pooling``.
+"""
+from __future__ import annotations
+
+import torch
+
+KERNELS = ("maxsim_scan", "maxsim_rerank", "pooling")
+
+_COUNTS = {name: 0 for name in KERNELS}
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True when ``t`` lives on a CUDA device (launch the kernel); False
+    for CPU tensors (run the plain version). Any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device} (expected cuda or cpu)")
+
+
+def record(name: str) -> None:
+    """Count one launch of kernel ``name`` (called by its wrapper right
+    after a successful launch)."""
+    _COUNTS[name] += 1
+
+
+def launch_count(name: str) -> int:
+    """Launches of kernel ``name`` since the last ``reset_counts``."""
+    return _COUNTS[name]
+
+
+def reset_counts(name: str | None = None) -> None:
+    """Zero the launch counters (one kernel, or all)."""
+    for k in (KERNELS if name is None else (name,)):
+        _COUNTS[k] = 0
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. ``cuda`` (the default of every
+    entry point) requires a card: without one this raises instead of
+    carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    return dev
+
+
+def full_f32() -> None:
+    """Keep float32 products in full float32 on the card. The plain
+    versions call this before their matrix products: with TF32 on, cuBLAS
+    and cuDNN round float32 inputs to a 10-bit mantissa and the plain
+    path would no longer be the float32 reference the kernels are held
+    against."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,164 @@
+"""Multi-stage MaxSim search engine over a segmented corpus, one device.
+
+Executes the paper's prefetch -> rerank cascade (§2.4) eagerly over the
+segments of a ``SegmentedStore``:
+
+- stage 0 scans every segment (the CUDA scan kernel when the stage sets
+  ``use_kernel``, the plain ``core.maxsim`` scan otherwise, chunked by
+  ``Stage.chunk``), keeps each segment's top-k and merges them in a global
+  SLOT id space (segment offsets = cumulative capacities);
+- later stages rerank the surviving candidates against each segment (the
+  fused gather + MaxSim kernel when the stage sets ``rerank_kernel``, a
+  per-query gather + ``maxsim_scan`` otherwise). A candidate is real in
+  exactly one segment and NEG in the others, so the cross-segment combine
+  is an elementwise max;
+- every stage NEGs dead slots through the segment's ``doc_valid`` mask, so
+  mutation never changes tensor shapes.
+
+The oracle is ``repro_torch.core.multistage.search``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import maxsim as MS
+from repro_torch.core.multistage import Stage, top_k
+from repro_torch.kernels.maxsim import ops as KOPS
+from repro_torch.retrieval.store import (effective_validity, rerank_arrays,
+                                         scan_arrays)
+from repro_torch.retrieval.topk import merge_topk
+
+NEG = -1e30
+
+
+def _scan_prep(vecs, q):
+    """The Matryoshka query-prefix slice: a stage whose vectors are
+    narrower than the query scores the matching prefix."""
+    if vecs.shape[-1] < q.shape[-1]:
+        q = q[..., : vecs.shape[-1]]
+    return q
+
+
+def _dispatch_scan(stage: Stage, vecs, mask, q, q_mask, doc_valid=None):
+    """Score the full-corpus scan stage per the stage's dispatch policy:
+    [n_docs, D, d] -> [B, n_docs]. ``doc_valid`` [N] bool NEGs dead
+    capacity-padding slots."""
+    q = _scan_prep(vecs, q)
+    if vecs.ndim == 2:                        # single-vector stage
+        s = MS.maxsim_single_vector(q, vecs, q_mask)
+    elif stage.use_kernel:
+        return KOPS.maxsim_scores_chunked(q, vecs, q_mask, mask, doc_valid,
+                                          chunk=stage.chunk)
+    else:
+        s = MS.maxsim_batched(q, vecs, q_mask, mask, chunk=stage.chunk)
+    if doc_valid is not None:
+        s = s.masked_fill(~doc_valid[None, :], NEG)
+    return s
+
+
+def _score_candidates(stage_vecs, stage_mask, q, q_mask, rows, ok,
+                      rerank_kernel: bool = False):
+    """Score per-query candidate lists against ONE segment's tensors.
+
+    rows [B, L] in-range local slot ids; ok [B, L] marks candidates this
+    segment owns (in-segment and doc_valid) — the rest score NEG.
+    ``rerank_kernel`` routes multi-vector stages to the fused gather +
+    MaxSim wrapper (no [B, L, D, d] copy); otherwise each query gathers
+    its [L, D, d] candidates and scores them with ``maxsim_scan``, the
+    oracle's math. Single-vector stages are a small gather + product.
+    """
+    q = _scan_prep(stage_vecs, q)
+    if stage_vecs.ndim == 2:
+        vecs = stage_vecs[rows.long()]                          # [B, L, d]
+        if q_mask is not None:
+            q = q * q_mask[..., None].to(q.dtype)
+        qs = q.sum(dim=-2)
+        s = torch.einsum("bd,bld->bl", qs, vecs.to(qs.dtype))
+        return s.masked_fill(~ok, NEG)
+    if rerank_kernel:
+        return KOPS.maxsim_rerank(q, stage_vecs, rows, q_mask, stage_mask,
+                                  ok)
+    s = torch.stack([
+        MS.maxsim_scan(q[b], stage_vecs[rows[b].long()],
+                       None if q_mask is None else q_mask[b],
+                       None if stage_mask is None
+                       else stage_mask[rows[b].long()])
+        for b in range(q.shape[0])])
+    return s.masked_fill(~ok, NEG)
+
+
+def _offsets(capacities: tuple) -> tuple:
+    offs, off = [], 0
+    for cap in capacities:
+        offs.append(off)
+        off += cap
+    return tuple(offs)
+
+
+def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
+                    q_mask):
+    """Stage-0 candidate generation over ONE segment: (vals [B, k0],
+    GLOBAL slot ids [B, k0]) with k0 = min(stage.k, cap)."""
+    vecs, mask = scan_arrays(store, stage.vector)
+    s = _dispatch_scan(stage, vecs, mask, q, q_mask, doc_valid=eff)
+    v, i = top_k(s, min(stage.k, cap))
+    return v, i + off
+
+
+def _segment_rerank(stage: Stage, store: dict, eff, cap: int, off: int, q,
+                    q_mask, cand):
+    """One rerank stage's scores for the global candidate set against ONE
+    segment: [B, L]; out-of-segment and dead candidates score NEG."""
+    local = cand - off
+    in_seg = (local >= 0) & (local < cap)
+    rows = local.clamp(0, cap - 1)
+    ok = in_seg
+    if eff is not None:
+        ok = ok & eff[rows]
+    vecs, mask = rerank_arrays(store, stage.vector)
+    return _score_candidates(vecs, mask, q, q_mask, rows, ok,
+                             stage.rerank_kernel)
+
+
+def make_segmented_search_fn(stages: tuple, capacities: tuple):
+    """The cascade over a tuple of segment store dicts.
+
+    Returns fn(stores: tuple[dict, ...], q [B,Q,d], q_mask [B,Q]) ->
+    (scores [B,k], global slot ids [B,k]).
+    """
+    stages = tuple(stages)
+    capacities = tuple(capacities)
+    if not capacities:
+        raise ValueError("search needs at least one segment")
+    offsets = _offsets(capacities)
+    total_cap = sum(capacities)
+
+    def search(stores, q, q_mask):
+        # one effective mask per segment, threaded through every stage
+        effs = tuple(effective_validity(s) for s in stores)
+        scores = cand = None
+        for si, stage in enumerate(stages):
+            if si == 0:
+                parts = [_segment_stage0(stage, store, eff, cap, off, q,
+                                         q_mask)
+                         for store, eff, cap, off in zip(stores, effs,
+                                                         capacities, offsets)]
+                scores, cand = merge_topk(
+                    torch.cat([v for v, _ in parts], dim=1),
+                    torch.cat([i for _, i in parts], dim=1),
+                    min(stage.k, total_cap))
+            else:
+                s_all = None
+                for store, eff, cap, off in zip(stores, effs, capacities,
+                                                offsets):
+                    s = _segment_rerank(stage, store, eff, cap, off, q,
+                                        q_mask, cand)
+                    # each candidate lives in exactly one segment; the
+                    # others scored it NEG, so max == owner's score
+                    s_all = s if s_all is None else torch.maximum(s_all, s)
+                k = min(stage.k, cand.shape[1])
+                scores, sel = top_k(s_all, k)
+                cand = torch.gather(cand, 1, sel)
+        return scores, cand
+
+    return search

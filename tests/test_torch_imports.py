@@ -1,0 +1,110 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in
+``src/repro_torch`` or ``chip_smoke.py``, and its entry points refuse to
+run on a missing card instead of carrying on on the CPU."""
+import ast
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+_BANNED = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and _BANNED.match(node.value)
+              and " " not in node.value):
+            # module names handed to importlib
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax_and_no_repro(path):
+    bad = [(ln, m) for ln, m in _imported_modules(path) if _BANNED.match(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 15          # every module imported
+
+
+def _tiny_store_inputs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_benchmark
+    cfg = dataclasses.replace(get_config("colpali"), grid_h=4, grid_w=4,
+                              out_dim=16)
+    bench = make_benchmark(cfg, (4, 4, 4), (2, 2, 2), n_topics_per_ds=2)
+    return cfg, bench
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.retrieval.ingest import IngestPipeline
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.store import build_store, from_numpy
+    from repro_torch.launch import serve
+    cfg, bench = _tiny_store_inputs()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_store(cfg, bench.pages, bench.token_types)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IngestPipeline(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_numpy({"x": np.zeros((2, 3), np.float32)})
+    store = build_store(cfg, bench.pages, bench.token_types, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Retriever(store)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--pages", "30", "--queries", "10"])
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
+    """A CPU tensor runs the plain version and counts no launch; a tensor
+    on any other device is refused, never silently served."""
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.kernels.maxsim import maxsim_rerank, maxsim_scores
+    from repro_torch.kernels.pooling import pool_pages_fused
+    DSP.reset_counts()
+    q = torch.zeros((1, 3, 8))
+    docs = torch.zeros((4, 5, 8))
+    maxsim_scores(q, docs)
+    maxsim_rerank(q, docs, torch.zeros((1, 2), dtype=torch.int32))
+    pool_pages_fused(torch.zeros((1, 4, 8)), torch.ones((1, 4)),
+                     torch.ones((2, 4)))
+    assert all(DSP.launch_count(k) == 0 for k in DSP.KERNELS)
+    with pytest.raises(ValueError, match="unsupported device"):
+        maxsim_scores(q, docs.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        DSP.resolve_device("meta")

@@ -1,0 +1,73 @@
+"""The port's configs, synthetic benchmark and ranking metrics are its own
+copies of ``repro``'s: identical values for the same seed."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.data import synthetic as JS
+from repro_torch.configs import PAPER_ARCHS, get_config
+from repro_torch.data import synthetic as TS
+
+torch.set_num_threads(1)
+
+ARCHS = ("colpali", "colsmol", "colqwen")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_retriever_configs_identical(arch):
+    a, b = jax_config(arch), get_config(arch)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for prop in ("family", "n_patches", "seq_len", "n_pooled"):
+        assert getattr(a, prop) == getattr(b, prop), prop
+    assert set(PAPER_ARCHS) == set(ARCHS)
+    with pytest.raises(KeyError):
+        get_config("gemma2-9b")        # the LM families are not ported
+
+
+def _small(get, arch):
+    shrink = {"colpali": dict(grid_h=8, grid_w=8, out_dim=32),
+              "colsmol": dict(n_tiles=5, tile_patches=16, out_dim=32),
+              "colqwen": dict(grid_h=6, grid_w=6, max_rows=8, out_dim=32)}
+    return dataclasses.replace(get(arch), **shrink[arch])
+
+
+@pytest.mark.parametrize("arch,seed", [("colpali", 0), ("colsmol", 3),
+                                       ("colqwen", 7)])
+def test_make_benchmark_identical(arch, seed):
+    kw = dict(n_pages_per_ds=(12, 9, 7), queries_per_ds=(4, 3, 3),
+              n_topics_per_ds=5, seed=seed)
+    a = JS.make_benchmark(_small(jax_config, arch), **kw)
+    b = TS.make_benchmark(_small(get_config, arch), **kw)
+    for f in ("pages", "token_types", "queries", "query_mask",
+              "dataset_of_page", "dataset_of_query"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        np.testing.assert_array_equal(x, y, err_msg=f)   # exact: same numpy
+    assert a.qrels == b.qrels
+
+
+def test_ranking_metrics_identical():
+    rng = np.random.default_rng(0)
+    ranked = rng.permutation(40)[None].repeat(6, 0)
+    for r in ranked:
+        rng.shuffle(r)
+    ranked[2, :3] = -1                           # filler ids never match
+    qrels = [{int(i): int(rng.integers(1, 3))
+              for i in rng.choice(40, 4, replace=False)} for _ in range(6)]
+    qrels[5] = {}
+    for k in (1, 5, 10, 100):
+        for r, q in zip(ranked, qrels):
+            assert JS.ndcg_at_k(r, q, k) == TS.ndcg_at_k(r, q, k)
+            assert JS.recall_at_k(r, q, k) == TS.recall_at_k(r, q, k)
+    assert (JS.evaluate_ranking(ranked, qrels, ks=(5, 10))
+            == TS.evaluate_ranking(ranked, qrels, ks=(5, 10)))
+
+
+def test_make_page_image_identical():
+    a = JS.make_page_image(np.random.default_rng(5), h=64, w=48)
+    b = TS.make_page_image(np.random.default_rng(5), h=64, w=48)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1]
