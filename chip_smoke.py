@@ -29,7 +29,11 @@ at the first phase that goes wrong:
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
             bytes it must move at 3.35 TB/s and the operations this run's
-            data needs at the H100's float32 rate (67 TFLOP/s).
+            data needs at the H100's float32 rate (67 TFLOP/s). The scan
+            and rerank also print a second bound: the same bytes against
+            a split-precision product on the bf16 tensor cores (q as bf16
+            hi + lo parts, two products per multiply-add at 989 TFLOP/s),
+            which keeps near-f32 accuracy over the bf16 documents.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +53,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 (CUDA cores)
+BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 NEG = -1e30
 
 
@@ -93,6 +98,27 @@ def bound(nbytes: float, flops: float) -> tuple:
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def bound_split_bf16(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by) for the same work as a split-precision product
+    on the bf16 tensor cores: the f32 query as bf16 hi + lo parts against
+    the bf16 documents, so two tensor-core operations per f32 one."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * flops / BF16_TC_FLOPS_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def log_bounds(what: str, ms: float, nbytes: float, flops: float) -> None:
+    """Print the f32 and the split-bf16 tensor-core bound of one timed
+    kernel, each with the kernel's share of it."""
+    parts = []
+    for label, (b_ms, b_by) in (("f32 CUDA cores", bound(nbytes, flops)),
+                                ("split bf16 tensor cores",
+                                 bound_split_bf16(nbytes, flops))):
+        parts.append(f"{label} {b_ms:.4f} ms ({b_by}), kernel at "
+                     f"{100 * b_ms / ms:.2f}%")
+    log(f"[bounds] {what}: " + "; ".join(parts))
 
 
 def max_err(got, want, what: str, rtol: float, atol: float) -> float:
@@ -412,6 +438,7 @@ def kernel_times(args, dev, main) -> list:
             f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
             f"ms, bound {b_ms:.3f} ms ({b_by}), "
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        log_bounds(f"scan {name}", ms, nbytes, flops)
         if name == "initial":
             entries.append(dict(
                 name="maxsim_scan", route="cuda",
@@ -451,6 +478,7 @@ def kernel_times(args, dev, main) -> list:
         f"({uniq.numel()} distinct candidates): kernel {ms:.3f} ms, plain "
         f"{plain:.3f} ms, library {lib:.3f} ms, bound {b_ms:.3f} ms "
         f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s achieved")
+    log_bounds("rerank initial", ms, nbytes, flops)
     entries.append(dict(
         name="maxsim_rerank", route="cuda",
         source="src/repro_torch/csrc/maxsim_rerank.cu",

@@ -13,9 +13,8 @@ Pooling (``use_kernel``):
 - False -> the functional ``core.pooling`` reference (``build_store``
   wraps this mode).
 
-Batches are padded to a power-of-two bucket (``batch_bucket``) as the JAX
-pipeline does; rows are independent, so the padding never changes a real
-page's vectors and is sliced off.
+Eager PyTorch never retraces, so a batch is indexed at its own size; the
+JAX pipeline's power-of-two padding (``batch_bucket``) is not needed here.
 """
 from __future__ import annotations
 
@@ -33,8 +32,8 @@ INGEST_BUCKET_MAX = 256        # the paper's index step (pages_per_step)
 _BULK_GRANULE = 64
 
 
-def batch_bucket(n: int, min_bucket: int = INGEST_BUCKET_MIN) -> int:
-    """The ingest batch size ``n`` pages are padded to. Up to
+def batch_bucket(n: int) -> int:
+    """The ingest batch size the JAX pipeline pads ``n`` pages to. Up to
     ``INGEST_BUCKET_MAX``: the smallest power of two >= n (the
     ``segments.bucket_capacity`` ladder). Above it, the next 64-row
     granule (< 25% worst-case padding)."""
@@ -42,29 +41,18 @@ def batch_bucket(n: int, min_bucket: int = INGEST_BUCKET_MIN) -> int:
         raise ValueError(f"ingest batch must be >= 1 page, got {n}")
     if n > INGEST_BUCKET_MAX:
         return -(-n // _BULK_GRANULE) * _BULK_GRANULE
-    return bucket_capacity(n, min_capacity=min_bucket)
-
-
-def _pad_rows(x: torch.Tensor, to: int, fill=0) -> torch.Tensor:
-    n = x.shape[0]
-    if n == to:
-        return x
-    pad = torch.full((to - n,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                     device=x.device)
-    return torch.cat([x, pad])
+    return bucket_capacity(n, min_capacity=INGEST_BUCKET_MIN)
 
 
 class IngestPipeline:
     """Hygiene -> pooling -> store dtype, on one device."""
 
     def __init__(self, cfg, *, store_dtype=torch.bfloat16,
-                 use_kernel: bool = True, device="cuda",
-                 min_bucket: int = INGEST_BUCKET_MIN):
+                 use_kernel: bool = True, device="cuda"):
         self.cfg = cfg
         self.store_dtype = store_dtype
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
-        self.min_bucket = min_bucket
         pm, row_valid = POPS.pooling_matrix_static(cfg)
         self._mat = torch.from_numpy(pm).to(self.device)
         self._row_valid = torch.from_numpy(row_valid).to(self.device)
@@ -115,11 +103,5 @@ class IngestPipeline:
         """Index a raw batch (numpy or torch, any device) into a standalone
         ``VectorStore`` on the pipeline's device."""
         pages, tt = self._admit(pages, token_types)
-        n = int(pages.shape[0])
-        bucket = batch_bucket(n, self.min_bucket)
-        pages_p = _pad_rows(pages, bucket)
-        if tt.ndim == 2:
-            tt = _pad_rows(tt, bucket, fill=HG.PAD)
-        out = self._index_arrays(pages_p, tt)
-        return VectorStore({k: v[:n] for k, v in out.items()}, n,
+        return VectorStore(self._index_arrays(pages, tt), int(pages.shape[0]),
                            str(self.store_dtype).removeprefix("torch."))

@@ -2,8 +2,7 @@
 
 ``Retriever`` wraps the engine (``repro_torch.retrieval.engine``) over a
 SEGMENTED, capacity-padded corpus (``repro_torch.retrieval.segments``) on
-one device, and caches the cascade callable per ``(stages, segment
-capacities)``.
+one device.
 
     store = build_store(cfg, pages, token_types)         # on cuda
     r = Retriever(store, capacity=4096)                  # ingest headroom
@@ -12,8 +11,7 @@ capacities)``.
     r.delete([3, 17])
 
 Scan-dispatch policy (``Stage.use_kernel`` / ``chunk``) and rerank policy
-(``Stage.rerank_kernel``) ride on the stages tuple; ``scan_chunk``
-supplies a default chunk for scan stages that don't set one. Returned ids
+(``Stage.rerank_kernel``) ride on the stages tuple. Returned ids
 are STABLE page ids (assigned at upsert); slots that never matched (k >
 live docs) come back as -1.
 """
@@ -22,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import multistage as MST
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.retrieval import engine
 from repro_torch.retrieval.segments import SegmentedStore
@@ -30,15 +27,12 @@ from repro_torch.retrieval.store import VectorStore
 
 
 class Retriever:
-    def __init__(self, store, scan_chunk: int = 0,
-                 capacity: int | None = None, device="cuda"):
+    def __init__(self, store, capacity: int | None = None, device="cuda"):
         """``store`` is a built ``VectorStore`` (wrapped as segment 0 on
         ``device`` — exact fit by default, or preallocated to ``capacity``
         slots for ingestion headroom) or an existing ``SegmentedStore``,
         which must already live on ``device``."""
         self.device = resolve_device(device)
-        self.scan_chunk = scan_chunk
-        self._fns: dict = {}
         if isinstance(store, VectorStore):
             store = SegmentedStore.from_store(store, capacity=capacity,
                                               device=self.device)
@@ -70,25 +64,6 @@ class Retriever:
     # search
     # ------------------------------------------------------------------
 
-    def _normalize(self, stages: tuple) -> tuple:
-        stages = tuple(stages)
-        if self.scan_chunk and stages and stages[0].chunk == 0:
-            stages = MST.with_scan_policy(stages, chunk=self.scan_chunk)
-        return stages
-
-    def search_fn(self, stages: tuple):
-        """The cascade callable for ``stages``, built at most once per
-        (stages, segment capacities). Signature: fn(stores, q, q_mask) ->
-        (scores, slot ids)."""
-        stages = self._normalize(stages)
-        key = (stages, self.store.capacities)
-        fn = self._fns.get(key)
-        if fn is None:
-            fn = engine.make_segmented_search_fn(stages,
-                                                 self.store.capacities)
-            self._fns[key] = fn
-        return fn
-
     def search(self, q, q_mask=None, *, stages: tuple,
                translate_ids: bool = True) -> tuple:
         """Run the cascade: q [B,Q,d] -> (scores [B,k], ids [B,k]).
@@ -102,8 +77,8 @@ class Retriever:
                                 device=self.device)
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
-        scores, slots = self.search_fn(stages)(self.store.stores(), q,
-                                               q_mask)
+        fn = engine.make_segmented_search_fn(stages, self.store.capacities)
+        scores, slots = fn(self.store.stores(), q, q_mask)
         if not translate_ids:
             return scores, slots
         ids = self.store.translate_slots(slots.cpu().numpy())
