@@ -3,19 +3,21 @@
 
     python3 chip_smoke.py                      # 4096 ColPali pages, 300 queries
 
-Drives the port's main path at full ColPali width (S=1030 tokens, d=128,
-34 ``mean_pooling`` vectors) and fails (exit code != 0, no result line)
-at the first phase that goes wrong:
+Drives the port's main paths at full ColPali width (S=1030 tokens,
+d=128, 34 ``mean_pooling`` vectors) and fails (exit code != 0, no result
+line) at the first phase that goes wrong:
 
 1. device   a CUDA device is present; prints nvidia-smi's name and power
             limit;
-2. build    compiles the three CUDA kernels from ``src/repro_torch/csrc``
-            (one nvcc per source, in parallel) and prints the seconds;
+2. build    compiles the CUDA libraries from ``src/repro_torch/csrc`` (one
+            nvcc per source, in parallel) and prints the seconds;
 3. kernels  holds each kernel against its plain PyTorch version on the
-            card at the main path's shapes (f32 and bf16 docs, dead
+            card at the main paths' shapes (f32, bf16 and int8 docs, dead
             ``doc_valid`` slots, fully masked documents and candidates, a
-            broadcast mask, ragged N and D, a Matryoshka prefix), printing
-            each tolerance and the largest error;
+            broadcast mask, ragged N and D, a Matryoshka prefix, N no
+            multiple of the chunk), printing each tolerance and the
+            largest error; ``quantize_int8`` on the card must give the
+            CPU's codes and scales bit for bit;
 4. main     indexes the synthetic benchmark through ``IngestPipeline``
             (pooling kernel) in batches of 256 pages, then runs the 1/2/3-
             stage cascades through ``Retriever.search`` with the scan and
@@ -25,6 +27,15 @@ at the first phase that goes wrong:
             from near-exact ties) and the same NDCG/Recall@5/10 to 3
             decimals, and the plain engine must match the
             ``multistage.search`` oracle;
+4b. int8    quantises that store as ``serve.py --int8`` does (the scan
+            vector's float copy dropped when no later stage reranks on
+            it) and runs int8 cascades with ``use_kernel``, ``chunk=256``
+            and ``rerank_kernel``: 1-stage over ``initial`` codes (the
+            double-buffered scan), 2-stage over ``mean_pooling`` codes (the
+            double-buffered scan, bf16 rerank), 2-stage with an int8 rerank
+            onto ``initial`` codes, and two ``scan_topk`` cascades (the
+            int8 scan kernel per chunk). Each new kernel must launch; ids
+            and metrics must equal the plain path's as in phase 4;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -33,7 +44,8 @@ at the first phase that goes wrong:
             and rerank also print a second bound: the same bytes against
             a split-precision product on the bf16 tensor cores (q as bf16
             hi + lo parts, two products per multiply-add at 989 TFLOP/s),
-            which keeps near-f32 accuracy over the bf16 documents.
+            which keeps near-f32 accuracy over the bf16 documents (int8
+            codes are exact in bf16, so the same bound holds for them).
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
@@ -251,6 +263,116 @@ def check_kernels(args, dev) -> dict:
     return errs
 
 
+def check_int8_and_db_kernels(args, dev) -> dict:
+    """The double-buffered scan (bf16, int8, f32), the int8 scan and the
+    int8 rerank against their plain versions at the main path's shapes,
+    and ``quantize_int8`` on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.kernels.maxsim import ops as KOPS
+
+    cfg = get_config("colpali")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    B, Q, Qv, d = args.batch, 16, 10, cfg.out_dim
+    N = args.pages - 3                       # no multiple of the chunk
+    chunk = 256
+    q = unit(gen, (B, Q, d), torch.float32, dev)
+    qm = torch.zeros((B, Q), dtype=torch.bool, device=dev)
+    qm[:, :Qv] = True
+    tol = dict(rtol=1e-5, atol=1e-4)
+    errs = {"maxsim_scan_db": 0.0, "maxsim_scan_int8": 0.0,
+            "maxsim_rerank_int8": 0.0}
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    # --- quantize_int8: the card's codes and scales are the CPU's
+    x = unit(gen, (256, cfg.n_patches, d), torch.bfloat16, dev)
+    c_gpu, s_gpu = KOPS.quantize_int8(x)
+    c_cpu, s_cpu = KOPS.quantize_int8(x.cpu())
+    check(bool((c_gpu.cpu() == c_cpu).all()),
+          "quantize_int8: codes on the card differ from the CPU's")
+    check(bool((s_gpu.cpu().view(torch.int32)
+                == s_cpu.view(torch.int32)).all()),
+          "quantize_int8: scales on the card differ from the CPU's")
+    log(f"  quantize_int8 [256,{cfg.n_patches},{d}] bf16: card == CPU bit "
+        "for bit (codes and scales)")
+    del x, c_gpu, s_gpu
+
+    # --- double-buffered scan and int8 scan, mean_pooling and initial
+    for name, D in (("mean_pooling", cfg.n_pooled),
+                    ("initial", cfg.n_patches)):
+        docs = unit(gen, (N, D, d), torch.bfloat16, dev)
+        codes, scales = KOPS.quantize_int8(docs)
+        dm = torch.rand((N, D), generator=gen, device=dev) > 0.05
+        dm[3] = False                                # a fully masked doc
+        valid = torch.rand((N,), generator=gen, device=dev) > 0.1
+        for what, dv, sc in (("bf16", docs, None), ("int8", codes, scales)):
+            DSP.reset_counts()
+            got = KOPS.maxsim_scores_chunked(q, dv, qm, dm, valid,
+                                             chunk=chunk, scales=sc)
+            check(DSP.launch_count("maxsim_scan_db") == 1
+                  and sum(DSP.launch_count(k) for k in DSP.KERNELS) == 1,
+                  "a chunked scan on the card must be one db launch")
+            want = KOPS.maxsim_chunked_ref(q, dv, qm, dm, valid,
+                                           chunk=chunk, scales=sc)
+            note("maxsim_scan_db", max_err(
+                got, want, f"db scan {what} {name} [{N},{D},{d}] chunk "
+                f"{chunk} doc_valid", **tol))
+            check(bool((got[:, 3] < -1e20).all()),
+                  "db scan: a fully masked doc must sink")
+            del got, want
+        # the int8 scan at the streamed top-k's chunk shape and whole
+        for lo, hi in ((0, chunk), (0, N)):
+            got = KOPS.maxsim_scores(q, codes[lo:hi], qm, dm[lo:hi],
+                                     valid[lo:hi], scales=scales[lo:hi])
+            want = KOPS.maxsim_chunked_ref(q, codes[lo:hi], qm, dm[lo:hi],
+                                           valid[lo:hi], chunk=chunk,
+                                           scales=scales[lo:hi])
+            note("maxsim_scan_int8", max_err(
+                got, want, f"scan int8 {name} [{hi - lo},{D},{d}] "
+                "doc_valid", **tol))
+        # broadcast [1, D] mask through the db scan
+        row = dm[:1].clone()
+        got = KOPS.maxsim_scores_chunked(q, codes, qm, row, None,
+                                         chunk=chunk, scales=scales)
+        want = KOPS.maxsim_chunked_ref(q, codes, qm, row, None, chunk=chunk,
+                                       scales=scales)
+        note("maxsim_scan_db", max_err(
+            got, want, f"db scan int8 {name} broadcast [1,{D}] mask", **tol))
+        del docs, codes, scales, dm, got, want
+    # f32 docs, ragged N, D and Q, broadcast (absent) mask
+    docs = unit(gen, (1001, 37, d), torch.float32, dev)
+    q7 = q[:5, :7].contiguous()
+    got = KOPS.maxsim_scores_chunked(q7, docs, None, None, chunk=100)
+    want = KOPS.maxsim_chunked_ref(q7, docs, None, None, chunk=100)
+    note("maxsim_scan_db", max_err(
+        got, want, "db scan f32 ragged q[5,7] [1001,37] no mask", **tol))
+
+    # --- int8 rerank: onto initial (L=prefetch) and mean_pooling (L=k0)
+    for name, D, L in (("initial", cfg.n_patches, 256),
+                       ("mean_pooling", cfg.n_pooled, 1024)):
+        codes, scales = KOPS.quantize_int8(
+            unit(gen, (N, D, d), torch.bfloat16, dev))
+        dm = torch.rand((N, D), generator=gen, device=dev) > 0.05
+        dm[7] = False                                # fully masked candidate
+        rows = torch.randint(0, N, (B, L), generator=gen, device=dev)
+        rows[:, 0] = 7
+        ok = torch.rand((B, L), generator=gen, device=dev) > 0.1
+        got = KOPS.maxsim_rerank(q, codes, rows, qm, dm, ok, scales=scales)
+        want = KOPS._rerank_ref(q, codes, rows, qm.float(), dm, scales)
+        live = ok[:, 0]
+        check(bool(torch.allclose(got[live, 0], torch.full_like(
+            got[live, 0], Qv * NEG))),
+              "int8 rerank: a fully masked candidate must score Qv*NEG")
+        want = want.masked_fill(~ok, NEG)
+        note("maxsim_rerank_int8", max_err(
+            got, want, f"rerank int8 {name} rows [{B},{L}] ok-mask", **tol))
+        del codes, scales, dm
+    torch.cuda.synchronize()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -360,8 +482,9 @@ def main_path(args, dev) -> dict:
             + f"; launches per query batch {per_call}")
     counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
     log(f"[main] kernel launches over the main path: {counts}")
-    for k, c in counts.items():
-        check(c > 0, f"kernel {k} was never launched on the main path")
+    for k in ("maxsim_scan", "maxsim_rerank", "pooling"):
+        check(counts[k] > 0, f"kernel {k} was never launched on the main "
+              "path")
 
     # ---- the same cascades through the plain path on the card
     DSP.reset_counts()
@@ -394,6 +517,98 @@ def main_path(args, dev) -> dict:
                          f"{n}-stage engine vs multistage.search oracle")
     return dict(results=results, counts=counts, retriever=retriever,
                 bench=bench)
+
+
+def device_gb(vectors: dict) -> float:
+    return sum(v.numel() * v.element_size() for v in vectors.values()) / 1e9
+
+
+def main_path_int8(args, dev, main) -> dict:
+    """The int8 store with the chunked (double-buffered) and streamed
+    scans, on the phase-4 corpus."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.store import (VectorStore, is_store_companion,
+                                             quantize_store)
+
+    bench, base_r = main["bench"], main["retriever"]
+    n = base_r.n_docs
+    base = VectorStore({k: v[:n] for k, v in base_r.store.vectors.items()
+                        if not is_store_companion(k)}, n)
+    one, two = MST.one_stage(10), MST.two_stage(256, 10)
+    # as ``serve.py --int8`` does: quantise the scan vector, dropping its
+    # float copy when no later stage reranks on it
+    t0 = time.perf_counter()
+    store_a = quantize_store(base, ("initial",), one)       # initial codes
+    store_b = quantize_store(base, ("mean_pooling",), two)  # pooled codes
+    torch.cuda.synchronize()
+    log(f"[int8] quantised in {time.perf_counter() - t0:.1f}s; device bytes: "
+        f"float store {device_gb(base.vectors):.3f} GB, 1-stage int8 store "
+        f"{device_gb(store_a.vectors):.3f} GB (initial: bf16 "
+        f"{device_gb({'x': base.vectors['initial']}):.3f} GB -> codes + "
+        "scales "
+        f"{device_gb({k: store_a.vectors[k] for k in ('initial_int8', 'initial_scale')}):.3f}"
+        f" GB), 2-stage int8 store {device_gb(store_b.vectors):.3f} GB")
+    ra = Retriever(store_a, device=dev)
+    rb = Retriever(store_b, device=dev)
+    cascades = {
+        "1-stage int8 initial (db scan)": (ra, one, False),
+        "2-stage bf16 pooled (db scan) + int8 rerank": (ra, two, False),
+        "1-stage int8 initial scan_topk": (ra, one, True),
+        "2-stage int8 pooled (db scan) + bf16 rerank": (rb, two, False),
+        "2-stage int8 pooled scan_topk + bf16 rerank": (rb, two, True),
+    }
+    float_ndcg = {1: main["results"][1]["metrics"]["ndcg@10"],
+                  2: main["results"][2]["metrics"]["ndcg@10"]}
+    results = {}
+    DSP.reset_counts()
+    for name, (r, stages, topk) in cascades.items():
+        st = MST.with_rerank_policy(MST.with_scan_policy(
+            stages, use_kernel=True, chunk=256, scan_topk=topk),
+            rerank_kernel=True)
+        ids, sc, dt, nq = run_cascade(r, bench, st, args.batch)
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        results[name] = dict(ids=ids, scores=sc, qps=nq / dt, metrics=m)
+        log(f"[int8] {name}: QPS={nq / dt:.1f} " + "  ".join(
+            f"{k}={v:.4f}" for k, v in m.items()) + f"; float "
+            f"{len(stages)}-stage ndcg@10={float_ndcg[len(stages)]:.4f}")
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    log(f"[int8] kernel launches over the int8 path: {counts}")
+    for k in ("maxsim_scan_db", "maxsim_scan_int8", "maxsim_rerank",
+              "maxsim_rerank_int8"):
+        check(counts[k] > 0, f"kernel {k} was never launched on the int8 "
+              "path")
+
+    # ---- the same cascades through the plain path on the card
+    DSP.reset_counts()
+    qb = torch.as_tensor(bench.queries[:args.batch]).to(dev)
+    mb = torch.as_tensor(bench.query_mask[:args.batch]).to(dev)
+    for name, (r, stages, topk) in cascades.items():
+        st = MST.with_scan_policy(stages, use_kernel=False, chunk=256,
+                                  scan_topk=topk)
+        ids, sc, dt, nq = run_cascade(r, bench, st, args.batch)
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        res = results[name]
+        swaps = compare_rankings(res["ids"], res["scores"], ids, sc,
+                                 f"{name} kernel vs plain")
+        for k in m:
+            check(abs(m[k] - res["metrics"][k]) < 5e-4,
+                  f"{name} {k}: kernel {res['metrics'][k]:.4f} != plain "
+                  f"{m[k]:.4f} to 3 decimals")
+        res["plain_qps"] = nq / dt
+        log(f"[int8] {name} plain: QPS={nq / dt:.1f}; kernel == plain "
+            f"top-10 ids ({swaps} tie swaps), metrics equal to 3 decimals")
+        if len(stages) == 2 and not topk:
+            o_s, o_i = MST.search(r.store.vectors, qb, stages, mb)
+            e_s, e_i = r.search(qb, mb, stages=st, translate_ids=False)
+            compare_rankings(e_i.cpu().numpy(), e_s.cpu().numpy(),
+                             o_i.cpu().numpy(), o_s.cpu().numpy(),
+                             f"{name} engine vs multistage.search oracle")
+    check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
+          "the plain int8 path launched a kernel")
+    return dict(results=results, counts=counts, ra=ra, rb=rb)
 
 
 # ---------------------------------------------------------------------------
@@ -519,6 +734,143 @@ def kernel_times(args, dev, main) -> list:
     return entries
 
 
+def kernel_times_int8_and_db(args, dev, main, m8) -> list:
+    """Times of the double-buffered scan, the int8 scan and the int8
+    rerank at the int8 path's shapes."""
+    from repro_torch.kernels.maxsim import ops as KOPS
+
+    bench = main["bench"]
+    va, vb = m8["ra"].store.vectors, m8["rb"].store.vectors
+    vf = main["retriever"].store.vectors
+    q = torch.as_tensor(bench.queries[:args.batch]).to(dev)
+    qm = torch.as_tensor(bench.query_mask[:args.batch]).to(dev)
+    qmf = qm.float()
+    B, Q, d = q.shape
+    qv = int(qm.sum())
+    chunk = 256
+    entries = []
+
+    def library_scan(docs, dm, sc):
+        """One PyTorch expression of the scan: dequantise, einsum, amax,
+        sum over the whole corpus (timed only, never used by the port)."""
+        df = docs.float() if sc is None else docs.float() * sc[..., None]
+        sim = torch.einsum("bqd,njd->bnqj", q, df)
+        sim.masked_fill_(~dm[None, :, None, :], NEG)
+        best = sim.amax(-1).clamp_min(NEG / 2)
+        return torch.where(qm[:, None, :], best, 0.0).sum(-1)
+
+    def scan_cost(docs, dm, sc):
+        N = docs.shape[0]
+        nbytes = (q.numel() * 4 + qm.numel() * 4
+                  + docs.numel() * docs.element_size()
+                  + (0 if sc is None else sc.numel() * 4) + dm.numel()
+                  + B * N * 4)
+        return nbytes, 2.0 * qv * int(dm.sum()) * d
+
+    # --- double-buffered scan: int8 initial (the 1-stage int8 cascade),
+    # bf16 initial, int8 and bf16 mean_pooling
+    db = {}
+    for name, docs, dm, sc in (
+            ("int8 initial", va["initial_int8"], va["initial_mask"],
+             va["initial_scale"]),
+            ("bf16 initial", vf["initial"], vf["initial_mask"], None),
+            ("int8 mean_pooling", vb["mean_pooling_int8"],
+             vb["mean_pooling_mask"], vb["mean_pooling_scale"]),
+            ("bf16 mean_pooling", vf["mean_pooling"],
+             vf["mean_pooling_mask"], None)):
+        N, D, _ = docs.shape
+        ms = time_ms(lambda: KOPS.maxsim_scores_chunked(
+            q, docs, qm, dm, chunk=chunk, scales=sc))
+        plain = time_ms(lambda: KOPS.maxsim_chunked_ref(
+            q, docs, qmf, dm, chunk=chunk, scales=sc), iters=3)
+        lib = time_ms(lambda: library_scan(docs, dm, sc), iters=3)
+        nbytes, flops = scan_cost(docs, dm, sc)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"[times] db scan {name} q[{B},{Q},{d}] docs[{N},{D},{d}]: "
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
+            f"ms, bound {b_ms:.3f} ms ({b_by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        log_bounds(f"db scan {name}", ms, nbytes, flops)
+        db[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib, shape=f"q[{B},{Q},{d}] "
+                        f"docs[{N},{D},{d}] {name.split()[0]}")
+    entries.append(dict(
+        name="maxsim_scan_db", route="cuda",
+        source="src/repro_torch/csrc/maxsim_scan_db.cu",
+        replaces="src/repro/kernels/maxsim/maxsim.py:181",
+        **db["int8 initial"]))
+
+    # --- int8 scan at the streamed top-k's chunk shape over initial codes
+    # (and over the whole corpus, the db scan's work)
+    for lo, hi in ((0, chunk), (0, va["initial_int8"].shape[0])):
+        docs = va["initial_int8"][lo:hi]
+        dm, sc = va["initial_mask"][lo:hi], va["initial_scale"][lo:hi]
+        N, D, _ = docs.shape
+        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm, scales=sc))
+        plain = time_ms(lambda: KOPS.maxsim_chunked_ref(
+            q, docs, qmf, dm, chunk=chunk, scales=sc), iters=3)
+        lib = time_ms(lambda: library_scan(docs, dm, sc), iters=3)
+        nbytes, flops = scan_cost(docs, dm, sc)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"[times] scan int8 initial q[{B},{Q},{d}] docs[{N},{D},{d}]: "
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
+            f"ms, bound {b_ms:.3f} ms ({b_by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        log_bounds(f"scan int8 initial [{N}]", ms, nbytes, flops)
+        if hi == chunk:
+            entries.append(dict(
+                name="maxsim_scan_int8", route="cuda",
+                source="src/repro_torch/csrc/maxsim_scan.cu",
+                replaces="src/repro/kernels/maxsim/maxsim.py:105",
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}] "
+                "int8"))
+
+    # --- int8 rerank: rows [B, 256] onto initial codes (the 2-stage
+    # cascade over the 1-stage int8 store)
+    codes, sc, dm = (va["initial_int8"], va["initial_scale"],
+                     va["initial_mask"])
+    N, D, _ = codes.shape
+    s0 = KOPS.maxsim_scores(q, vf["mean_pooling"], qm,
+                            vf["mean_pooling_mask"])
+    rows = torch.sort(s0, dim=-1, descending=True,
+                      stable=True)[1][:, :256].to(torch.int32)
+    L = rows.shape[1]
+    ms = time_ms(lambda: KOPS.maxsim_rerank(q, codes, rows, qm, dm,
+                                            scales=sc))
+    plain = time_ms(lambda: KOPS._rerank_ref(q, codes, rows, qmf, dm, sc),
+                    iters=3)
+
+    def library():
+        flat = rows.reshape(-1).long()
+        g = codes.index_select(0, flat).float() \
+            * sc.index_select(0, flat)[..., None]
+        sim = torch.einsum("bqd,bljd->blqj", q, g.view(B, L, D, d))
+        gm = dm.index_select(0, flat).view(B, L, D)
+        sim.masked_fill_(~gm[:, :, None, :], NEG)
+        return torch.where(qm[:, None, :], sim.amax(-1), 0.0).sum(-1)
+    lib = time_ms(library, iters=3)
+    uniq = torch.unique(rows)
+    vecs_needed = int(dm[rows.long()].sum(-1).float().mul(
+        qm.sum(-1, keepdim=True).float()).sum())
+    nbytes = (rows.numel() * 4 + q.numel() * 4 + qm.numel() * 4
+              + uniq.numel() * D * (d + 4 + 1) + B * L * 4)
+    flops = 2.0 * vecs_needed * d
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"[times] rerank int8 initial rows[{B},{L}] codes[{N},{D},{d}] "
+        f"({uniq.numel()} distinct candidates): kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, library {lib:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s achieved")
+    log_bounds("rerank int8 initial", ms, nbytes, flops)
+    entries.append(dict(
+        name="maxsim_rerank_int8", route="cuda",
+        source="src/repro_torch/csrc/maxsim_rerank.cu",
+        replaces="src/repro/kernels/maxsim/maxsim.py:312",
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, shape=f"rows[{B},{L}] codes[{N},{D},{d}]"))
+    return entries
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> None:
@@ -562,18 +914,23 @@ def main() -> None:
 
     # 3. kernels
     errs = check_kernels(args, dev)
+    errs.update(check_int8_and_db_kernels(args, dev))
 
-    # 4. main path
+    # 4. main paths
     main_res = main_path(args, dev)
+    int8_res = main_path_int8(args, dev, main_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
+    entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
+    c8 = int8_res["counts"]
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
-                "pool": main_res["counts"]["pooling"]}
-    errs_by = {"maxsim_scan": errs["maxsim_scan"],
-               "maxsim_rerank": errs["maxsim_rerank"],
-               "pool": errs["pooling"]}
+                "pool": main_res["counts"]["pooling"],
+                "maxsim_scan_db": c8["maxsim_scan_db"],
+                "maxsim_scan_int8": c8["maxsim_scan_int8"],
+                "maxsim_rerank_int8": c8["maxsim_rerank_int8"]}
+    errs_by = dict(errs, pool=errs["pooling"])
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = errs_by[e["name"]]
@@ -584,8 +941,18 @@ def main() -> None:
                 for n, res in main_res["results"].items()))
     log(f"[times] pool: {launches['pool']} launches on the main path, one "
         "per 256-page index batch")
+    log(f"[times] int8 path launches: maxsim_scan_db {c8['maxsim_scan_db']}"
+        f" (one per chunked scan), maxsim_scan_int8 "
+        f"{c8['maxsim_scan_int8']} (one per scan_topk chunk), "
+        f"maxsim_rerank_int8 {c8['maxsim_rerank_int8']}, maxsim_rerank "
+        f"(bf16) {c8['maxsim_rerank']}")
     for n, res in main_res["results"].items():
         log(f"[summary] {n}-stage @ {args.pages} pages: kernel QPS "
+            f"{res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
+            f"ndcg@10={res['metrics']['ndcg@10']:.4f} "
+            f"recall@10={res['metrics']['recall@10']:.4f}")
+    for name, res in int8_res["results"].items():
+        log(f"[summary] {name} @ {args.pages} pages: kernel QPS "
             f"{res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
             f"ndcg@10={res['metrics']['ndcg@10']:.4f} "
             f"recall@10={res['metrics']['recall@10']:.4f}")

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import maxsim as ms
+from repro_torch.kernels.maxsim.ref import dequantize, top_k
 
 
 @dataclass(frozen=True)
@@ -39,11 +40,17 @@ class Stage:
     module's ``search`` is the plain oracle and ignores them.
 
     use_kernel     score the full-corpus scan (first) stage with the CUDA
-                   scan kernel (``kernels.maxsim.ops.maxsim_scores``);
+                   scan kernels (``kernels.maxsim.ops``): the scan, or with
+                   ``chunk`` the double-buffered scan in one launch;
                    single-vector scans stay one matrix product
     chunk          > 0 scans the corpus in chunks of that many documents,
                    bounding the plain scan's [B, chunk, Q, D] similarity
-                   block
+                   block (scores do not depend on it)
+    scan_topk      stream a RUNNING per-query top-k across corpus chunks
+                   (``kernels.maxsim.ops.maxsim_topk_chunked``; chunk
+                   ``DEFAULT_SCAN_TOPK_CHUNK`` when ``chunk`` is 0) instead
+                   of assembling the [B, N] score matrix and selecting
+                   globally. Single-vector scans keep score-then-select
     rerank_kernel  score this rerank (non-first) stage with the fused
                    gather + MaxSim kernel (``kernels.maxsim.ops
                    .maxsim_rerank``) instead of gathering a [B, L, D, d]
@@ -53,11 +60,17 @@ class Stage:
     k: int                 # candidates kept after this stage
     use_kernel: bool = False
     chunk: int = 0
+    scan_topk: bool = False
     rerank_kernel: bool = False
 
 
+# default corpus chunk for a streamed scan top-k whose stage did not set one
+DEFAULT_SCAN_TOPK_CHUNK = 1024
+
+
 def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
-                     chunk: int | None = None) -> tuple:
+                     chunk: int | None = None,
+                     scan_topk: bool | None = None) -> tuple:
     """Return ``stages`` with the scan (first) stage's dispatch policy
     replaced; ``None`` keeps the existing value."""
     first, rest = stages[0], tuple(stages[1:])
@@ -66,6 +79,8 @@ def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
         kw["use_kernel"] = use_kernel
     if chunk is not None:
         kw["chunk"] = chunk
+    if scan_topk is not None:
+        kw["scan_topk"] = scan_topk
     return (dataclasses.replace(first, **kw),) + rest
 
 
@@ -95,14 +110,6 @@ def one_stage(top_k: int = 100) -> tuple:
     return (Stage("initial", top_k),)
 
 
-def top_k(x: torch.Tensor, k: int) -> tuple:
-    """(values, indices) of the k largest entries along the last axis,
-    descending, ties broken by the lower index (``jax.lax.top_k``'s
-    order). ``torch.topk`` does not guarantee that order."""
-    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def _store_accessors():
     """The store's key schema is owned by ``repro_torch.retrieval.store``;
     retrieval depends on core, so the oracle imports the accessors at call
@@ -117,10 +124,14 @@ def _score_stage(stage: Stage, store: dict, q: torch.Tensor,
     """Scores for one stage. q [B,Q,d]; cand [B,C] doc ids or None (=all).
 
     Returns [B, C] (or [B, N] when cand is None). Dead slots of a
-    capacity-padded store score NEG at every stage.
+    capacity-padded store score NEG at every stage. A vector whose float
+    copy was dropped (``quantize_store(stages=...)``) is dequantised
+    whole: the oracle's reference semantics.
     """
     rerank_arrays, validity = _store_accessors()
-    vecs, mask = rerank_arrays(store, stage.vector)
+    vecs, mask, scales = rerank_arrays(store, stage.vector)
+    if scales is not None:
+        vecs = dequantize(vecs, scales)
     valid = validity(store)
     if vecs.shape[-1] < q.shape[-1]:
         # Matryoshka stage: score with the matching query dim prefix

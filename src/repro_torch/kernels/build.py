@@ -28,19 +28,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-# C entry points: name -> argtypes. Every entry point returns the
+# C entry points: name -> argtypes. docs_type is 0 for f32, 1 for bf16
+# and 2 for int8 codes (which read scales [N, D] f32; the other types
+# take a null pointer there). Every entry point returns the
 # cudaError_t of its launch (0 = launched).
 SIGNATURES = {
     "maxsim_scan": {
-        # q, q_mask, docs, docs_bf16, doc_mask, doc_mask_stride, out,
-        # B, Q, N, D, d, stream
-        "maxsim_scan_launch": [_P, _P, _P, _I, _P, _I64, _P,
+        # q, q_mask, docs, docs_type, scales, doc_mask, doc_mask_stride,
+        # out, B, Q, N, D, d, stream
+        "maxsim_scan_launch": [_P, _P, _P, _I, _P, _P, _I64, _P,
                                _I, _I, _I, _I, _I, _P],
     },
+    "maxsim_scan_db": {
+        # q, q_mask, docs, docs_type, scales, doc_mask, doc_mask_stride,
+        # out, B, Q, N, D, d, stream
+        "maxsim_scan_db_launch": [_P, _P, _P, _I, _P, _P, _I64, _P,
+                                  _I, _I, _I, _I, _I, _P],
+    },
     "maxsim_rerank": {
-        # rows, q, q_mask, docs, docs_bf16, doc_mask, doc_mask_stride,
-        # out, B, L, Q, D, d, stream
-        "maxsim_rerank_launch": [_P, _P, _P, _P, _I, _P, _I64, _P,
+        # rows, q, q_mask, docs, docs_type, scales, doc_mask,
+        # doc_mask_stride, out, B, L, Q, D, d, stream
+        "maxsim_rerank_launch": [_P, _P, _P, _P, _I, _P, _P, _I64, _P,
                                  _I, _I, _I, _I, _I, _P],
     },
     "pool": {

@@ -10,13 +10,17 @@ nowhere else, so ``launch_count`` counts real kernel launches: a run can
 show that its main path went through the kernels by zeroing the counters
 (``reset_counts``) before it and reading them after.
 
-Kernel families: ``maxsim_scan``, ``maxsim_rerank``, ``pooling``.
+Counters: ``maxsim_scan`` and ``maxsim_rerank`` (f32/bf16 documents),
+``maxsim_scan_int8`` and ``maxsim_rerank_int8`` (the same kernels' int8
+variants), ``maxsim_scan_db`` (the double-buffered chunk scan, any
+document type) and ``pooling``.
 """
 from __future__ import annotations
 
 import torch
 
-KERNELS = ("maxsim_scan", "maxsim_rerank", "pooling")
+KERNELS = ("maxsim_scan", "maxsim_scan_int8", "maxsim_scan_db",
+           "maxsim_rerank", "maxsim_rerank_int8", "pooling")
 
 _COUNTS = {name: 0 for name in KERNELS}
 

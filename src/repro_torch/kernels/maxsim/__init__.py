@@ -1,6 +1,12 @@
-from repro_torch.kernels.maxsim.ops import (maxsim_rerank, maxsim_scores,
-                                            maxsim_scores_chunked)
-from repro_torch.kernels.maxsim.ref import NEG, maxsim_ref
+from repro_torch.kernels.maxsim.ops import (maxsim_chunked_ref,
+                                            maxsim_rerank, maxsim_scores,
+                                            maxsim_scores_chunked,
+                                            maxsim_scores_pipelined,
+                                            maxsim_topk_chunked,
+                                            quantize_int8)
+from repro_torch.kernels.maxsim.ref import NEG, dequantize, maxsim_ref
 
-__all__ = ["NEG", "maxsim_ref", "maxsim_rerank", "maxsim_scores",
-           "maxsim_scores_chunked"]
+__all__ = ["NEG", "dequantize", "maxsim_chunked_ref", "maxsim_ref",
+           "maxsim_rerank", "maxsim_scores", "maxsim_scores_chunked",
+           "maxsim_scores_pipelined", "maxsim_topk_chunked",
+           "quantize_int8"]

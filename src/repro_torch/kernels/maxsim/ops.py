@@ -6,25 +6,40 @@ hand-written scan kernel (``csrc/maxsim_scan.cu``), which masks the ragged
 Q, N and D edges itself (nothing is padded); for CPU tensors it runs the
 plain version ``maxsim_ref``.
 
+``maxsim_scores_chunked(q, docs, ..., chunk=C)`` is the chunked scan. For
+CUDA tensors with 0 < C < N it promotes itself, as the JAX package's does,
+to ``maxsim_scores_pipelined``: ONE launch of the double-buffered scan
+(``csrc/maxsim_scan_db.cu``). For CPU tensors it runs the plain chunked
+loop ``maxsim_chunked_ref``. ``chunk`` never changes a score.
+
 ``maxsim_rerank(q, docs, rows, ...)`` is the fused gather + MaxSim rerank:
 per-query candidate slot ids in, [B, L] exact MaxSim scores out. For CUDA
 tensors it launches ``csrc/maxsim_rerank.cu``, which reads each
 candidate's rows straight from the corpus (no gathered [B, L, D, d]
 copy); for CPU tensors it runs the plain version ``_rerank_ref``.
 
-Neither wrapper falls back: a failed launch raises.
+``maxsim_topk_chunked`` is the streamed scan top-k: it scores the corpus
+chunk by chunk and carries a running per-query top-k, so the [B, N] score
+matrix never exists.
+
+Every scan and the rerank take int8 codes with per-vector ``scales``
+[N, D] f32 (``quantize_int8``); the kernels dequantise in the product.
+No wrapper falls back: a failed launch raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import dispatch as DSP
 from repro_torch.kernels.dispatch import full_f32
-from repro_torch.kernels.maxsim.ref import NEG, maxsim_ref
+from repro_torch.kernels.maxsim.ref import NEG, dequantize, maxsim_ref, top_k
 
 _QT = 16                     # query tokens per register pass in the kernels
-_SMEM_LIMIT = 48 * 1024      # static launch limit without opt-in
+_SMEM_LIMIT = 48 * 1024      # static launch limit of the scan and rerank
+_DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_INV_127 = np.float32(1.0 / 127.0)
 
 
 def _ones_mask(shape, device) -> torch.Tensor:
@@ -47,57 +62,78 @@ def _mask_arg(mask, N: int, D: int, device) -> tuple:
     return m, (0 if mask.shape[0] == 1 else D)
 
 
-def _kernel_inputs(q, q_mask, docs, what: str) -> tuple:
-    """Shared checks of the scan and rerank kernels' operands; returns the
-    query and its mask as contiguous f32 on the docs' device."""
+def _kernel_inputs(q, q_mask, docs, scales, what: str) -> tuple:
+    """Shared checks of the kernels' operands; returns the query and its
+    mask as contiguous f32 on the docs' device, the document type code and
+    the scales as contiguous f32 (None for float documents)."""
     d = q.shape[-1]
+    N, D = docs.shape[:2]
     if docs.shape[-1] != d:
         raise ValueError(f"{what}: query dim {d} != doc dim {docs.shape[-1]}")
-    if docs.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{what}: docs must be bfloat16 or float32, got "
-                        f"{docs.dtype}")
+    if docs.dtype not in _DOC_TYPES:
+        raise TypeError(f"{what}: docs must be float32, bfloat16 or int8 "
+                        f"codes, got {docs.dtype}")
+    if (docs.dtype == torch.int8) != (scales is not None):
+        raise ValueError(f"{what}: int8 codes need their scales, and only "
+                         "int8 codes take scales")
     if d % 8:
         raise ValueError(f"{what}: vector dim {d} must be a multiple of 8 "
-                         "(16-byte row loads)")
-    if not docs.is_contiguous() or docs.data_ptr() % 16:
-        raise ValueError(f"{what}: docs must be contiguous and 16-byte "
+                         "(8-element row loads)")
+    align = 8 if docs.dtype == torch.int8 else 16
+    if not docs.is_contiguous() or docs.data_ptr() % align:
+        raise ValueError(f"{what}: docs must be contiguous and {align}-byte "
                          "aligned")
-    qp = -(-q.shape[1] // _QT) * _QT
-    if (qp * d + qp) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{what}: {q.shape[1]} query tokens of dim {d} do "
-                         "not fit the kernel's shared-memory query block")
     dev = docs.device
+    if scales is not None:
+        if tuple(scales.shape) != (N, D):
+            raise ValueError(f"{what}: scales shape {tuple(scales.shape)} != "
+                             f"[{N}, {D}]")
+        scales = scales.to(device=dev, dtype=torch.float32).contiguous()
     qf = q.to(device=dev, dtype=torch.float32).contiguous()
     qm = q_mask.to(device=dev, dtype=torch.float32).contiguous()
-    return qf, qm
+    return qf, qm, _DOC_TYPES[docs.dtype], scales
 
 
-def _scan_cuda(q, q_mask, docs, doc_mask) -> torch.Tensor:
-    """Launch ``maxsim_scan_launch``: [B, N] f32 scores (NEG/2 floor)."""
+def _check_query_smem(q, what: str) -> None:
+    qp = -(-q.shape[1] // _QT) * _QT
+    if (qp * q.shape[-1] + qp) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{what}: {q.shape[1]} query tokens of dim "
+                         f"{q.shape[-1]} do not fit the kernel's "
+                         "shared-memory query block")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _scan_launch(entry: str, q, q_mask, docs, doc_mask, scales
+                 ) -> torch.Tensor:
+    """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db"): the
+    two take the same arguments. [B, N] f32 scores (NEG/2 floor)."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
-    qf, qm = _kernel_inputs(q, q_mask, docs, "maxsim_scan")
+    qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales, entry)
     out = torch.empty((B, N), dtype=torch.float32, device=docs.device)
     if B == 0 or N == 0:
         return out
     dm, stride = _mask_arg(doc_mask, N, D, docs.device)
-    lib = build.library("maxsim_scan")
+    lib = build.library(entry)
     with torch.cuda.device(docs.device):
-        rc = lib.maxsim_scan_launch(
-            qf.data_ptr(), qm.data_ptr(), docs.data_ptr(),
-            int(docs.dtype == torch.bfloat16), dm.data_ptr(), stride,
-            out.data_ptr(), B, Q, N, D, d,
+        rc = getattr(lib, entry + "_launch")(
+            qf.data_ptr(), qm.data_ptr(), docs.data_ptr(), dtype, _ptr(sc),
+            dm.data_ptr(), stride, out.data_ptr(), B, Q, N, D, d,
             torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "maxsim_scan")
-    DSP.record("maxsim_scan")
+    build.check(rc, entry)
     return out
 
 
 def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
                   q_mask: torch.Tensor | None = None,
                   doc_mask: torch.Tensor | None = None,
-                  doc_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """q [B,Q,d], docs [N,D,d] -> scores [B,N] (f32).
+                  doc_valid: torch.Tensor | None = None,
+                  *, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """q [B,Q,d], docs [N,D,d] (f32/bf16, or int8 codes with ``scales``
+    [N,D] f32) -> scores [B,N] (f32).
 
     ``doc_valid`` [N] bool marks live documents in a capacity-padded store;
     dead slots score NEG so they can never enter a top-k on merit. The mask
@@ -108,11 +144,68 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        out = _scan_cuda(q, q_mask, docs, doc_mask)
+        _check_query_smem(q, "maxsim_scan")
+        out = _scan_launch("maxsim_scan", q, q_mask, docs, doc_mask, scales)
+        DSP.record("maxsim_scan_int8" if scales is not None
+                   else "maxsim_scan")
     else:
         if doc_mask is None:
             doc_mask = _ones_mask((1, D), docs.device)
-        out = maxsim_ref(q, q_mask, docs, doc_mask)
+        out = maxsim_ref(q, q_mask, docs, doc_mask, scales)
+    if doc_valid is not None:
+        out = out.masked_fill(~doc_valid[None, :], NEG)
+    return out
+
+
+def maxsim_chunked_ref(q: torch.Tensor, docs: torch.Tensor,
+                       q_mask: torch.Tensor | None = None,
+                       doc_mask: torch.Tensor | None = None,
+                       doc_valid: torch.Tensor | None = None,
+                       *, chunk: int,
+                       scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The chunked scans' plain version on any device: ``maxsim_ref`` over
+    ``chunk`` documents at a time, so the [B, chunk, Q, D] similarity
+    block (and, for int8, the dequantised [chunk, D, d] copy) is bounded
+    whatever N is. A broadcast [1, D] mask is passed to every chunk
+    whole; an [N, D] mask is sliced with the documents."""
+    B, Q, _ = q.shape
+    N, D, _ = docs.shape
+    if q_mask is None:
+        q_mask = _ones_mask((B, Q), q.device)
+    if doc_mask is None:
+        doc_mask = _ones_mask((1, D), docs.device)
+    chunk = chunk if 0 < chunk < N else max(N, 1)
+    out = torch.cat([
+        maxsim_ref(q, q_mask, docs[i:i + chunk],
+                   doc_mask if doc_mask.shape[0] == 1
+                   else doc_mask[i:i + chunk],
+                   None if scales is None else scales[i:i + chunk])
+        for i in range(0, max(N, 1), chunk)], dim=1)
+    if doc_valid is not None:
+        out = out.masked_fill(~doc_valid[None, :], NEG)
+    return out
+
+
+def maxsim_scores_pipelined(q: torch.Tensor, docs: torch.Tensor,
+                            q_mask: torch.Tensor | None = None,
+                            doc_mask: torch.Tensor | None = None,
+                            doc_valid: torch.Tensor | None = None,
+                            *, chunk: int,
+                            scales: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """The double-buffered streaming scan: for CUDA tensors ONE launch of
+    ``csrc/maxsim_scan_db.cu``, which streams the corpus through a 2-slot
+    shared-memory ring (the copy of tile i+1 in flight while tile i is
+    scored); its staging tile is its own, so ``chunk`` only sets the
+    plain version's chunk. For CPU tensors, ``maxsim_chunked_ref``."""
+    B, Q, _ = q.shape
+    if not DSP.on_cuda(docs):
+        return maxsim_chunked_ref(q, docs, q_mask, doc_mask, doc_valid,
+                                  chunk=chunk, scales=scales)
+    if q_mask is None:
+        q_mask = _ones_mask((B, Q), q.device)
+    out = _scan_launch("maxsim_scan_db", q, q_mask, docs, doc_mask, scales)
+    DSP.record("maxsim_scan_db")
     if doc_valid is not None:
         out = out.masked_fill(~doc_valid[None, :], NEG)
     return out
@@ -122,41 +215,37 @@ def maxsim_scores_chunked(q: torch.Tensor, docs: torch.Tensor,
                           q_mask: torch.Tensor | None = None,
                           doc_mask: torch.Tensor | None = None,
                           doc_valid: torch.Tensor | None = None,
-                          *, chunk: int) -> torch.Tensor:
-    """Streaming corpus scan: score ``chunk`` documents per call.
-
-    Bounds the plain version's [B, chunk, Q, D] similarity block
-    regardless of corpus size N (the kernel never builds it, so on the
-    card chunking only adds launches). chunk <= 0 means unchunked.
-    ``doc_valid`` [N] bool NEGs dead capacity-padding slots, applied once
-    on the assembled [B, N] output."""
+                          *, chunk: int,
+                          scales: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Streaming corpus scan in ``chunk``-document steps; chunk <= 0 (or
+    >= N) means unchunked (``maxsim_scores``). Otherwise the double-
+    buffered scan ``maxsim_scores_pipelined``: one kernel launch on the
+    card, the plain chunked loop on the CPU. ``doc_valid`` [N] bool NEGs
+    dead capacity-padding slots, applied once on the [B, N] output."""
     N = docs.shape[0]
     if chunk <= 0 or chunk >= N:
-        return maxsim_scores(q, docs, q_mask, doc_mask, doc_valid)
-    out = torch.cat([
-        maxsim_scores(q, docs[i:i + chunk], q_mask,
-                      None if doc_mask is None else doc_mask[i:i + chunk])
-        for i in range(0, N, chunk)], dim=1)
-    if doc_valid is not None:
-        out = out.masked_fill(~doc_valid[None, :], NEG)
-    return out
+        return maxsim_scores(q, docs, q_mask, doc_mask, doc_valid,
+                             scales=scales)
+    return maxsim_scores_pipelined(q, docs, q_mask, doc_mask, doc_valid,
+                                   chunk=chunk, scales=scales)
 
 
 # ---------------------------------------------------------------------------
 # fused gather + MaxSim rerank
 # ---------------------------------------------------------------------------
 
-def _rerank_ref(q, docs, rows, q_mask, doc_mask):
-    """The rerank's plain version: per query, gather the candidate rows
-    and score them with ``core.maxsim.maxsim_scan``'s math — no NEG/2
-    floor, so a fully masked candidate scores Qv*NEG. The gathered copy
-    is [L, D, d] for one query at a time."""
+def _rerank_ref(q, docs, rows, q_mask, doc_mask, scales=None):
+    """The rerank's plain version: per query, gather (and dequantise) the
+    candidate rows and score them with ``core.maxsim.maxsim_scan``'s math
+    — no NEG/2 floor, so a fully masked candidate scores Qv*NEG. The
+    gathered copy is [L, D, d] for one query at a time."""
     full_f32()
     out = []
     for b in range(q.shape[0]):
         cl = rows[b].long()
-        dv = docs[cl].to(q.dtype)                          # [L, D, d]
-        sim = torch.einsum("qd,njd->nqj", q[b], dv)
+        dv = dequantize(docs[cl], None if scales is None else scales[cl])
+        sim = torch.einsum("qd,njd->nqj", q[b].float(), dv)
         if doc_mask is not None:
             dm = doc_mask if doc_mask.shape[0] == 1 else doc_mask[cl]
             sim.masked_fill_(~(dm > 0)[:, None, :], NEG)
@@ -166,12 +255,14 @@ def _rerank_ref(q, docs, rows, q_mask, doc_mask):
     return torch.stack(out) if out else q.new_zeros((0, rows.shape[1]))
 
 
-def _rerank_cuda(q, q_mask, docs, rows, doc_mask) -> torch.Tensor:
+def _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales) -> torch.Tensor:
     """Launch ``maxsim_rerank_launch``: [B, L] f32 scores (no floor)."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     L = rows.shape[1]
-    qf, qm = _kernel_inputs(q, q_mask, docs, "maxsim_rerank")
+    _check_query_smem(q, "maxsim_rerank")
+    qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales,
+                                       "maxsim_rerank")
     out = torch.empty((B, L), dtype=torch.float32, device=docs.device)
     if B == 0 or L == 0:
         return out
@@ -181,20 +272,22 @@ def _rerank_cuda(q, q_mask, docs, rows, doc_mask) -> torch.Tensor:
     with torch.cuda.device(docs.device):
         rc = lib.maxsim_rerank_launch(
             rows.data_ptr(), qf.data_ptr(), qm.data_ptr(), docs.data_ptr(),
-            int(docs.dtype == torch.bfloat16), dm.data_ptr(), stride,
-            out.data_ptr(), B, L, Q, D, d,
-            torch.cuda.current_stream().cuda_stream)
+            dtype, _ptr(sc), dm.data_ptr(), stride, out.data_ptr(), B, L, Q,
+            D, d, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "maxsim_rerank")
-    DSP.record("maxsim_rerank")
+    DSP.record("maxsim_rerank_int8" if scales is not None
+               else "maxsim_rerank")
     return out
 
 
 def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
                   q_mask: torch.Tensor | None = None,
                   doc_mask: torch.Tensor | None = None,
-                  ok: torch.Tensor | None = None) -> torch.Tensor:
-    """Fused gather + exact MaxSim rerank: q [B,Q,d], docs [N,D,d],
-    rows [B,L] candidate slot ids -> scores [B,L] f32.
+                  ok: torch.Tensor | None = None,
+                  *, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused gather + exact MaxSim rerank: q [B,Q,d], docs [N,D,d] (float,
+    or int8 codes with ``scales`` [N,D]), rows [B,L] candidate slot ids ->
+    scores [B,L] f32.
 
     ``rows`` are clipped in-range; ``ok`` [B,L] bool marks candidates the
     caller actually owns — the rest score NEG so they can never win a
@@ -209,9 +302,105 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        out = _rerank_cuda(q, q_mask, docs, rows, doc_mask)
+        out = _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales)
     else:
-        out = _rerank_ref(q, docs, rows, q_mask, doc_mask)
+        out = _rerank_ref(q, docs, rows, q_mask, doc_mask, scales)
     if ok is not None:
         out = out.masked_fill(~ok, NEG)
     return out
+
+
+# ---------------------------------------------------------------------------
+# streamed scan top-k
+# ---------------------------------------------------------------------------
+
+def _merge_topk(vals, ids, new_vals, new_ids, k: int) -> tuple:
+    """(vals, ids) [B, k] running winners + a chunk's [B, kb] locals ->
+    merged [B, k]; ties keep the carry first (``top_k`` is stable)."""
+    v, sel = top_k(torch.cat([vals, new_vals], dim=1), k)
+    return v, torch.gather(torch.cat([ids, new_ids], dim=1), 1, sel)
+
+
+def maxsim_topk_chunked(q: torch.Tensor, docs: torch.Tensor,
+                        q_mask: torch.Tensor | None = None,
+                        doc_mask: torch.Tensor | None = None,
+                        doc_valid: torch.Tensor | None = None,
+                        *, k: int, chunk: int,
+                        scales: torch.Tensor | None = None,
+                        use_kernel: bool = True) -> tuple:
+    """Streaming corpus scan with a RUNNING per-query top-k: returns
+    (vals [B, k], local ids [B, k]) without ever assembling the [B, N]
+    score matrix.
+
+    Each step scores one ``chunk``-document block (``maxsim_scores``: the
+    scan kernel on the card; with ``use_kernel=False`` its plain version
+    on any device), NEGs dead ``doc_valid`` slots BEFORE the block's
+    local top-k, selects the block's top ``min(k, chunk)`` and merges
+    them into the carry. Ids are local and always < N: the last block is
+    padded to ``chunk`` with slots scored -inf, strictly below every real
+    slot (a fully token-masked live document scores Q*NEG, below the
+    dead-slot NEG but finite), and the carry is seeded with -inf, so with
+    k <= N real slots a padding id never leaks out."""
+    B = q.shape[0]
+    N = docs.shape[0]
+    k = min(k, N)
+
+    def score(lo, hi):
+        dm = doc_mask
+        if dm is not None and dm.shape[0] != 1:
+            dm = dm[lo:hi]
+        sc = None if scales is None else scales[lo:hi]
+        if use_kernel:
+            return maxsim_scores(q, docs[lo:hi], q_mask, dm, scales=sc)
+        return maxsim_chunked_ref(q, docs[lo:hi], q_mask, dm, chunk=0,
+                                  scales=sc)
+
+    if chunk <= 0 or chunk >= N:
+        s = score(0, N)
+        if doc_valid is not None:
+            s = s.masked_fill(~doc_valid[None, :], NEG)
+        return top_k(s, k)
+    kb = min(k, chunk)
+    vals = torch.full((B, k), -torch.inf, dtype=torch.float32,
+                      device=docs.device)
+    ids = torch.zeros((B, k), dtype=torch.int64, device=docs.device)
+    for lo in range(0, N, chunk):
+        hi = min(lo + chunk, N)
+        s = score(lo, hi)
+        if doc_valid is not None:
+            s = s.masked_fill(~doc_valid[None, lo:hi], NEG)
+        if hi - lo < chunk:                    # chunk padding sinks to -inf
+            s = torch.cat([s, s.new_full((B, chunk - (hi - lo)),
+                                         -torch.inf)], dim=1)
+        v, i = top_k(s, kb)
+        vals, ids = _merge_topk(vals, ids, v, i + lo, k)
+    return vals, ids
+
+
+# ---------------------------------------------------------------------------
+# int8 quantisation
+# ---------------------------------------------------------------------------
+
+def _quantize_block(docs: torch.Tensor, eps: float) -> tuple:
+    amax = docs.abs().float().amax(dim=-1)
+    # the JAX reference's `max(amax, eps) / 127.0` compiles to a product
+    # with the f32 reciprocal; the per-element division below is a real
+    # division there and here, so codes and scales agree bit for bit
+    scales = amax.clamp_min(eps) * torch.tensor(_INV_127,
+                                                device=docs.device)
+    codes = torch.round(docs.float() / scales[..., None]).clamp_(-127, 127)
+    return codes.to(torch.int8), scales
+
+
+def quantize_int8(docs: torch.Tensor, eps: float = 1e-9,
+                  chunk: int = 0) -> tuple:
+    """Per-vector symmetric int8 quantisation: docs [..., d] (any float
+    type) -> (int8 codes [..., d], f32 scales [...]), rounding half to
+    even. ``chunk`` > 0 processes the leading axis in slabs of that many
+    rows, bounding the f32 transient at [chunk, ..., d]."""
+    if 0 < chunk < docs.shape[0]:
+        parts = [_quantize_block(docs[i:i + chunk], eps)
+                 for i in range(0, docs.shape[0], chunk)]
+        return (torch.cat([c for c, _ in parts]),
+                torch.cat([s for _, s in parts]))
+    return _quantize_block(docs, eps)

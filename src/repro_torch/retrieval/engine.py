@@ -3,10 +3,13 @@
 Executes the paper's prefetch -> rerank cascade (§2.4) eagerly over the
 segments of a ``SegmentedStore``:
 
-- stage 0 scans every segment (the CUDA scan kernel when the stage sets
-  ``use_kernel``, the plain ``core.maxsim`` scan otherwise, chunked by
-  ``Stage.chunk``), keeps each segment's top-k and merges them in a global
-  SLOT id space (segment offsets = cumulative capacities);
+- stage 0 scans every segment (the CUDA scan kernels when the stage sets
+  ``use_kernel`` — with ``Stage.chunk`` the double-buffered scan in one
+  launch — the plain scan otherwise), over int8 codes when the store
+  holds them; it keeps each segment's top-k (or, with
+  ``Stage.scan_topk``, streams a running top-k across corpus chunks) and
+  merges them in a global SLOT id space (segment offsets = cumulative
+  capacities);
 - later stages rerank the surviving candidates against each segment (the
   fused gather + MaxSim kernel when the stage sets ``rerank_kernel``, a
   per-query gather + ``maxsim_scan`` otherwise). A candidate is real in
@@ -22,13 +25,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import maxsim as MS
-from repro_torch.core.multistage import Stage, top_k
+from repro_torch.core.multistage import DEFAULT_SCAN_TOPK_CHUNK, Stage, top_k
 from repro_torch.kernels.maxsim import ops as KOPS
+from repro_torch.kernels.maxsim.ref import dequantize
 from repro_torch.retrieval.store import (effective_validity, rerank_arrays,
                                          scan_arrays)
 from repro_torch.retrieval.topk import merge_topk
 
 NEG = -1e30
+INT8_REF_CHUNK = 1024      # plain int8 scan chunk when the stage sets none
 
 
 def _scan_prep(vecs, q):
@@ -39,29 +44,71 @@ def _scan_prep(vecs, q):
     return q
 
 
-def _dispatch_scan(stage: Stage, vecs, mask, q, q_mask, doc_valid=None):
-    """Score the full-corpus scan stage per the stage's dispatch policy:
-    [n_docs, D, d] -> [B, n_docs]. ``doc_valid`` [N] bool NEGs dead
-    capacity-padding slots."""
-    q = _scan_prep(vecs, q)
-    if vecs.ndim == 2:                        # single-vector stage
-        s = MS.maxsim_single_vector(q, vecs, q_mask)
-    elif stage.use_kernel:
-        return KOPS.maxsim_scores_chunked(q, vecs, q_mask, mask, doc_valid,
-                                          chunk=stage.chunk)
-    else:
-        s = MS.maxsim_batched(q, vecs, q_mask, mask, chunk=stage.chunk)
+def _single_vector_scores(q, vecs, q_mask, scales, doc_valid):
+    """A single-vector (pooled) scan is one matrix product, over the
+    dequantised vectors when they are int8 codes: [B, N]."""
+    if scales is not None:
+        vecs = vecs.to(q.dtype) * scales[..., None].to(q.dtype)
+    s = MS.maxsim_single_vector(q, vecs, q_mask)
     if doc_valid is not None:
         s = s.masked_fill(~doc_valid[None, :], NEG)
     return s
 
 
-def _score_candidates(stage_vecs, stage_mask, q, q_mask, rows, ok,
-                      rerank_kernel: bool = False):
+def _dispatch_scan(stage: Stage, vecs, mask, q, q_mask, scales,
+                   doc_valid=None):
+    """Score the full-corpus scan stage per the stage's dispatch policy:
+    [n_docs, D, d] -> [B, n_docs]. ``doc_valid`` [N] bool NEGs dead
+    capacity-padding slots.
+
+    ``use_kernel`` takes the kernel wrappers (the double-buffered scan
+    when ``chunk`` is set). Otherwise an int8 stage streams through the
+    plain chunked scan, dequantising one chunk at a time (a whole
+    [N, D, d] float copy would undo the int8 saving), with a bounded
+    default chunk; a float stage runs ``core.maxsim``."""
+    q = _scan_prep(vecs, q)
+    if vecs.ndim == 2:                        # single-vector stage
+        return _single_vector_scores(q, vecs, q_mask, scales, doc_valid)
+    if stage.use_kernel:
+        return KOPS.maxsim_scores_chunked(q, vecs, q_mask, mask, doc_valid,
+                                          chunk=stage.chunk, scales=scales)
+    if scales is not None:
+        chunk = stage.chunk if stage.chunk > 0 else INT8_REF_CHUNK
+        return KOPS.maxsim_chunked_ref(q, vecs, q_mask, mask, doc_valid,
+                                       chunk=chunk, scales=scales)
+    s = MS.maxsim_batched(q, vecs, q_mask, mask, chunk=stage.chunk)
+    if doc_valid is not None:
+        s = s.masked_fill(~doc_valid[None, :], NEG)
+    return s
+
+
+def _dispatch_scan_topk(stage: Stage, vecs, mask, q, q_mask, scales,
+                        doc_valid, k: int):
+    """Scan-stage select with a STREAMED running top-k: (vals, local ids)
+    [B, k] without the [B, N] score matrix
+    (``kernels.maxsim.ops.maxsim_topk_chunked``; each chunk through the
+    scan kernel when the stage sets ``use_kernel``). Single-vector scans
+    keep score-then-select: their [B, N] scores are the product's output,
+    not an avoidable intermediate."""
+    q = _scan_prep(vecs, q)
+    if vecs.ndim == 2:
+        s = _single_vector_scores(q, vecs, q_mask, scales, doc_valid)
+        return top_k(s, min(k, vecs.shape[0]))
+    chunk = stage.chunk if stage.chunk > 0 else DEFAULT_SCAN_TOPK_CHUNK
+    return KOPS.maxsim_topk_chunked(q, vecs, q_mask, mask, doc_valid, k=k,
+                                    chunk=chunk, scales=scales,
+                                    use_kernel=stage.use_kernel)
+
+
+def _score_candidates(stage_vecs, stage_mask, stage_scales, q, q_mask, rows,
+                      ok, rerank_kernel: bool = False):
     """Score per-query candidate lists against ONE segment's tensors.
 
     rows [B, L] in-range local slot ids; ok [B, L] marks candidates this
     segment owns (in-segment and doc_valid) — the rest score NEG.
+    ``stage_scales`` is set when the float copy was dropped (int8 rerank):
+    every path dequantises the gathered rows, which is elementwise and so
+    the same as the oracle's dequantise-then-gather.
     ``rerank_kernel`` routes multi-vector stages to the fused gather +
     MaxSim wrapper (no [B, L, D, d] copy); otherwise each query gathers
     its [L, D, d] candidates and scores them with ``maxsim_scan``, the
@@ -70,6 +117,8 @@ def _score_candidates(stage_vecs, stage_mask, q, q_mask, rows, ok,
     q = _scan_prep(stage_vecs, q)
     if stage_vecs.ndim == 2:
         vecs = stage_vecs[rows.long()]                          # [B, L, d]
+        if stage_scales is not None:
+            vecs = dequantize(vecs, stage_scales[rows.long()])
         if q_mask is not None:
             q = q * q_mask[..., None].to(q.dtype)
         qs = q.sum(dim=-2)
@@ -77,13 +126,18 @@ def _score_candidates(stage_vecs, stage_mask, q, q_mask, rows, ok,
         return s.masked_fill(~ok, NEG)
     if rerank_kernel:
         return KOPS.maxsim_rerank(q, stage_vecs, rows, q_mask, stage_mask,
-                                  ok)
-    s = torch.stack([
-        MS.maxsim_scan(q[b], stage_vecs[rows[b].long()],
-                       None if q_mask is None else q_mask[b],
-                       None if stage_mask is None
-                       else stage_mask[rows[b].long()])
-        for b in range(q.shape[0])])
+                                  ok, scales=stage_scales)
+
+    def gathered(b):
+        cl = rows[b].long()
+        dv = stage_vecs[cl]
+        if stage_scales is not None:
+            dv = dequantize(dv, stage_scales[cl])
+        return MS.maxsim_scan(q[b], dv,
+                              None if q_mask is None else q_mask[b],
+                              None if stage_mask is None else stage_mask[cl])
+
+    s = torch.stack([gathered(b) for b in range(q.shape[0])])
     return s.masked_fill(~ok, NEG)
 
 
@@ -99,9 +153,14 @@ def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
                     q_mask):
     """Stage-0 candidate generation over ONE segment: (vals [B, k0],
     GLOBAL slot ids [B, k0]) with k0 = min(stage.k, cap)."""
-    vecs, mask = scan_arrays(store, stage.vector)
-    s = _dispatch_scan(stage, vecs, mask, q, q_mask, doc_valid=eff)
-    v, i = top_k(s, min(stage.k, cap))
+    vecs, mask, scales = scan_arrays(store, stage.vector)
+    if stage.scan_topk:
+        v, i = _dispatch_scan_topk(stage, vecs, mask, q, q_mask, scales,
+                                   eff, min(stage.k, cap))
+    else:
+        s = _dispatch_scan(stage, vecs, mask, q, q_mask, scales,
+                           doc_valid=eff)
+        v, i = top_k(s, min(stage.k, cap))
     return v, i + off
 
 
@@ -115,8 +174,8 @@ def _segment_rerank(stage: Stage, store: dict, eff, cap: int, off: int, q,
     ok = in_seg
     if eff is not None:
         ok = ok & eff[rows]
-    vecs, mask = rerank_arrays(store, stage.vector)
-    return _score_candidates(vecs, mask, q, q_mask, rows, ok,
+    vecs, mask, scales = rerank_arrays(store, stage.vector)
+    return _score_candidates(vecs, mask, scales, q, q_mask, rows, ok,
                              stage.rerank_kernel)
 
 

@@ -1,7 +1,8 @@
 """The index path: raw page embeddings in, named vectors out.
 
 ``IngestPipeline`` runs hygiene mask -> model-aware pooling -> global pool
--> store dtype on the pipeline's device, batch by batch:
+-> store dtype -> (optional) int8 quantisation on the pipeline's device,
+batch by batch:
 
     pipe = IngestPipeline(cfg)                  # device="cuda" by default
     batch = pipe.index(raw_pages, token_types)  # a VectorStore
@@ -12,6 +13,12 @@ Pooling (``use_kernel``):
   (the CUDA kernel for tensors on the card, its plain version on the CPU);
 - False -> the functional ``core.pooling`` reference (``build_store``
   wraps this mode).
+
+Quantisation (``quantize``/``stages``) follows ``quantize_store``: the
+named vectors to int8-quantise (from the stored dtype, after pooling),
+and the cascade that decides which float copies are dead weight. A
+pipeline produces one fixed key set; the store it feeds must hold the
+same set (``Retriever.upsert`` checks it).
 
 Eager PyTorch never retraces, so a batch is indexed at its own size; the
 JAX pipeline's power-of-two padding (``batch_bucket``) is not needed here.
@@ -25,11 +32,15 @@ from repro_torch.core.pooling import global_pool, pool_pages_batch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.pooling import ops as POPS
 from repro_torch.retrieval.segments import bucket_capacity
-from repro_torch.retrieval.store import VectorStore, mask_key
+from repro_torch.retrieval.store import (VectorStore, mask_key,
+                                         quantize_vectors)
 
 INGEST_BUCKET_MIN = 8
 INGEST_BUCKET_MAX = 256        # the paper's index step (pages_per_step)
 _BULK_GRANULE = 64
+# the named vectors a pipeline produces, with their rank ([N, D, d] sets
+# or one [N, d] vector per page)
+PRODUCED_NDIM = {"initial": 3, "mean_pooling": 3, "global_pooling": 2}
 
 
 def batch_bucket(n: int) -> int:
@@ -45,13 +56,20 @@ def batch_bucket(n: int) -> int:
 
 
 class IngestPipeline:
-    """Hygiene -> pooling -> store dtype, on one device."""
+    """Hygiene -> pooling -> store dtype -> int8 codes, on one device."""
 
     def __init__(self, cfg, *, store_dtype=torch.bfloat16,
-                 use_kernel: bool = True, device="cuda"):
+                 use_kernel: bool = True, quantize: tuple = (),
+                 stages: tuple | None = None, device="cuda"):
         self.cfg = cfg
         self.store_dtype = store_dtype
         self.use_kernel = use_kernel
+        self.quantize = tuple(quantize)
+        self.stages = None if stages is None else tuple(stages)
+        for name in self.quantize:
+            if name not in PRODUCED_NDIM:
+                raise ValueError(f"quantize name {name!r} not among "
+                                 f"produced vectors {sorted(PRODUCED_NDIM)}")
         self.device = resolve_device(device)
         pm, row_valid = POPS.pooling_matrix_static(cfg)
         self._mat = torch.from_numpy(pm).to(self.device)
@@ -68,7 +86,8 @@ class IngestPipeline:
     def _index_arrays(self, pages: torch.Tensor,
                       token_types: torch.Tensor) -> dict:
         """pages [B, S, d] f32 + token_types [S]|[B, S] -> the named-vector
-        dict for the batch, in the store dtype."""
+        dict for the batch, in the store dtype (quantised names also as
+        int8 codes + f32 scales)."""
         N, S, _ = pages.shape
         if token_types.ndim == 1:
             token_types = token_types[None].expand(N, S)
@@ -81,13 +100,16 @@ class IngestPipeline:
         vis_mask = keep[:, S - n_vis:]
         sd = self.store_dtype
         pooled, pooled_mask = self._pool(vis, vis_mask)
-        return {
+        vectors = {
             "initial": vis.to(sd).contiguous(),
             mask_key("initial"): vis_mask.contiguous(),
             "mean_pooling": pooled.to(sd),
             mask_key("mean_pooling"): pooled_mask.contiguous(),
             "global_pooling": global_pool(vis, vis_mask).to(sd),
         }
+        if self.quantize:
+            vectors = quantize_vectors(vectors, self.quantize, self.stages)
+        return vectors
 
     def _admit(self, pages, token_types) -> tuple:
         pages = torch.as_tensor(pages).to(device=self.device,

@@ -10,7 +10,8 @@ one device.
     r.upsert(build_store(cfg, new_pages, token_types))
     r.delete([3, 17])
 
-Scan-dispatch policy (``Stage.use_kernel`` / ``chunk``) and rerank policy
+Scan-dispatch policy (``Stage.use_kernel`` / ``chunk`` / ``scan_topk``)
+and rerank policy
 (``Stage.rerank_kernel``) ride on the stages tuple. Returned ids
 are STABLE page ids (assigned at upsert); slots that never matched (k >
 live docs) come back as -1.
@@ -51,8 +52,10 @@ class Retriever:
     # ------------------------------------------------------------------
 
     def upsert(self, batch: VectorStore) -> np.ndarray:
-        """Ingest an indexed batch (``build_store`` or
-        ``IngestPipeline.index`` output). Returns stable page ids."""
+        """Ingest an indexed batch (``build_store``, ``quantize_store`` or
+        ``IngestPipeline.index`` output) with the store's key set: a
+        quantised store takes batches quantised the same way. Returns
+        stable page ids."""
         return self.store.add_pages(batch)
 
     def delete(self, ids) -> int:

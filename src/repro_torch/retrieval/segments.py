@@ -8,7 +8,11 @@
   preallocated tail of the last segment, in place; when a batch does not
   fit, a NEW segment is allocated at a bucketed power-of-two capacity;
 - ``delete`` only flips ``doc_valid`` bits (validity masking), it never
-  moves a byte.
+  moves a byte;
+- every array keeps its own dtype: the store dtype for float vectors, int8
+  for quantised codes, f32 for their scales, bool for masks. A batch is
+  written into a segment cast to the segment's dtypes, as the JAX store
+  does.
 
 Search-side, the engine scans each segment per stage and merges candidates
 in a global SLOT id space (segment offsets = cumulative capacities);
@@ -113,9 +117,10 @@ class SegmentedStore:
         """Ingest an indexed batch (the output of ``build_store`` or
         ``IngestPipeline.index``). Returns the assigned stable page ids.
 
-        Fits the WHOLE batch into the last segment's free tail when
-        possible; otherwise allocates a new bucketed segment sized to the
-        batch (batches are never split)."""
+        The batch must carry the store's exact key set (int8 codes and
+        scales included). Fits the WHOLE batch into the last segment's
+        free tail when possible; otherwise allocates a new bucketed
+        segment sized to the batch (batches are never split)."""
         n = batch.n_docs
         names = {k for k in self.segments[0].vectors
                  if not is_store_companion(k)}
