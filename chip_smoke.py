@@ -17,7 +17,8 @@ line) at the first phase that goes wrong:
             broadcast mask, ragged N and D, a Matryoshka prefix, N no
             multiple of the chunk), printing each tolerance and the
             largest error; ``quantize_int8`` on the card must give the
-            CPU's codes and scales bit for bit;
+            CPU's codes and scales bit for bit, and an empty query batch
+            or corpus must count no launch;
 4. main     indexes the synthetic benchmark through ``IngestPipeline``
             (pooling kernel) in batches of 256 pages, then runs the 1/2/3-
             stage cascades through ``Retriever.search`` with the scan and
@@ -27,9 +28,13 @@ line) at the first phase that goes wrong:
             from near-exact ties) and the same NDCG/Recall@5/10 to 3
             decimals, and the plain engine must match the
             ``multistage.search`` oracle;
-4b. int8    quantises that store as ``serve.py --int8`` does (the scan
-            vector's float copy dropped when no later stage reranks on
-            it) and runs int8 cascades with ``use_kernel``, ``chunk=256``
+4b. int8    indexes the corpus again as ``serve.py --int8`` does:
+            ``IngestPipeline`` pools and quantises each 256-page batch
+            (the scan vector's float copy dropped when no later stage
+            reranks on it) and ``Retriever.upsert`` adds the quantised
+            batches; their codes and scales must equal ``quantize_store``
+            over the phase-4 store bit for bit. It then runs int8
+            cascades with ``use_kernel``, ``chunk=256``
             and ``rerank_kernel``: 1-stage over ``initial`` codes (the
             double-buffered scan), 2-stage over ``mean_pooling`` codes (the
             double-buffered scan, bf16 rerank), 2-stage with an int8 rerank
@@ -369,7 +374,19 @@ def check_int8_and_db_kernels(args, dev) -> dict:
         note("maxsim_rerank_int8", max_err(
             got, want, f"rerank int8 {name} rows [{B},{L}] ok-mask", **tol))
         del codes, scales, dm
+
+    # --- an empty query batch or corpus launches nothing and counts nothing
+    DSP.reset_counts()
+    codes, scales = KOPS.quantize_int8(unit(gen, (0, 8, d), torch.bfloat16,
+                                            dev))
+    KOPS.maxsim_scores(q, codes, scales=scales)
+    KOPS.maxsim_scores_pipelined(q, codes, chunk=chunk, scales=scales)
+    KOPS.maxsim_scores_pipelined(q[:0], docs, chunk=chunk)
+    KOPS.maxsim_rerank(q[:0], docs, rows[:0])
     torch.cuda.synchronize()
+    check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
+          "an empty scan or rerank counted a launch")
+    log("  empty query batch / corpus: no launch counted")
     return errs
 
 
@@ -523,13 +540,32 @@ def device_gb(vectors: dict) -> float:
     return sum(v.numel() * v.element_size() for v in vectors.values()) / 1e9
 
 
+def index_int8(args, dev, bench, name: str, stages):
+    """Index the corpus as ``serve.py --int8`` does: ``IngestPipeline``
+    pools and quantises each 256-page batch (the scan vector's float copy
+    dropped when no later stage reranks on it) and ``Retriever.upsert``
+    adds the quantised batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.retrieval.ingest import IngestPipeline
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.segments import bucket_capacity
+
+    pipe = IngestPipeline(get_config("colpali"), quantize=(name,),
+                          stages=stages, device=dev)
+    step = 256
+    r = Retriever(pipe.index(bench.pages[:step], bench.token_types),
+                  capacity=bucket_capacity(args.pages), device=dev)
+    for i in range(step, len(bench.pages), step):
+        r.upsert(pipe.index(bench.pages[i:i + step], bench.token_types))
+    return r
+
+
 def main_path_int8(args, dev, main) -> dict:
     """The int8 store with the chunked (double-buffered) and streamed
-    scans, on the phase-4 corpus."""
+    scans over the phase-4 corpus, indexed through the quantising ingest."""
     from repro_torch.core import multistage as MST
     from repro_torch.data.synthetic import evaluate_ranking
     from repro_torch.kernels import dispatch as DSP
-    from repro_torch.retrieval.retriever import Retriever
     from repro_torch.retrieval.store import (VectorStore, is_store_companion,
                                              quantize_store)
 
@@ -538,21 +574,39 @@ def main_path_int8(args, dev, main) -> dict:
     base = VectorStore({k: v[:n] for k, v in base_r.store.vectors.items()
                         if not is_store_companion(k)}, n)
     one, two = MST.one_stage(10), MST.two_stage(256, 10)
-    # as ``serve.py --int8`` does: quantise the scan vector, dropping its
-    # float copy when no later stage reranks on it
+    DSP.reset_counts()
     t0 = time.perf_counter()
-    store_a = quantize_store(base, ("initial",), one)       # initial codes
-    store_b = quantize_store(base, ("mean_pooling",), two)  # pooled codes
+    ra = index_int8(args, dev, bench, "initial", one)       # initial codes
+    rb = index_int8(args, dev, bench, "mean_pooling", two)  # pooled codes
     torch.cuda.synchronize()
-    log(f"[int8] quantised in {time.perf_counter() - t0:.1f}s; device bytes: "
+    t_index = time.perf_counter() - t0
+    check(DSP.launch_count("pooling") > 0,
+          "the int8 ingest never launched the pooling kernel")
+    store_a, store_b = (
+        VectorStore({k: v[:n] for k, v in r.store.vectors.items()
+                     if not is_store_companion(k)}, n) for r in (ra, rb))
+    # per-vector quantisation: the batched ingest's codes and scales are
+    # those of the whole float store quantised at once
+    for got, name, stages in ((store_a, "initial", one),
+                              (store_b, "mean_pooling", two)):
+        want = quantize_store(base, (name,), stages)
+        check(set(got.vectors) == set(want.vectors),
+              f"int8 ingest of {name}: keys {sorted(got.vectors)} != "
+              f"{sorted(want.vectors)}")
+        for k in (f"{name}_int8", f"{name}_scale"):
+            check(bool(torch.equal(got.vectors[k], want.vectors[k])),
+                  f"int8 ingest: {k} differs from quantize_store's")
+        del want
+    log(f"[int8] indexed 2 x {n} pages through the quantising ingest in "
+        f"{t_index:.1f}s; codes and scales equal quantize_store's bit for "
+        f"bit; device bytes: "
         f"float store {device_gb(base.vectors):.3f} GB, 1-stage int8 store "
         f"{device_gb(store_a.vectors):.3f} GB (initial: bf16 "
         f"{device_gb({'x': base.vectors['initial']}):.3f} GB -> codes + "
         "scales "
         f"{device_gb({k: store_a.vectors[k] for k in ('initial_int8', 'initial_scale')}):.3f}"
         f" GB), 2-stage int8 store {device_gb(store_b.vectors):.3f} GB")
-    ra = Retriever(store_a, device=dev)
-    rb = Retriever(store_b, device=dev)
+    del store_a, store_b
     cascades = {
         "1-stage int8 initial (db scan)": (ra, one, False),
         "2-stage bf16 pooled (db scan) + int8 rerank": (ra, two, False),

@@ -106,10 +106,12 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _scan_launch(entry: str, q, q_mask, docs, doc_mask, scales
-                 ) -> torch.Tensor:
+def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
+                 scales) -> torch.Tensor:
     """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db"): the
-    two take the same arguments. [B, N] f32 scores (NEG/2 floor)."""
+    two take the same arguments. [B, N] f32 scores (NEG/2 floor). Counts
+    one launch of ``counter`` once the launch succeeded; an empty query
+    batch or corpus launches nothing and counts nothing."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales, entry)
@@ -124,6 +126,7 @@ def _scan_launch(entry: str, q, q_mask, docs, doc_mask, scales
             dm.data_ptr(), stride, out.data_ptr(), B, Q, N, D, d,
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, entry)
+    DSP.record(counter)
     return out
 
 
@@ -145,9 +148,9 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
         _check_query_smem(q, "maxsim_scan")
-        out = _scan_launch("maxsim_scan", q, q_mask, docs, doc_mask, scales)
-        DSP.record("maxsim_scan_int8" if scales is not None
-                   else "maxsim_scan")
+        out = _scan_launch("maxsim_scan", "maxsim_scan_int8"
+                           if scales is not None else "maxsim_scan",
+                           q, q_mask, docs, doc_mask, scales)
     else:
         if doc_mask is None:
             doc_mask = _ones_mask((1, D), docs.device)
@@ -204,8 +207,8 @@ def maxsim_scores_pipelined(q: torch.Tensor, docs: torch.Tensor,
                                   chunk=chunk, scales=scales)
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
-    out = _scan_launch("maxsim_scan_db", q, q_mask, docs, doc_mask, scales)
-    DSP.record("maxsim_scan_db")
+    out = _scan_launch("maxsim_scan_db", "maxsim_scan_db", q, q_mask, docs,
+                       doc_mask, scales)
     if doc_valid is not None:
         out = out.masked_fill(~doc_valid[None, :], NEG)
     return out
