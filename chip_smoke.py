@@ -18,7 +18,17 @@ line) at the first phase that goes wrong:
             multiple of the chunk), printing each tolerance and the
             largest error; ``quantize_int8`` on the card must give the
             CPU's codes and scales bit for bit, and an empty query batch
-            or corpus must count no launch;
+            or corpus must count no launch; ``centroid_scores`` (the scan
+            kernel on a D=1 view of a [64, 128] centroid table) against
+            its plain product;
+3b. embed   the ``embed_bag`` op at three shapes: ``kernel_micro``'s
+            (table [100000, 64] f32, bags [4096, 8]), the same with a
+            bf16 table, and a table the size of Criteo-1TB's largest
+            field ([39979771, 128] f32, 20.5 GB, made on the card) with
+            bags [16384, 100]; -1 padding, both modes, with and without
+            a ``valid`` mask, held against the plain version at
+            rtol=1e-5, atol=1e-5; then the op's own run (counts zeroed
+            before, read after) and its times;
 4. main     indexes the synthetic benchmark through ``IngestPipeline``
             (pooling kernel) in batches of 256 pages, then runs the 1/2/3-
             stage cascades through ``Retriever.search`` with the scan and
@@ -41,6 +51,19 @@ line) at the first phase that goes wrong:
             onto ``initial`` codes, and two ``scan_topk`` cascades (the
             int8 scan kernel per chunk). Each new kernel must launch; ids
             and metrics must equal the plain path's as in phase 4;
+4c. filter  the phase-4 pages upserted in groups of 64, each group
+            stamped with one of 8 tenants and 8 of 64 tags (2 filter
+            words); the 2-stage kernel cascade under three ``FilterSpec``s
+            must return no id outside the filter, the ids and scores of an
+            unfiltered search over a store rebuilt from only the matching
+            pages (bit for bit expected: each (query, document) pair is
+            scored alone), and the plain filtered path's ids;
+4d. routed  the phase-4 pages with ``Retriever(routing=RoutingPolicy(64))``;
+            the 2-stage kernel cascade at full probe (``n_probe`` 64) must
+            give the exhaustive cascade's NDCG/Recall@5/10 to 3 decimals
+            and its ids apart from exact-score ties; at ``n_probe`` 8 it
+            prints recall@10 against the exhaustive ids and QPS; the
+            ``ivf_route`` and ``maxsim_rerank`` counts must be > 0;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -58,6 +81,7 @@ The last two lines are a JSON object with one entry per kernel and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -264,6 +288,16 @@ def check_kernels(args, dev) -> dict:
     errs["pooling"] = max_err(got, want,
                               "pool [256,1024,128] strided, P [34,1024]",
                               rtol=1e-5, atol=1e-5)
+
+    # --- IVF routing: the scan kernel on K one-vector f32 documents
+    cents = torch.randn((64, d), generator=gen, device=dev)
+    for dc in (d, 64):
+        c = cents[:, :dc].contiguous()
+        got = KOPS.centroid_scores(q, c, qm)
+        want = KOPS.centroid_scores_ref(q, c, qm)
+        errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
+            got, want, f"centroid_scores q[{B},{Q},{d}] centroids "
+            f"[64,{dc}] (scan kernel, D=1 f32)", **tol))
     torch.cuda.synchronize()
     return errs
 
@@ -391,21 +425,114 @@ def check_int8_and_db_kernels(args, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: embed_bag
+# ---------------------------------------------------------------------------
+
+def embed_bag_phase(args, dev) -> dict:
+    """``embed_bag`` at its three shapes: against its plain version, the
+    op's own run (counts zeroed before it, read after it) and times. The
+    Criteo-size table is made on the card and freed at the end."""
+    import torch.nn.functional as F
+    from repro_torch.configs import CRITEO_TB_VOCABS
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.kernels.embed_bag import embed_bag, embed_bag_ref
+    from repro_torch.kernels.embed_bag import ops as EOPS
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    shapes = (("kernel_micro f32", 100_000, 64, torch.float32, 4096, 8),
+              ("kernel_micro bf16", 100_000, 64, torch.bfloat16, 4096, 8),
+              ("criteo-1TB largest field f32", max(CRITEO_TB_VOCABS), 128,
+               torch.float32, 16_384, 100))
+    log(f"[embed_bag] tolerance rtol={tol['rtol']}, atol={tol['atol']} "
+        "(f32 sums over L in another order)")
+    err, launches, rows = 0.0, 0, []
+    for what, V, d, dtype, B, L in shapes:
+        t0 = time.perf_counter()
+        table = torch.randn((V, d), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, V, (B, L), generator=gen, device=dev)
+        idx[torch.rand((B, L), generator=gen, device=dev) < 0.2] = -1
+        valid = torch.rand((B, L), generator=gen, device=dev) > 0.1
+        torch.cuda.synchronize()
+        gb = table.numel() * table.element_size() / 1e9
+        # the op as a user calls it: counts zeroed before, read after
+        DSP.reset_counts()
+        out = embed_bag(table, idx, mode="sum")
+        torch.cuda.synchronize()
+        n = DSP.launch_count("embed_bag")
+        check(n == 1 and sum(DSP.launch_count(k) for k in DSP.KERNELS) == 1,
+              f"embed_bag {what}: one op call must be one embed_bag launch")
+        check(bool(torch.isfinite(out).all()) and out.shape == (B, d),
+              f"embed_bag {what}: output not finite [{B},{d}]")
+        launches += n
+        # against the plain version: both modes, with and without valid
+        for mode in ("sum", "mean"):
+            for vv in (None, valid):
+                got = embed_bag(table, idx, vv, mode=mode)
+                w = ((idx >= 0) if vv is None else vv).float()
+                if mode == "mean":
+                    w = w / w.sum(-1, keepdim=True).clamp_min(1.0)
+                want = embed_bag_ref(table, idx.clamp(0, V - 1), w)
+                err = max(err, max_err(got, want, f"embed_bag {what} "
+                          f"[{V},{d}] bags [{B},{L}] {mode}"
+                          + (" valid" if vv is not None else ""), **tol))
+                del got, want
+        # times: the kernel's launch alone, the op (with its mask and
+        # weight set-up), the plain version and one library call
+        w = (idx >= 0).float()
+        i32 = idx.clamp(0, V - 1).to(torch.int32)
+        ms = time_ms(lambda: EOPS._embed_bag_cuda(table, i32, w))
+        op_ms = time_ms(lambda: embed_bag(table, idx))
+        plain = time_ms(lambda: embed_bag_ref(table, i32, w), iters=3)
+        wl = w.to(dtype)
+        try:
+            lib = time_ms(lambda: F.embedding_bag(
+                i32, table, per_sample_weights=wl, mode="sum"), iters=3)
+        except RuntimeError as e:         # the yardstick only, not the port
+            log(f"  F.embedding_bag refused {what}: {e}")
+            lib = None
+        # bound: the rows this data needs (distinct ids of nonzero
+        # weight), the ids and weights, the output
+        need = torch.unique(i32[w != 0]).numel()
+        nbytes = (need * d * table.element_size() + B * L * 8 + B * d * 4)
+        flops = 2.0 * int((w != 0).sum()) * d
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"[times] embed_bag {what} table [{V},{d}] {gb:.2f} GB (made "
+            f"in {time.perf_counter() - t0:.1f}s), bags [{B},{L}] "
+            f"({need} distinct rows of nonzero weight): kernel {ms:.4f} ms, "
+            f"op {op_ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"(F.embedding_bag, per_sample_weights, {str(dtype)[6:]} out) "
+            f"{lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{nbytes / ms / 1e6:.1f} GB/s achieved, kernel at "
+            f"{100 * b_ms / ms:.1f}% of the bound")
+        rows.append(dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, shape=f"[{V},{d}] bags [{B},{L}]"))
+        del table, idx, valid, out, w, i32, wl
+        torch.cuda.empty_cache()
+    return dict(entry=dict(
+        name="embed_bag", route="cuda",
+        source="src/repro_torch/csrc/embed_bag.cu",
+        replaces="src/repro/kernels/embed_bag/embed_bag.py:36",
+        launches=launches, max_abs_err=err, **rows[-1]))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def run_cascade(retriever, bench, stages, batch: int) -> tuple:
+def run_cascade(retriever, bench, stages, batch: int,
+                filter=None) -> tuple:
     """All queries through ``stages`` in batches: (ids [Nq, k], scores
     [Nq, k], seconds of the timed batches, queries timed). The first batch
     is run once untimed first, to warm the allocator."""
     q, qm = bench.queries, bench.query_mask
-    retriever.search(q[:batch], qm[:batch], stages=stages)
+    retriever.search(q[:batch], qm[:batch], stages=stages, filter=filter)
     torch.cuda.synchronize()
     ids, scores = [], []
     t0 = time.perf_counter()
     for i in range(0, len(q), batch):
         s, ix = retriever.search(q[i:i + batch], qm[i:i + batch],
-                                 stages=stages)
+                                 stages=stages, filter=filter)
         scores.append(s)
         ids.append(ix)
     torch.cuda.synchronize()
@@ -414,10 +541,11 @@ def run_cascade(retriever, bench, stages, batch: int) -> tuple:
             len(q))
 
 
-def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str) -> int:
+def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str,
+                     tie: float = 1e-4) -> int:
     """Kernel vs plain top-k: equal ids except where the plain scores hold
-    a near-exact tie at that position; scores allclose. Returns the number
-    of tie-swapped positions."""
+    a tie within ``tie`` at that position (0: exact ties only); scores
+    allclose. Returns the number of tie-swapped positions."""
     check(ids_k.shape == ids_p.shape, f"{what}: id shapes differ")
     check(np.isfinite(sc_k).all() and np.isfinite(sc_p).all(),
           f"{what}: non-finite scores")
@@ -425,7 +553,6 @@ def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str) -> int:
           f"{what}: scores differ beyond rtol=1e-5, atol=1e-4 "
           f"(max {np.abs(sc_k - sc_p).max():.3e})")
     swaps = 0
-    tie = 1e-4
     for r in range(ids_k.shape[0]):
         for j in np.flatnonzero(ids_k[r] != ids_p[r]):
             near = [abs(sc_p[r, j] - sc_p[r, jj]) <= tie
@@ -663,6 +790,216 @@ def main_path_int8(args, dev, main) -> dict:
     check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
           "the plain int8 path launched a kernel")
     return dict(results=results, counts=counts, ra=ra, rb=rb)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: tenant and tag filters
+# ---------------------------------------------------------------------------
+
+def base_store(main):
+    """The phase-4 pages as one ``VectorStore`` (views of the store's
+    tensors, companions left out)."""
+    from repro_torch.retrieval.store import VectorStore, is_store_companion
+    r = main["retriever"]
+    n = r.n_docs
+    return VectorStore({k: v[:n] for k, v in r.store.vectors.items()
+                        if not is_store_companion(k)}, n)
+
+
+def filtered_path(args, dev, main) -> dict:
+    """The phase-4 pages upserted in groups of 64, each group stamped with
+    a tenant and 8 of 64 tags; filtered 2-stage searches against the
+    rebuilt matching corpus and the plain filtered path."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.segments import bucket_capacity
+    from repro_torch.retrieval.store import FilterSpec, VectorStore
+
+    bench = main["bench"]
+    base = base_store(main)
+    n = base.n_docs
+    cap = bucket_capacity(args.pages)
+    n_tenants, n_tags, group = 8, 64, 64
+    rng = np.random.default_rng(15)
+    tenant_of = np.zeros(n, np.int64)
+    tags_of = np.zeros((n, n_tags), bool)
+    empty = VectorStore({k: v[:0] for k, v in base.vectors.items()}, 0)
+    t0 = time.perf_counter()
+    r = Retriever(empty, capacity=cap, device=dev, filter_words=2)
+    for g, lo in enumerate(range(0, n, group)):
+        hi = min(lo + group, n)
+        tags = tuple(int(t) for t in rng.choice(n_tags, 8, replace=False))
+        ids = r.upsert(VectorStore({k: v[lo:hi] for k, v in
+                                    base.vectors.items()}, hi - lo),
+                       tenant=g % n_tenants, tags=tags)
+        check(np.array_equal(ids, np.arange(lo, hi)),
+              "filtered store: page ids must follow the phase-4 order")
+        tenant_of[lo:hi] = g % n_tenants
+        tags_of[lo:hi, list(tags)] = True
+    torch.cuda.synchronize()
+    log(f"[filter] upserted {n} pages in groups of {group}, {n_tenants} "
+        f"tenants, {n_tags} tags (2 filter words) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    # a tag that tenant 5 carries on the most pages, and three any-tags
+    t5 = tags_of[tenant_of == 5].sum(0)
+    req = int(np.argmax(t5))
+    specs = (FilterSpec(tenant=3), FilterSpec(tenant=5, require_tags=(req,)),
+             FilterSpec(any_tags=(1, 33, 62)))
+    two = MST.two_stage(256, 10)
+    kern = MST.with_rerank_policy(MST.with_scan_policy(two, use_kernel=True),
+                                  rerank_kernel=True)
+    plain = MST.with_scan_policy(two, use_kernel=False, chunk=256)
+    q, qm = bench.queries, bench.query_mask
+    results = {}
+    DSP.reset_counts()
+    for spec in specs:
+        match = np.flatnonzero(
+            ((spec.tenant < 0) | (tenant_of == spec.tenant))
+            & tags_of[:, list(spec.require_tags)].all(1)
+            & (tags_of[:, list(spec.any_tags)].any(1) if spec.any_tags
+               else True))
+        ids, sc, dt, nq = run_cascade(r, bench, kern, args.batch, spec)
+        # (a) no id outside the filter
+        got = ids[ids >= 0]
+        check(np.isin(got, match).all(),
+              f"filter {spec}: returned a page outside the filter")
+        check(bool((sc[ids < 0] <= NEG / 2).all()),
+              f"filter {spec}: a filler id (-1) with a live score")
+        # (b) the unfiltered search over the rebuilt matching corpus
+        rows = torch.from_numpy(match).to(dev)
+        rb = Retriever(VectorStore({k: v.index_select(0, rows) for k, v in
+                                    base.vectors.items()}, len(match)),
+                       capacity=cap, device=dev)
+        ids_b, sc_b, _, _ = run_cascade(rb, bench, kern, args.batch)
+        ids_b = np.where(ids_b >= 0, match[np.clip(ids_b, 0, None)], -1)
+        bitwise = bool(np.array_equal(sc, sc_b))
+        if bitwise:
+            check(np.array_equal(ids, ids_b), f"filter {spec}: scores equal "
+                  "bit for bit but ids differ from the rebuilt corpus")
+            swaps_b = 0
+        else:
+            swaps_b = compare_rankings(ids, sc, ids_b, sc_b,
+                                       f"filter {spec} vs rebuilt corpus")
+        del rb
+        # (c) the plain filtered path
+        ids_p, sc_p, dt_p, _ = run_cascade(r, bench, plain, args.batch, spec)
+        swaps = compare_rankings(ids, sc, ids_p, sc_p,
+                                 f"filter {spec} kernel vs plain")
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        results[str(spec)] = dict(qps=nq / dt, plain_qps=nq / dt_p,
+                                  n_match=len(match), metrics=m)
+        log(f"[filter] {spec}: {len(match)} matching pages; kernel QPS="
+            f"{nq / dt:.1f}, plain QPS={nq / dt_p:.1f}; no id outside the "
+            f"filter; == rebuilt corpus "
+            + ("bit for bit (ids and scores)" if bitwise else
+               f"to float tolerance, NOT bit for bit ({swaps_b} tie swaps)")
+            + f"; kernel == plain ids ({swaps} tie swaps); " + "  ".join(
+                f"{k}={v:.4f}" for k, v in m.items()))
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    log(f"[filter] kernel launches over the filtered path: {counts}")
+    for k in ("maxsim_scan", "maxsim_rerank"):
+        check(counts[k] > 0, f"kernel {k} was never launched on the "
+              "filtered path")
+    del r
+    return dict(results=results, counts=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: IVF-routed search
+# ---------------------------------------------------------------------------
+
+def routed_path(args, dev, main) -> dict:
+    """The phase-4 pages clustered into 64 IVF clusters; the routed 2-stage
+    kernel cascade at full probe against the exhaustive one, and at
+    n_probe 8."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.routing import RoutingPolicy
+    from repro_torch.retrieval.segments import bucket_capacity
+
+    bench = main["bench"]
+    ex = main["results"][2]                       # exhaustive 2-stage
+    n_clusters = 64
+    t0 = time.perf_counter()
+    r = Retriever(base_store(main), capacity=bucket_capacity(args.pages),
+                  device=dev, routing=RoutingPolicy(n_clusters))
+    torch.cuda.synchronize()
+    seg = r.store.segments[0]
+    fills = seg.routing.fills
+    log(f"[routed] clustered {r.n_docs} pages into {n_clusters} clusters "
+        f"in {time.perf_counter() - t0:.2f}s (member lists "
+        f"{tuple(seg.vectors['ivf_members'].shape)}; cluster sizes "
+        f"{int(fills.min())}..{int(fills.max())}, median "
+        f"{int(np.median(fills))})")
+    two = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    results = {}
+    DSP.reset_counts()
+    for n_probe in (n_clusters, 8):
+        st = MST.with_routing_policy(two, n_probe=n_probe,
+                                     n_clusters=n_clusters)
+        ids, sc, dt, nq = run_cascade(r, bench, st, args.batch)
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        recall = float(np.mean([len(set(a) & set(b)) / len(b)
+                                for a, b in zip(ids, ex["ids"])]))
+        results[n_probe] = dict(qps=nq / dt, metrics=m, recall_vs_ex=recall)
+        line = (f"[routed] 2-stage n_probe={n_probe}/{n_clusters}: QPS="
+                f"{nq / dt:.1f} (exhaustive {ex['qps']:.1f}); recall@10 vs "
+                f"the exhaustive ids {recall:.4f}; " + "  ".join(
+                    f"{k}={v:.4f}" for k, v in m.items()))
+        if n_probe == n_clusters:
+            swaps = compare_rankings(ids, sc, ex["ids"], ex["scores"],
+                                     "full-probe routed vs exhaustive 2-stage",
+                                     tie=0.0)
+            for k in m:
+                check(abs(m[k] - ex["metrics"][k]) < 5e-4,
+                      f"full probe {k}: routed {m[k]:.4f} != exhaustive "
+                      f"{ex['metrics'][k]:.4f} to 3 decimals")
+            line += (f"; == exhaustive ids ({swaps} exact-tie swaps), "
+                     "metrics equal to 3 decimals")
+        log(line)
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    log(f"[routed] kernel launches over the routed path: {counts}")
+    for k in ("ivf_route", "maxsim_rerank"):
+        check(counts[k] > 0, f"kernel {k} was never launched on the routed "
+              "path")
+    routed_stage0_times(args, dev, r, bench, two, n_clusters)
+    del r
+    return dict(results=results, counts=counts)
+
+
+def routed_stage0_times(args, dev, r, bench, two, n_clusters: int) -> None:
+    """Where a routed stage 0 spends its time on one query batch: the
+    centroid scores, the probed rows through the rerank kernel, and the
+    exhaustive scan over the same vectors it replaces (CUDA events)."""
+    from repro_torch.kernels.maxsim import ops as KOPS
+    from repro_torch.retrieval import engine
+    from repro_torch.retrieval.store import VALIDITY_KEY
+
+    vec = r.store.vectors
+    mp, mpm = vec["mean_pooling"], vec["mean_pooling_mask"]
+    q = torch.as_tensor(bench.queries[:args.batch]).to(dev)
+    qm = torch.as_tensor(bench.query_mask[:args.batch]).to(dev)
+    cents = vec["ivf_centroids"]
+    cs = time_ms(lambda: KOPS.centroid_scores(q, cents, qm))
+    scan = time_ms(lambda: KOPS.maxsim_scores(q, mp, qm, mpm))
+    parts = [f"centroid_scores [{q.shape[0]},{cents.shape[0]}] {cs:.3f} ms",
+             f"exhaustive scan [{mp.shape[0]},{mp.shape[1]}] {scan:.3f} ms"]
+    for n_probe in (8, n_clusters):
+        st = dataclasses.replace(two[0], n_probe=n_probe)
+        rows = engine._routed_rows(vec, st, q, qm).long()
+        live = int((rows >= 0).sum())
+        ok = (rows >= 0) & vec[VALIDITY_KEY][rows.clamp(0)]
+        rows = rows.clamp(0)
+        ms = time_ms(lambda: KOPS.maxsim_rerank(q, mp, rows, qm, mpm, ok))
+        parts.append(f"n_probe {n_probe}: rerank kernel over rows "
+                     f"{list(rows.shape)} ({100 * live / rows.numel():.1f}% "
+                     f"live) {ms:.3f} ms")
+    log("[routed] stage-0 times, one batch: " + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -969,10 +1306,13 @@ def main() -> None:
     # 3. kernels
     errs = check_kernels(args, dev)
     errs.update(check_int8_and_db_kernels(args, dev))
+    bag = embed_bag_phase(args, dev)
 
     # 4. main paths
     main_res = main_path(args, dev)
     int8_res = main_path_int8(args, dev, main_res)
+    filt_res = filtered_path(args, dev, main_res)
+    route_res = routed_path(args, dev, main_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
@@ -988,6 +1328,13 @@ def main() -> None:
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = errs_by[e["name"]]
+    entries.append(bag["entry"])
+    log(f"[times] embed_bag: {bag['entry']['launches']} launches over the "
+        "op's own runs (one per shape)")
+    used = [{k: v for k, v in res["counts"].items() if v}
+            for res in (filt_res, route_res)]
+    log(f"[times] filtered path launches: {used[0]}; routed path launches: "
+        f"{used[1]}")
     for k in ("maxsim_scan", "maxsim_rerank"):
         log(f"[times] {k}: {launches[k]} launches on the main path; per "
             "query batch " + ", ".join(
@@ -1008,6 +1355,16 @@ def main() -> None:
     for name, res in int8_res["results"].items():
         log(f"[summary] {name} @ {args.pages} pages: kernel QPS "
             f"{res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
+            f"ndcg@10={res['metrics']['ndcg@10']:.4f} "
+            f"recall@10={res['metrics']['recall@10']:.4f}")
+    for name, res in filt_res["results"].items():
+        log(f"[summary] filtered 2-stage {name} ({res['n_match']} pages): "
+            f"kernel QPS {res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
+            f"ndcg@10={res['metrics']['ndcg@10']:.4f}")
+    for n_probe, res in route_res["results"].items():
+        log(f"[summary] routed 2-stage n_probe={n_probe}: kernel QPS "
+            f"{res['qps']:.1f}, recall@10 vs exhaustive "
+            f"{res['recall_vs_ex']:.4f}, "
             f"ndcg@10={res['metrics']['ndcg@10']:.4f} "
             f"recall@10={res['metrics']['recall@10']:.4f}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")

@@ -61,3 +61,13 @@ class RetrieverConfig:
         if self.smooth == "conv1d":
             return self.grid_h + 2
         return self.grid_h
+
+
+# Criteo-1TB MLPerf categorical cardinalities (26 fields), the EmbeddingBag
+# table sizes of the DLRM seed family; ``chip_smoke.py`` sizes its largest
+# ``embed_bag`` table from the largest field.
+CRITEO_TB_VOCABS = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295,
+    39664984, 585935, 12972, 108, 36,
+)

@@ -55,6 +55,21 @@ class Stage:
                    gather + MaxSim kernel (``kernels.maxsim.ops
                    .maxsim_rerank``) instead of gathering a [B, L, D, d]
                    candidate copy; single-vector rerank stages ignore it
+    n_probe        IVF routing for the scan (first) stage: > 0 scores the
+                   query against each segment's [K, d] centroids
+                   (``kernels.maxsim.ops.centroid_scores``, the scan kernel
+                   with ``use_kernel``), keeps the top ``n_probe`` clusters
+                   and scores only their member slots, through the rerank
+                   machinery (the gather-rerank kernel with ``use_kernel``
+                   or ``rerank_kernel``); ``chunk`` and ``scan_topk`` do
+                   not apply. ``n_probe == n_clusters`` recovers the
+                   exhaustive candidate set (every live slot sits in
+                   exactly one member list)
+    n_clusters     the per-segment K the store was clustered with; a
+                   record for the reader — the store's own clustering
+                   (``SegmentedStore.enable_routing``) is what runs
+
+    ``search`` below is always exhaustive: it ignores ``n_probe``.
     """
     vector: str            # named vector to score with
     k: int                 # candidates kept after this stage
@@ -62,6 +77,8 @@ class Stage:
     chunk: int = 0
     scan_topk: bool = False
     rerank_kernel: bool = False
+    n_probe: int = 0
+    n_clusters: int = 0
 
 
 # default corpus chunk for a streamed scan top-k whose stage did not set one
@@ -81,6 +98,19 @@ def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
         kw["chunk"] = chunk
     if scan_topk is not None:
         kw["scan_topk"] = scan_topk
+    return (dataclasses.replace(first, **kw),) + rest
+
+
+def with_routing_policy(stages: tuple, *, n_probe: int | None = None,
+                        n_clusters: int | None = None) -> tuple:
+    """Return ``stages`` with the scan (first) stage's IVF routing policy
+    replaced; ``None`` keeps the existing value."""
+    first, rest = stages[0], tuple(stages[1:])
+    kw = {}
+    if n_probe is not None:
+        kw["n_probe"] = n_probe
+    if n_clusters is not None:
+        kw["n_clusters"] = n_clusters
     return (dataclasses.replace(first, **kw),) + rest
 
 
@@ -114,8 +144,8 @@ def _store_accessors():
     """The store's key schema is owned by ``repro_torch.retrieval.store``;
     retrieval depends on core, so the oracle imports the accessors at call
     time (core is fully imported before any search runs)."""
-    from repro_torch.retrieval.store import rerank_arrays, validity
-    return rerank_arrays, validity
+    from repro_torch.retrieval import store
+    return store
 
 
 def _score_stage(stage: Stage, store: dict, q: torch.Tensor,
@@ -128,11 +158,11 @@ def _score_stage(stage: Stage, store: dict, q: torch.Tensor,
     copy was dropped (``quantize_store(stages=...)``) is dequantised
     whole: the oracle's reference semantics.
     """
-    rerank_arrays, validity = _store_accessors()
-    vecs, mask, scales = rerank_arrays(store, stage.vector)
+    ST = _store_accessors()
+    vecs, mask, scales = ST.rerank_arrays(store, stage.vector)
     if scales is not None:
         vecs = dequantize(vecs, scales)
-    valid = validity(store)
+    valid = ST.validity(store)
     if vecs.shape[-1] < q.shape[-1]:
         # Matryoshka stage: score with the matching query dim prefix
         q = q[..., : vecs.shape[-1]]
@@ -160,9 +190,21 @@ def _score_stage(stage: Stage, store: dict, q: torch.Tensor,
 
 
 def search(store: dict, q: torch.Tensor, stages: tuple,
-           q_mask: torch.Tensor | None = None) -> tuple:
+           q_mask: torch.Tensor | None = None, fspec=None) -> tuple:
     """Run the cascade. Returns (scores [B, k_final], ids [B, k_final]),
-    ids sorted by descending final-stage score."""
+    ids sorted by descending final-stage score.
+
+    ``fspec`` is a request-scoped ``retrieval.store.FilterSpec`` (or a
+    packed triple, or None): it is folded into the store's validity entry
+    by the same ``effective_validity`` the engine uses."""
+    if fspec is not None:
+        ST = _store_accessors()
+        dev = next(iter(store.values())).device
+        arrays = ST.as_filter_arrays(fspec, ST.filter_words(store), dev)
+        store = dict(store)
+        eff = ST.effective_validity(store, arrays)
+        if eff is not None:
+            store[ST.VALIDITY_KEY] = eff
     cand = None
     scores = None
     for stage in stages:

@@ -57,6 +57,11 @@ SIGNATURES = {
         "pool_launch": [_P, _I64, _P, _I64, _P, _P,
                         _I, _I, _I, _I, _I, _P],
     },
+    "embed_bag": {
+        # table, table_type (0 f32, 1 bf16, 2 f16), idx, w, out, B, L, d,
+        # stream
+        "embed_bag_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict = {}

@@ -13,14 +13,17 @@ show that its main path went through the kernels by zeroing the counters
 Counters: ``maxsim_scan`` and ``maxsim_rerank`` (f32/bf16 documents),
 ``maxsim_scan_int8`` and ``maxsim_rerank_int8`` (the same kernels' int8
 variants), ``maxsim_scan_db`` (the double-buffered chunk scan, any
-document type) and ``pooling``.
+document type), ``pooling``, ``embed_bag`` (the EmbeddingBag kernel) and
+``ivf_route`` (the scan kernel launched on a D=1 view of an IVF centroid
+table by ``centroid_scores``, counted under the routing op's name).
 """
 from __future__ import annotations
 
 import torch
 
 KERNELS = ("maxsim_scan", "maxsim_scan_int8", "maxsim_scan_db",
-           "maxsim_rerank", "maxsim_rerank_int8", "pooling")
+           "maxsim_rerank", "maxsim_rerank_int8", "pooling", "embed_bag",
+           "ivf_route")
 
 _COUNTS = {name: 0 for name in KERNELS}
 

@@ -22,6 +22,13 @@ copy); for CPU tensors it runs the plain version ``_rerank_ref``.
 chunk by chunk and carries a running per-query top-k, so the [B, N] score
 matrix never exists.
 
+``centroid_scores(q, centroids, ...)`` is IVF routing's query-vs-centroid
+score. MaxSim against a one-vector document is the masked query sum
+dotted with that vector, so for CUDA tensors it launches the scan kernel
+on a ``centroids[:, None, :]`` view (D=1) and counts an ``ivf_route``
+launch; for CPU tensors it runs the plain masked-sum product
+``centroid_scores_ref``.
+
 Every scan and the rerank take int8 codes with per-vector ``scales``
 [N, D] f32 (``quantize_int8``); the kernels dequantise in the product.
 No wrapper falls back: a failed launch raises.
@@ -311,6 +318,48 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
     if ok is not None:
         out = out.masked_fill(~ok, NEG)
     return out
+
+
+# ---------------------------------------------------------------------------
+# IVF centroid routing
+# ---------------------------------------------------------------------------
+
+def centroid_scores_ref(q: torch.Tensor, centroids: torch.Tensor,
+                        q_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The routing score's plain version: the masked query sum times the
+    transposed centroids, q [B,Q,d], centroids [K,dc] -> [B,K] f32, with
+    the query's first dc dims when the centroids are narrower."""
+    full_f32()
+    dc = centroids.shape[1]
+    q = q[..., :dc].float()
+    if q_mask is not None:
+        q = q * q_mask[..., None].float()
+    return q.sum(dim=-2) @ centroids.float().T
+
+
+def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
+                    q_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Query-vs-centroid routing scores: q [B,Q,d], centroids [K,dc] ->
+    [B,K] f32.
+
+    For CUDA tensors: the scan kernel (``csrc/maxsim_scan.cu``) on the
+    centroids as K one-vector f32 documents with an all-ones mask, counted
+    as ``ivf_route``; it sums the valid tokens' products in another order
+    than the plain product, so the two agree to float tolerance. For CPU
+    tensors: ``centroid_scores_ref``. Narrower (Matryoshka) centroids
+    score against the matching query prefix."""
+    B, Q, d = q.shape
+    dc = centroids.shape[1]
+    if not DSP.on_cuda(centroids):
+        return centroid_scores_ref(q, centroids, q_mask)
+    if dc < d:
+        q = q[..., :dc]
+    if q_mask is None:
+        q_mask = _ones_mask((B, Q), q.device)
+    _check_query_smem(q, "centroid_scores")
+    docs = centroids.float()[:, None, :].contiguous()           # [K, 1, dc]
+    return _scan_launch("maxsim_scan", "ivf_route", q, q_mask, docs, None,
+                        None)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@
         --stages 2 --use-kernel --rerank-kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --pages 4096 \
         --stages 1 --use-kernel --chunk 256 --int8 [--scan-topk]
+    PYTHONPATH=src python -m repro_torch.launch.serve --pages 4096 \
+        --stages 2 --n-clusters 64 --n-probe 8 --use-kernel --rerank-kernel
 
 Builds the synthetic benchmark for ``--arch``, indexes it through the
 ``IngestPipeline`` (``--use-kernel`` also routes the pooling to the fused
@@ -15,9 +17,12 @@ per-call corpus tile; with ``--use-kernel`` it selects the double-buffered
 scan kernel (one launch). ``--int8`` quantises the scan stage's vector at
 index time and drops its float copy when no later stage reranks on it;
 ``--scan-topk`` streams a running top-k across scan chunks instead of
-assembling the [B, N] scores. Runs on ``--device cuda`` (the default;
-without a card it raises) or ``--device cpu``, where every kernel wrapper
-takes its plain PyTorch version.
+assembling the [B, N] scores. ``--n-clusters`` clusters the corpus for
+IVF routing and ``--n-probe`` routes the scan stage through that many
+clusters per query (with ``--use-kernel``: the scan kernel on the
+centroids, the gather-rerank kernel on the probed members). Runs on
+``--device cuda`` (the default; without a card it raises) or ``--device
+cpu``, where every kernel wrapper takes its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ def _run_static(args, bench, retriever, stages, int8_on: bool) -> dict:
         (f"/chunk={args.chunk}" if args.chunk else "") + \
         ("/int8" if int8_on else "") + \
         ("/scan-topk" if args.scan_topk else "") + \
+        (f"/n-probe={args.n_probe}of{args.n_clusters}" if args.n_probe
+         else "") + \
         ("/rerank-kernel" if args.rerank_kernel else "")
     print(f"{args.stages}-stage [{scan}] on {dev}: QPS={qps:.1f}  " +
           "  ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
@@ -90,6 +97,15 @@ def main(argv=None) -> dict:
                          "matrix")
     ap.add_argument("--int8", action="store_true",
                     help="int8-quantise the scan-stage vectors")
+    ap.add_argument("--n-clusters", type=int, default=0,
+                    help="enable IVF centroid routing: cluster each "
+                         "segment's routing vectors into this many "
+                         "clusters (k-means at index time, maintained "
+                         "through upsert and delete)")
+    ap.add_argument("--n-probe", type=int, default=0,
+                    help="clusters probed per query by the routed scan "
+                         "stage (requires --n-clusters; n-probe == "
+                         "n-clusters recovers the exhaustive candidates)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -108,6 +124,11 @@ def main(argv=None) -> dict:
                                   chunk=args.chunk, scan_topk=args.scan_topk)
     stages = MST.with_rerank_policy(stages,
                                     rerank_kernel=args.rerank_kernel)
+    if args.n_probe > 0:
+        if args.n_clusters <= 0:
+            ap.error("--n-probe needs --n-clusters")
+        stages = MST.with_routing_policy(stages, n_probe=args.n_probe,
+                                         n_clusters=args.n_clusters)
     quantize = ()
     if args.int8:
         # quantise the vector the scan stage scores; a single-vector scan
@@ -127,10 +148,11 @@ def main(argv=None) -> dict:
     step = 256
     n = len(bench.pages)
     retriever = Retriever(pipe.index(bench.pages[:step], bench.token_types),
-                          capacity=bucket_capacity(n), device=device)
+                          capacity=bucket_capacity(n), device=device,
+                          routing=args.n_clusters or None)
     for i in range(step, n, step):
-        retriever.upsert(pipe.index(bench.pages[i:i + step],
-                                    bench.token_types))
+        pipe.ingest(retriever.store, bench.pages[i:i + step],
+                    bench.token_types)
     _sync(device)
     print(f"indexed {retriever.n_docs} pages in {time.perf_counter()-t0:.2f}s"
           f" (named vectors: {sorted(retriever.store.dims())})")

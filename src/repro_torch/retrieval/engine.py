@@ -15,8 +15,22 @@ segments of a ``SegmentedStore``:
   per-query gather + ``maxsim_scan`` otherwise). A candidate is real in
   exactly one segment and NEG in the others, so the cross-segment combine
   is an elementwise max;
-- every stage NEGs dead slots through the segment's ``doc_valid`` mask, so
-  mutation never changes tensor shapes.
+- every stage NEGs dead slots through the segment's effective mask:
+  ``doc_valid`` AND the request's tenant/tag filter
+  (``store.effective_validity`` over the ``doc_tenant``/``doc_filter``
+  companions and the packed ``FilterSpec`` triple), so mutation never
+  changes tensor shapes and a filtered search scores exactly what an
+  unfiltered search over only the matching documents would;
+- ``Stage.n_probe > 0`` replaces the stage-0 exhaustive scan with IVF
+  centroid ROUTING: the query is scored against each segment's [K, d]
+  centroid table (``kernels.maxsim.ops.centroid_scores``), the top
+  ``n_probe`` clusters' -1-padded member-slot lists become the candidate
+  rows, and those rows are scored by ``_score_candidates``, the rerank
+  stages' machinery (the gather-rerank kernel with ``use_kernel`` or
+  ``rerank_kernel``). At ``n_probe == K`` every live slot sits in exactly
+  one member list, so the routed stage recovers the exhaustive candidate
+  set; ties between equal scores are broken by position in the probed
+  rows there, by slot id in the exhaustive scan.
 
 The oracle is ``repro_torch.core.multistage.search``.
 """
@@ -28,7 +42,9 @@ from repro_torch.core import maxsim as MS
 from repro_torch.core.multistage import DEFAULT_SCAN_TOPK_CHUNK, Stage, top_k
 from repro_torch.kernels.maxsim import ops as KOPS
 from repro_torch.kernels.maxsim.ref import dequantize
-from repro_torch.retrieval.store import (effective_validity, rerank_arrays,
+from repro_torch.retrieval.store import (as_filter_arrays,
+                                         effective_validity, filter_words,
+                                         rerank_arrays, routing_arrays,
                                          scan_arrays)
 from repro_torch.retrieval.topk import merge_topk
 
@@ -149,11 +165,45 @@ def _offsets(capacities: tuple) -> tuple:
     return tuple(offs)
 
 
+def _routed_rows(store: dict, stage: Stage, q, q_mask):
+    """Stage-0 candidate rows by centroid routing for ONE segment: score
+    the query against the segment's [K, d] centroids, keep the top
+    ``n_probe`` clusters, and emit their member-slot lists as one
+    [B, n_probe * C] row set (-1 marks padded member slots)."""
+    routing = routing_arrays(store)
+    if routing is None:
+        raise ValueError(
+            f"stage '{stage.vector}' sets n_probe={stage.n_probe} but the "
+            "store carries no routing companions — enable routing on the "
+            "SegmentedStore (Retriever(routing=...) or "
+            "store.enable_routing(...)) before searching")
+    cents, members = routing                          # [K, d], [K, C]
+    score = KOPS.centroid_scores if stage.use_kernel \
+        else KOPS.centroid_scores_ref
+    cs = score(q, cents, q_mask)                      # [B, K]
+    _, cid = top_k(cs, min(stage.n_probe, cents.shape[0]))
+    return members[cid].reshape(q.shape[0], -1)
+
+
 def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
                     q_mask):
     """Stage-0 candidate generation over ONE segment: (vals [B, k0],
-    GLOBAL slot ids [B, k0]) with k0 = min(stage.k, cap)."""
+    GLOBAL slot ids [B, k0]) with k0 = min(stage.k, cap[, probed rows])."""
     vecs, mask, scales = scan_arrays(store, stage.vector)
+    if stage.n_probe > 0:
+        rows = _routed_rows(store, stage, q, q_mask).long()
+        rclip = rows.clamp(0, cap - 1)
+        ok = rows >= 0                  # -1 = padded member slot
+        if eff is not None:
+            ok = ok & eff[rclip]
+        s = _score_candidates(vecs, mask, scales, q, q_mask, rclip, ok,
+                              stage.use_kernel or stage.rerank_kernel)
+        v, sel = top_k(s, min(stage.k, cap, rows.shape[1]))
+        # dead winners (k > live probed members) drop their slot id:
+        # -1 is the filler sentinel
+        i = torch.where(torch.gather(ok, 1, sel),
+                        torch.gather(rclip, 1, sel) + off, -1)
+        return v, i
     if stage.scan_topk:
         v, i = _dispatch_scan_topk(stage, vecs, mask, q, q_mask, scales,
                                    eff, min(stage.k, cap))
@@ -182,8 +232,10 @@ def _segment_rerank(stage: Stage, store: dict, eff, cap: int, off: int, q,
 def make_segmented_search_fn(stages: tuple, capacities: tuple):
     """The cascade over a tuple of segment store dicts.
 
-    Returns fn(stores: tuple[dict, ...], q [B,Q,d], q_mask [B,Q]) ->
-    (scores [B,k], global slot ids [B,k]).
+    Returns fn(stores: tuple[dict, ...], q [B,Q,d], q_mask [B,Q],
+    fspec=None) -> (scores [B,k], global slot ids [B,k]). ``fspec`` is a
+    ``store.FilterSpec`` (or a packed triple, or None for the
+    match-everything filter), packed here for the stores' device.
     """
     stages = tuple(stages)
     capacities = tuple(capacities)
@@ -192,9 +244,11 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
     offsets = _offsets(capacities)
     total_cap = sum(capacities)
 
-    def search(stores, q, q_mask):
-        # one effective mask per segment, threaded through every stage
-        effs = tuple(effective_validity(s) for s in stores)
+    def search(stores, q, q_mask, fspec=None):
+        arrays = as_filter_arrays(fspec, filter_words(stores[0]), q.device)
+        # one effective mask per segment — doc_valid AND the request's
+        # tenant/tag terms — threaded through every stage
+        effs = tuple(effective_validity(s, arrays) for s in stores)
         scores = cand = None
         for si, stage in enumerate(stages):
             if si == 0:

@@ -7,6 +7,8 @@ batch by batch:
     pipe = IngestPipeline(cfg)                  # device="cuda" by default
     batch = pipe.index(raw_pages, token_types)  # a VectorStore
     retriever.upsert(batch)
+    ids = pipe.ingest(retriever.store, raw_pages, token_types,
+                      tenant=3, tags=(7,))      # index + write, stamped
 
 Pooling (``use_kernel``):
 - True  -> the fused one-matrix pooling operator ``pool_pages_fused``
@@ -25,6 +27,7 @@ JAX pipeline's power-of-two padding (``batch_bucket``) is not needed here.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import hygiene as HG
@@ -127,3 +130,13 @@ class IngestPipeline:
         pages, tt = self._admit(pages, token_types)
         return VectorStore(self._index_arrays(pages, tt), int(pages.shape[0]),
                            str(self.store_dtype).removeprefix("torch."))
+
+    def ingest(self, store, pages, token_types, tenant: int = 0,
+               tags=()) -> np.ndarray:
+        """Index a raw batch and write it into ``store`` (a
+        ``SegmentedStore`` holding this pipeline's key set), every page
+        stamped with ``tenant`` and the packed ``tags`` bitset, as
+        ``SegmentedStore.add_pages`` stamps them. With routing on, the new
+        slots join their clusters there. Returns the stable page ids."""
+        return store.add_pages(self.index(pages, token_types),
+                               tenant=tenant, tags=tags)

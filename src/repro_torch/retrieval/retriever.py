@@ -7,14 +7,18 @@ one device.
     store = build_store(cfg, pages, token_types)         # on cuda
     r = Retriever(store, capacity=4096)                  # ingest headroom
     scores, ids = r.search(q, q_mask, stages=MST.two_stage(256, 100))
-    r.upsert(build_store(cfg, new_pages, token_types))
+    r.upsert(build_store(cfg, new_pages, token_types), tenant=2, tags=(5,))
     r.delete([3, 17])
+    scores, ids = r.search(q, q_mask, stages=stages,
+                           filter=FilterSpec(tenant=2, require_tags=(5,)))
 
 Scan-dispatch policy (``Stage.use_kernel`` / ``chunk`` / ``scan_topk``)
 and rerank policy
-(``Stage.rerank_kernel``) ride on the stages tuple. Returned ids
-are STABLE page ids (assigned at upsert); slots that never matched (k >
-live docs) come back as -1.
+(``Stage.rerank_kernel``) ride on the stages tuple, and so does IVF
+routing (``Stage.n_probe``, on a store built with ``routing=``). Returned
+ids are STABLE page ids (assigned at upsert); slots that never matched
+(k > live docs, or documents the request's filter excluded) come back as
+-1.
 """
 from __future__ import annotations
 
@@ -28,19 +32,29 @@ from repro_torch.retrieval.store import VectorStore
 
 
 class Retriever:
-    def __init__(self, store, capacity: int | None = None, device="cuda"):
+    def __init__(self, store, capacity: int | None = None, device="cuda",
+                 filter_words: int = 1, routing=None):
         """``store`` is a built ``VectorStore`` (wrapped as segment 0 on
         ``device`` — exact fit by default, or preallocated to ``capacity``
         slots for ingestion headroom) or an existing ``SegmentedStore``,
-        which must already live on ``device``."""
+        which must already live on ``device``. ``filter_words`` sizes the
+        packed metadata-tag bitset (32 tags per word) when wrapping a
+        ``VectorStore``; a ``SegmentedStore`` keeps its own width.
+        ``routing`` enables IVF centroid routing on the store (an int
+        cluster count or a ``routing.RoutingPolicy``): segments are
+        clustered now and maintained through upsert and delete, and scan
+        stages with ``Stage.n_probe > 0`` route through the clusters."""
         self.device = resolve_device(device)
         if isinstance(store, VectorStore):
             store = SegmentedStore.from_store(store, capacity=capacity,
-                                              device=self.device)
+                                              device=self.device,
+                                              filter_words=filter_words)
         elif store.device.type != self.device.type:
             raise ValueError(f"store lives on {store.device}, retriever on "
                              f"{self.device}")
         self.store = store
+        if routing is not None:
+            self.store.enable_routing(routing)
 
     @property
     def n_docs(self) -> int:
@@ -51,12 +65,15 @@ class Retriever:
     # mutation
     # ------------------------------------------------------------------
 
-    def upsert(self, batch: VectorStore) -> np.ndarray:
+    def upsert(self, batch: VectorStore, tenant: int = 0,
+               tags=()) -> np.ndarray:
         """Ingest an indexed batch (``build_store``, ``quantize_store`` or
         ``IngestPipeline.index`` output) with the store's key set: a
-        quantised store takes batches quantised the same way. Returns
-        stable page ids."""
-        return self.store.add_pages(batch)
+        quantised store takes batches quantised the same way. Every page
+        is stamped with ``tenant`` and the metadata ``tags`` (searches
+        scope to them with ``filter=FilterSpec(...)``). Returns stable
+        page ids."""
+        return self.store.add_pages(batch, tenant=tenant, tags=tags)
 
     def delete(self, ids) -> int:
         """Invalidate pages by stable id (validity masking; no data moves).
@@ -68,12 +85,17 @@ class Retriever:
     # ------------------------------------------------------------------
 
     def search(self, q, q_mask=None, *, stages: tuple,
-               translate_ids: bool = True) -> tuple:
+               translate_ids: bool = True, filter=None) -> tuple:
         """Run the cascade: q [B,Q,d] -> (scores [B,k], ids [B,k]).
 
-        ids are stable page ids (np.int64; -1 marks dead-slot filler when
-        k exceeds the live corpus); pass translate_ids=False for the raw
-        slot ids (a tensor on the device)."""
+        ids are stable page ids (np.int64; -1 marks filler when k exceeds
+        the live, matching corpus); pass translate_ids=False for the raw
+        slot ids (a tensor on the device).
+
+        ``filter`` is a request-scoped ``store.FilterSpec`` (tenant scope,
+        required and any-of tags) or None for the whole corpus; the
+        result is what an unfiltered search over only the matching
+        documents returns."""
         q = torch.as_tensor(q).to(self.device)
         if q_mask is None:
             q_mask = torch.ones(q.shape[:2], dtype=torch.bool,
@@ -81,12 +103,13 @@ class Retriever:
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
         fn = engine.make_segmented_search_fn(stages, self.store.capacities)
-        scores, slots = fn(self.store.stores(), q, q_mask)
+        scores, slots = fn(self.store.stores(), q, q_mask, filter)
         if not translate_ids:
             return scores, slots
         ids = self.store.translate_slots(slots.cpu().numpy())
         # NEG-scored entries are filler, not results: dead slots already
-        # translate to -1, and anything scored at or below NEG/2 is masked
-        # to -1 too
+        # translate to -1, but a slot also scores NEG when the request's
+        # filter excluded a LIVE document — mask those ids too, so no
+        # tenant learns another tenant's page ids from its filler
         filler = (scores <= engine.NEG / 2).cpu().numpy()
         return scores, np.where(filler, np.int64(-1), ids)

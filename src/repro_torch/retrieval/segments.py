@@ -9,6 +9,17 @@
   fit, a NEW segment is allocated at a bucketed power-of-two capacity;
 - ``delete`` only flips ``doc_valid`` bits (validity masking), it never
   moves a byte;
+- ``doc_valid`` has two siblings written by the same writes:
+  ``doc_tenant`` [capacity] int32 (``add_pages(tenant=)``, 0 by default)
+  and ``doc_filter`` [capacity, filter_words] int32, the packed tag bitset
+  (``add_pages(tags=)``; int32 bit patterns of uint32 words, see
+  ``store``). Dead slots hold zeros; ``delete`` leaves both in place;
+- with IVF routing on (``enable_routing``), each segment also carries its
+  cluster index (``ivf_centroids`` [K, d], ``ivf_members`` [K, C]) and its
+  host-side ``routing.RouteState``; every write assigns the new slots to
+  clusters (``routing.on_commit``) and every delete ticks the drift
+  counter (``routing.on_delete``), re-clustering past the policy's drift
+  threshold;
 - every array keeps its own dtype: the store dtype for float vectors, int8
   for quantised codes, f32 for their scales, bool for masks. A batch is
   written into a segment cast to the segment's dtypes, as the JAX store
@@ -29,8 +40,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.retrieval.store import (VALIDITY_KEY, VectorSchema,
-                                         VectorStore, is_store_companion)
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.retrieval import routing as RT
+from repro_torch.retrieval.store import (FILTER_KEY, TENANT_KEY,
+                                         VALIDITY_KEY, VectorSchema,
+                                         VectorStore, from_numpy,
+                                         is_store_companion, pack_tags,
+                                         words_tensor)
 
 SEGMENT_MIN_CAPACITY = 64
 
@@ -51,6 +67,10 @@ class Segment:
     capacity: int
     n_docs: int
     doc_ids: np.ndarray
+    # host-side IVF bookkeeping (``routing.RouteState``); None until the
+    # store's router is enabled. The centroid / member tensors live in
+    # ``vectors`` under the reserved routing keys.
+    routing: object = None
 
     @property
     def free(self) -> int:
@@ -66,22 +86,30 @@ class SegmentedStore:
     device."""
 
     def __init__(self, segments: list, store_dtype: str = "bfloat16",
-                 next_id: int = 0):
+                 next_id: int = 0, filter_words: int = 1):
         self.segments = list(segments)
         self.store_dtype = store_dtype
         self.next_id = next_id
+        # width of the packed tag bitset (32 tags per word), fixed at
+        # construction
+        self.filter_words = max(int(filter_words), 1)
+        # IVF routing policy (``routing.RoutingPolicy``); None = exhaustive
+        # scans only. Set by ``enable_routing``.
+        self.router = None
         self._slot_ids: np.ndarray | None = None   # slot->page-id cache
 
     @classmethod
     def from_store(cls, store: VectorStore, capacity: int | None = None,
-                   device=None):
+                   device=None, filter_words: int = 1):
         """Wrap a built store as segment 0, on ``device`` (default: the
         store's own). Default capacity is an exact fit; pass ``capacity``
-        (e.g. ``bucket_capacity``) to preallocate ingestion headroom."""
+        (e.g. ``bucket_capacity``) to preallocate ingestion headroom.
+        Wrapped pages get tenant 0 and no tags; ``filter_words`` sizes the
+        packed bitset for pages upserted later."""
         cap = capacity if capacity is not None else store.n_docs
         if cap < store.n_docs:
             raise ValueError(f"capacity {cap} < n_docs {store.n_docs}")
-        out = cls([], store.store_dtype)
+        out = cls([], store.store_dtype, filter_words=filter_words)
         dev = store.device if device is None else torch.device(device)
         seg = out._alloc_segment(store.vectors, cap, dev)
         n = store.n_docs
@@ -93,17 +121,68 @@ class SegmentedStore:
         out.next_id = n
         return out
 
+    @classmethod
+    def from_numpy(cls, src, device="cuda"):
+        """The port's copy of another segmented store ``src`` — e.g. a
+        ``repro`` ``SegmentedStore``, read through its attributes only:
+        every segment's arrays (taken with ``np.asarray``; tenant ids, tag
+        words, routing centroids and members included), capacity, fill,
+        slot -> page id map and ``RouteState`` (fills, drift), and the
+        store's next id, filter width and routing policy."""
+        dev = resolve_device(device)
+        out = cls([], src.store_dtype, next_id=int(src.next_id),
+                  filter_words=int(src.filter_words))
+        if src.router is not None:
+            p = src.router
+            out.router = RT.RoutingPolicy(
+                int(p.n_clusters), int(p.cluster_capacity), int(p.iters),
+                float(p.drift_threshold))
+        for seg in src.segments:
+            vecs = from_numpy({k: np.asarray(v)
+                               for k, v in seg.vectors.items()},
+                              device=dev).vectors
+            st = seg.routing
+            routing = None if st is None else RT.RouteState(
+                fills=np.array(st.fills, np.int64), drift=int(st.drift))
+            out.segments.append(Segment(
+                vecs, int(seg.capacity), int(seg.n_docs),
+                np.array(seg.doc_ids, np.int64), routing))
+        return out
+
     def _alloc_segment(self, like_vectors: dict, capacity: int,
                        device) -> Segment:
         vecs = {k: torch.zeros((capacity,) + tuple(v.shape[1:]),
                                dtype=v.dtype, device=device)
                 for k, v in like_vectors.items() if not is_store_companion(k)}
-        # dead slots are invalid until a write claims them
+        # the store companions are zero-initialised: dead slots are
+        # invalid, tenant 0, no tags, until a write claims them
         vecs[VALIDITY_KEY] = torch.zeros((capacity,), dtype=torch.bool,
                                          device=device)
+        vecs[TENANT_KEY] = torch.zeros((capacity,), dtype=torch.int32,
+                                       device=device)
+        vecs[FILTER_KEY] = torch.zeros((capacity, self.filter_words),
+                                       dtype=torch.int32, device=device)
         seg = Segment(vecs, capacity, 0, np.full((capacity,), -1, np.int64))
+        if self.router is not None:
+            arrays, seg.routing = RT.alloc_arrays(self.router, like_vectors,
+                                                  capacity, device)
+            vecs.update(arrays)
         self.segments.append(seg)
         return seg
+
+    def enable_routing(self, policy) -> None:
+        """Build (or rebuild) the IVF cluster index over every segment.
+
+        ``policy`` is a ``routing.RoutingPolicy`` or a plain int K. Adds
+        the centroid/member companions; ``add_pages`` and ``delete`` then
+        maintain them (assign-to-nearest on each write, drift-triggered
+        re-clustering). A cascade opts in with ``Stage.n_probe``
+        (``multistage.with_routing_policy``)."""
+        if not isinstance(policy, RT.RoutingPolicy):
+            policy = RT.RoutingPolicy(n_clusters=int(policy))
+        self.router = policy
+        for seg in self.segments:
+            RT.recluster(self, seg)
 
     @property
     def device(self) -> torch.device:
@@ -113,14 +192,20 @@ class SegmentedStore:
     # mutation
     # ------------------------------------------------------------------
 
-    def add_pages(self, batch: VectorStore) -> np.ndarray:
+    def add_pages(self, batch: VectorStore, tenant: int = 0,
+                  tags=()) -> np.ndarray:
         """Ingest an indexed batch (the output of ``build_store`` or
         ``IngestPipeline.index``). Returns the assigned stable page ids.
 
         The batch must carry the store's exact key set (int8 codes and
         scales included). Fits the WHOLE batch into the last segment's
         free tail when possible; otherwise allocates a new bucketed
-        segment sized to the batch (batches are never split)."""
+        segment sized to the batch (batches are never split).
+
+        ``tenant``/``tags`` stamp the batch's store companions: every page
+        of the batch belongs to ``tenant`` and carries the packed ``tags``
+        bitset (queries filter on them with ``store.FilterSpec``). With
+        routing on, the new slots join their nearest cluster with room."""
         n = batch.n_docs
         names = {k for k in self.segments[0].vectors
                  if not is_store_companion(k)}
@@ -128,6 +213,8 @@ class SegmentedStore:
             raise ValueError(f"batch vectors {sorted(batch.vectors)} != "
                              f"store vectors {sorted(names)}")
         seg = self.segments[-1]
+        words = words_tensor(pack_tags(tags, self.filter_words),
+                             self.device)
         if seg.free < n:
             seg = self._alloc_segment(seg.vectors, bucket_capacity(n),
                                       self.device)
@@ -135,11 +222,16 @@ class SegmentedStore:
         for k, v in batch.vectors.items():
             seg.vectors[k][start:start + n] = v
         seg.vectors[VALIDITY_KEY][start:start + n] = True
+        seg.vectors[TENANT_KEY][start:start + n] = int(tenant)
+        seg.vectors[FILTER_KEY][start:start + n] = words[None, :]
         ids = np.arange(self.next_id, self.next_id + n, dtype=np.int64)
         seg.doc_ids[start:start + n] = ids
         seg.n_docs = start + n
         self.next_id += n
         self._slot_ids = None
+        if self.router is not None:
+            RT.on_commit(self, seg, np.arange(start, start + n,
+                                              dtype=np.int64))
         return ids
 
     def delete(self, ids) -> int:
@@ -158,6 +250,8 @@ class SegmentedStore:
             valid[torch.from_numpy(slots).to(valid.device)] = False
             seg.doc_ids[slots] = -1
             deleted += int(slots.size)
+            if self.router is not None:
+                RT.on_delete(self, seg, int(slots.size))
         if deleted:
             self._slot_ids = None
         return deleted

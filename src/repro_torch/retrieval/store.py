@@ -7,10 +7,27 @@ Each page is stored under named vectors (paper §2.4):
 
 A named vector may carry a per-token validity mask ([N, D] bool) and
 int8 codes with per-vector scales (``quantize_store``; the float copy may
-then be dropped), and a segmented store carries the per-document liveness
-mask ``doc_valid`` ([N] bool: capacity padding, deletes). All live in the
-flat ``vectors`` dict under reserved keys; the key convention is owned by
-this module and every other consumer goes through the accessors below.
+then be dropped). A segmented store carries STORE-LEVEL companions that
+describe each document row rather than any one vector:
+
+  doc_valid   [N]     bool   per-document liveness (capacity padding,
+                             deletes)
+  doc_tenant  [N]     int32  owning tenant id (0 = default namespace)
+  doc_filter  [N, W]  int32  packed metadata-tag bitset, 32 tags per word
+                             (tag j lives at word j // 32, bit j % 32)
+
+and, with IVF routing on, two per-CLUSTER companions (``ivf_centroids``
+[K, d] f32, ``ivf_members`` [K, C] int32; ``retrieval.routing``). All live
+in the flat ``vectors`` dict under reserved keys; the key convention is
+owned by this module and every other consumer goes through the accessors
+below.
+
+torch has no full uint32 arithmetic, so the tag words are held as int32
+BIT PATTERNS of the uint32 words ``pack_tags`` builds (tag 31 of a word
+is the sign bit). The filters only AND and compare words, which give the
+same answers on the two types. A request's ``FilterSpec`` is packed to the
+same words and ``effective_validity`` folds all three terms into the one
+[N] mask the cascade threads through every stage.
 
 Token hygiene (§2.1) is applied at index time: the masks mark visual
 tokens only, and masked slots are zeroed.
@@ -30,7 +47,18 @@ from repro_torch.kernels.maxsim.ops import quantize_int8
 # ---------------------------------------------------------------------------
 
 VALIDITY_KEY = "doc_valid"           # [N] bool, per-document liveness
-STORE_COMPANIONS = (VALIDITY_KEY,)
+TENANT_KEY = "doc_tenant"            # [N] int32, owning tenant id
+FILTER_KEY = "doc_filter"            # [N, W] int32 bit patterns of uint32
+# IVF routing companions (``repro_torch.retrieval.routing``): per-CLUSTER
+# arrays, not per-document — the centroids of the segment's routing
+# vectors and the -1-padded member-slot lists, so cluster membership is
+# data rather than a shape. Store companions (segment-owned, never part
+# of a batch payload).
+CENTROIDS_KEY = "ivf_centroids"      # [K, d] f32, cluster centroids
+MEMBERS_KEY = "ivf_members"          # [K, C] int32 member slots, -1 padded
+ROUTING_KEYS = (CENTROIDS_KEY, MEMBERS_KEY)
+STORE_COMPANIONS = (VALIDITY_KEY, TENANT_KEY, FILTER_KEY) + ROUTING_KEYS
+TAGS_PER_WORD = 32
 _MASK, _INT8, _SCALE = "_mask", "_int8", "_scale"
 
 
@@ -51,14 +79,16 @@ def scale_key(name: str) -> str:
 
 def is_companion(key: str) -> bool:
     """True for keys that describe another vector (masks, codes, scales)
-    or the store itself (``doc_valid``) rather than naming a vector."""
+    or the store itself (``doc_valid``/``doc_tenant``/``doc_filter`` and
+    the routing arrays) rather than naming a vector."""
     return (key in STORE_COMPANIONS or key.endswith(_MASK)
             or key.endswith(_SCALE) or key.endswith(_INT8))
 
 
 def is_store_companion(key: str) -> bool:
-    """True for the per-document store-level companions — the arrays a
-    segment allocates and owns itself, as opposed to the batch payload."""
+    """True for the store-level companions (liveness, tenant id, packed
+    filter bitset, routing arrays) — the arrays a segment allocates and
+    owns itself, as opposed to the batch payload."""
     return key in STORE_COMPANIONS
 
 
@@ -176,11 +206,138 @@ def validity(vectors: dict):
     return vectors.get(VALIDITY_KEY)
 
 
-def effective_validity(vectors: dict):
-    """The one [N] bool mask the cascade threads through every stage (or
-    None when the store has no validity notion). Tenant and tag filters
-    fold in here once they are ported; today it is ``doc_valid``."""
-    return validity(vectors)
+def tenant_ids(vectors: dict):
+    """The per-document tenant-id array ([N] int32), or None for a store
+    without tenant scoping."""
+    return vectors.get(TENANT_KEY)
+
+
+def filter_bits(vectors: dict):
+    """The packed per-document metadata-tag bitset ([N, W] int32 bit
+    patterns), or None for a store without filter metadata."""
+    return vectors.get(FILTER_KEY)
+
+
+def filter_words(vectors: dict) -> int:
+    """The store's packed tag-bitset width W (0 = no filter metadata)."""
+    f = vectors.get(FILTER_KEY)
+    return 0 if f is None else f.shape[1]
+
+
+def routing_arrays(vectors: dict):
+    """The IVF routing companions ``(centroids [K, d] f32, members [K, C]
+    int32)``, or None when the store carries no cluster index. Member
+    lists are -1-padded; a slot id appears in exactly one list, so probing
+    all K clusters recovers the exhaustive candidate set."""
+    c = vectors.get(CENTROIDS_KEY)
+    if c is None:
+        return None
+    return c, vectors[MEMBERS_KEY]
+
+
+# ---------------------------------------------------------------------------
+# request-scoped filters
+# ---------------------------------------------------------------------------
+
+def pack_tags(tags, n_words: int) -> np.ndarray:
+    """Pack integer metadata tags into ``n_words`` uint32 bitset words
+    (tag j -> word j // 32, bit j % 32), on the host."""
+    words = np.zeros((max(n_words, 1),), np.uint32)
+    for t in tags:
+        t = int(t)
+        if not 0 <= t < n_words * TAGS_PER_WORD:
+            raise ValueError(
+                f"tag {t} outside [0, {n_words * TAGS_PER_WORD}) — the "
+                f"store was allocated with filter_words={n_words}")
+        words[t // TAGS_PER_WORD] |= np.uint32(1 << (t % TAGS_PER_WORD))
+    return words
+
+
+def words_tensor(words: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 tag words as the int32 bit patterns the store holds."""
+    return torch.from_numpy(
+        np.ascontiguousarray(words, np.uint32).view(np.int32)).to(device)
+
+
+@dataclass(frozen=True)
+class FilterSpec:
+    """A request-scoped retrieval filter.
+
+    tenant        scope to one tenant id (-1 = any tenant)
+    require_tags  metadata tags a page must ALL carry
+    any_tags      at least one of these tags must be present (empty = no
+                  constraint)
+
+    Tag tuples are canonicalised (sorted, deduplicated, int-cast), so
+    equal predicates compare and hash equal."""
+    tenant: int = -1
+    require_tags: tuple = ()
+    any_tags: tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "tenant", int(self.tenant))
+        object.__setattr__(self, "require_tags",
+                           tuple(sorted({int(t) for t in self.require_tags})))
+        object.__setattr__(self, "any_tags",
+                           tuple(sorted({int(t) for t in self.any_tags})))
+
+    @property
+    def is_null(self) -> bool:
+        """True for the match-everything spec (no tenant, no tags)."""
+        return (self.tenant < 0 and not self.require_tags
+                and not self.any_tags)
+
+
+NULL_FILTER = FilterSpec()
+
+
+def as_filter_arrays(spec, n_words: int, device=None) -> tuple:
+    """Normalise a request filter to the triple ``effective_validity``
+    takes: ``(tenant () int32, require [W] int32, any [W] int32)``, the
+    words as int32 bit patterns, on ``device``. Accepts a ``FilterSpec``,
+    an already-packed triple (returned unchanged), or None (the null
+    filter: tenant -1, zero words). W is clamped to >= 1."""
+    if isinstance(spec, tuple) and len(spec) == 3:
+        return spec
+    if spec is None:
+        spec = NULL_FILTER
+    w = max(n_words, 1)
+    return (torch.tensor(spec.tenant, dtype=torch.int32, device=device),
+            words_tensor(pack_tags(spec.require_tags, w), device),
+            words_tensor(pack_tags(spec.any_tags, w), device))
+
+
+def effective_validity(vectors: dict, fspec: tuple | None = None):
+    """Combine ``doc_valid`` with a request's tenant/filter terms into the
+    one [N] bool mask the cascade threads everywhere (or None when the
+    store has no validity notion and no filter was given).
+
+    ``fspec`` is the ``as_filter_arrays`` triple; every term is evaluated
+    elementwise on the store's device:
+
+    - tenant: ``tenant < 0`` (any) or ``doc_tenant == tenant``;
+    - require: every set bit present — ``(bits & require) == require``;
+    - any: at least one set bit present, skipped when the any-words are
+      all zero.
+
+    Stores without the tenant/filter companions skip those terms. Shared
+    by the engine and the ``multistage`` oracle."""
+    ok = vectors.get(VALIDITY_KEY)
+    if fspec is None:
+        return ok
+    tenant, require, any_ = fspec
+    t = tenant_ids(vectors)
+    if t is not None:
+        t_ok = (tenant < 0) | (t == tenant)
+        ok = t_ok if ok is None else ok & t_ok
+    bits = filter_bits(vectors)
+    if bits is not None:
+        req = require[None, :]
+        f_ok = ((bits & req) == req).all(dim=1)
+        has_any = (any_ != 0).any()
+        f_ok = f_ok & (~has_any | ((bits & any_[None, :]) != 0).any(dim=1))
+        ok = f_ok if ok is None else ok & f_ok
+    return ok
 
 
 def scan_arrays(vectors: dict, name: str) -> tuple:
@@ -270,6 +427,8 @@ def _to_tensor(a) -> torch.Tensor:
     a = np.array(a)                   # a writable copy (JAX's are read-only)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype == np.uint32:          # tag words: int32 bit patterns
+        return torch.from_numpy(a.view(np.int32))
     return torch.from_numpy(a)
 
 
@@ -277,9 +436,11 @@ def from_numpy(vectors: dict, n_docs: int | None = None,
                store_dtype: str = "bfloat16",
                device="cuda") -> VectorStore:
     """A ``VectorStore`` on ``device`` from numpy arrays — e.g. a JAX
-    ``VectorStore``'s arrays taken with ``np.asarray``. Values and dtypes
-    carry over bit for bit (bf16 vectors, int8 codes, f32 scales, bool
-    masks); ``n_docs`` defaults to the leading dim."""
+    ``VectorStore``'s or segment's arrays taken with ``np.asarray``.
+    Values and dtypes carry over bit for bit (bf16 vectors, int8 codes,
+    f32 scales, bool masks, int32 tenants, routing centroids and members),
+    except the uint32 tag words, which become their int32 bit patterns;
+    ``n_docs`` defaults to the leading dim."""
     dev = resolve_device(device)
     out = {k: _to_tensor(v).to(dev) for k, v in vectors.items()}
     if n_docs is None:

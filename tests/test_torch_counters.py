@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import dispatch as DSP
+from repro_torch.kernels.embed_bag import embed_bag
 from repro_torch.kernels.maxsim import ops as MOPS
 from repro_torch.kernels.maxsim.ops import quantize_int8
 from repro_torch.kernels.pooling import ops as POPS
@@ -26,10 +27,12 @@ class _FakeLibrary:
     def __init__(self, rc: int):
         self.rc = rc
         self.calls = 0
+        self.entries = []
 
     def __getattr__(self, entry):
         def launch(*args):
             self.calls += 1
+            self.entries.append(entry)
             return self.rc
         return launch
 
@@ -121,3 +124,52 @@ def test_pooling_counts_only_real_launches(fake_card, rc, B, launched):
     else:
         POPS.pool_pages_fused(x, mask, pool_mat)
     assert DSP.launch_count("pooling") == launched
+
+
+@pytest.mark.parametrize("rc,B,L,launched", [
+    (0, 4, 3, 1), (0, 0, 3, 0), (0, 4, 0, 0), (700, 4, 3, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_bag_counts_only_real_launches(fake_card, rc, B, L, launched,
+                                             dtype):
+    """An empty batch returns zeros and launches nothing; a failed launch
+    raises and counts nothing."""
+    lib = fake_card(rc)
+    table = torch.randn(10, 8).to(dtype)
+    idx = torch.zeros((B, L), dtype=torch.int64)
+    if rc:
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            embed_bag(table, idx)
+    else:
+        out = embed_bag(table, idx)
+        assert tuple(out.shape) == (B, 8)
+        if not launched:
+            assert not out.any()
+    assert lib.calls == launched + (1 if rc else 0)
+    assert {k: DSP.launch_count(k) for k in DSP.KERNELS} == {
+        k: int(k == "embed_bag") * launched for k in DSP.KERNELS}
+
+
+def test_embed_bag_refuses_a_table_type_the_kernel_lacks(fake_card):
+    lib = fake_card(0)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        embed_bag(torch.zeros((4, 8), dtype=torch.float64),
+                  torch.zeros((1, 2), dtype=torch.int64))
+    assert lib.calls == 0
+
+
+@pytest.mark.parametrize("rc,B,launched", [(0, 2, 1), (0, 0, 0),
+                                           (700, 2, 0)])
+def test_centroid_scores_counts_as_ivf_route(fake_card, rc, B, launched):
+    """On the card ``centroid_scores`` is one launch of the scan kernel's
+    entry point over the K one-vector documents, counted as ``ivf_route``
+    and never as ``maxsim_scan``."""
+    lib = fake_card(rc)
+    q, cents = torch.zeros((B, 5, 16)), torch.zeros((7, 16))
+    if rc:
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            MOPS.centroid_scores(q, cents)
+    else:
+        assert tuple(MOPS.centroid_scores(q, cents).shape) == (B, 7)
+    assert lib.entries == ["maxsim_scan_launch"] * (launched + (rc > 0))
+    assert {k: DSP.launch_count(k) for k in DSP.KERNELS} == {
+        k: int(k == "ivf_route") * launched for k in DSP.KERNELS}
