@@ -16,11 +16,16 @@ line) at the first phase that goes wrong:
             ``doc_valid`` slots, fully masked documents and candidates, a
             broadcast mask, ragged N and D, a Matryoshka prefix, N no
             multiple of the chunk), printing each tolerance and the
-            largest error; ``quantize_int8`` on the card must give the
-            CPU's codes and scales bit for bit, and an empty query batch
-            or corpus must count no launch; ``centroid_scores`` (the scan
-            kernel on a D=1 view of a [64, 128] centroid table) against
-            its plain product;
+            largest error, and the scan's route per shape (tensor: bf16
+            wgmma over the packed valid query tokens, split into bf16 hi
+            + lo parts; warp: f32 on the CUDA cores) as the launcher
+            reports it; queries of 96 and 128 tokens at d=128 through the
+            scan (both routes), the rerank and ``centroid_scores``;
+            ``quantize_int8`` on the card must give the CPU's codes and
+            scales bit for bit, and an empty query batch or corpus must
+            count no launch; ``centroid_scores`` (the scan kernel's warp
+            route on a D=1 view of a [64, 128] centroid table) against
+            its plain product; the scan library's SASS must hold HGMMA;
 3b. embed   the ``embed_bag`` op at three shapes: ``kernel_micro``'s
             (table [100000, 64] f32, bags [4096, 8]), the same with a
             bf16 table, and a table the size of Criteo-1TB's largest
@@ -64,6 +69,11 @@ line) at the first phase that goes wrong:
             and its ids apart from exact-score ties; at ``n_probe`` 8 it
             prints recall@10 against the exhaustive ids and QPS; the
             ``ivf_route`` and ``maxsim_rerank`` counts must be > 0;
+4e. dtype   the 2-stage cascade with ``Stage.dtype="bfloat16"`` through
+            the kernels against the plain path, as in phase 4;
+4f. dup     the phase-4 pages plus a copy of the first 256 (exact ties):
+            the routed 2-stage kernel cascade at full probe must give the
+            exhaustive ids exactly;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -74,6 +84,10 @@ line) at the first phase that goes wrong:
             hi + lo parts, two products per multiply-add at 989 TFLOP/s),
             which keeps near-f32 accuracy over the bf16 documents (int8
             codes are exact in bf16, so the same bound holds for them).
+            The tensor-route scan computes exactly that, so its JSON
+            bound is the split one; its time is the launch with the
+            packed query built once (the wrapper's packing is timed
+            apart).
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
@@ -116,9 +130,11 @@ def log(msg: str) -> None:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 10) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after one
-    warm-up call."""
+def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Milliseconds of one call of ``fn`` on the card (CUDA events), after
+    one warm-up call: the median over ``iters`` samples, each the mean of
+    ``reps`` calls enqueued back to back (so that the host's work of one
+    call overlaps the card's work of the one before)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -126,10 +142,11 @@ def time_ms(fn, iters: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -201,6 +218,39 @@ def chunked_scan_ref(maxsim_ref, q, qm, docs, dm, chunk=256):
                       for i in range(0, docs.shape[0], chunk)], dim=1)
 
 
+def scan_route(docs, what: str) -> str:
+    """The scan launcher's route for ``docs`` (``maxsim_scan_route`` in the
+    library), which must be the wrappers' ``scan_route``; printed."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.maxsim import ops as KOPS
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[docs.dtype]
+    N, D, d = docs.shape
+    lib = build.library("maxsim_scan")
+    route = "tensor" if lib.maxsim_scan_route(code, D, d) else "warp"
+    check(route == KOPS.scan_route(docs.dtype, D, d),
+          f"{what}: launcher route {route} != wrapper route "
+          f"{KOPS.scan_route(docs.dtype, D, d)}")
+    if route == "tensor":
+        cap = lib.maxsim_scan_token_cap(code, d)
+        check(cap == KOPS.scan_token_cap(docs.dtype, d),
+              f"{what}: launcher token cap {cap} != wrapper's")
+    log(f"  route {what}: {route}"
+        + (" (bf16 wgmma, split-precision query)" if route == "tensor"
+           else " (f32 warp on the CUDA cores)"))
+    return route
+
+
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the scan library's SASS."""
+    from repro_torch.kernels import build
+    from torch.utils.cpp_extension import CUDA_HOME
+    so = build._lib_path("maxsim_scan")
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return sass.count("HGMMA")
+
+
 def check_kernels(args, dev) -> dict:
     from repro_torch.kernels.maxsim import ops as KOPS
     from repro_torch.kernels.maxsim.ref import maxsim_ref
@@ -216,9 +266,10 @@ def check_kernels(args, dev) -> dict:
     qm[:, :Qv] = True
     errs = {"maxsim_scan": 0.0, "maxsim_rerank": 0.0, "pooling": 0.0}
     tol = dict(rtol=1e-5, atol=1e-4)
-    log(f"[kernels] tolerance: f32 accumulation order only "
-        f"(rtol={tol['rtol']}, atol={tol['atol']} on scores of {Qv} "
-        "unit-vector tokens; pooling rtol=1e-5, atol=1e-5)")
+    log(f"[kernels] tolerance: rtol={tol['rtol']}, atol={tol['atol']} on "
+        f"scores of {Qv} unit-vector tokens (f32 sums in another order; the "
+        "tensor-route scan adds the split query's last bits, q_hi + q_lo "
+        "within 2^-16 relative of q); pooling rtol=1e-5, atol=1e-5")
 
     # --- scan: mean_pooling [N,34,d] and initial [N,1024,d], bf16 + f32
     for name, D in (("mean_pooling", cfg.n_pooled),
@@ -227,6 +278,7 @@ def check_kernels(args, dev) -> dict:
         dm = torch.rand((N, D), generator=gen, device=dev) > 0.05
         dm[3] = False                                # a fully masked doc
         valid = torch.rand((N,), generator=gen, device=dev) > 0.1
+        scan_route(docs, f"scan bf16 {name} [{N},{D},{d}]")
         got = KOPS.maxsim_scores(q, docs, qm, dm, valid)
         want = chunked_scan_ref(maxsim_ref, q, qm, docs, dm)
         want = want.masked_fill(~valid[None, :], NEG)
@@ -235,12 +287,44 @@ def check_kernels(args, dev) -> dict:
         check(bool((got[:, 3] < -1e20).all()),
               "scan: a fully masked doc must sink")
         del docs, dm
-    # f32 docs, ragged N and D, broadcast (absent) mask
-    docs = unit(gen, (1001, 37, d), torch.float32, dev)
-    got = KOPS.maxsim_scores(q, docs, qm, None)
-    want = maxsim_ref(q, qm, docs, torch.ones((1, 37), device=dev))
-    errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(got, want, "scan f32 ragged [1001,37] broadcast mask",
-        **tol))
+    # ragged N and D, broadcast (absent) mask: f32 docs (warp route), bf16
+    # docs (tensor route, tiles across documents), a query with no token
+    qz = qm.clone()
+    qz[1] = False
+    for dt in (torch.float32, torch.bfloat16):
+        docs = unit(gen, (1001, 37, d), dt, dev)
+        r = scan_route(docs, f"scan {str(dt)[6:]} [1001,37,{d}]")
+        got = KOPS.maxsim_scores(q, docs, qz, None)
+        want = maxsim_ref(q, qz, docs, torch.ones((1, 37), device=dev))
+        errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
+            got, want, f"scan {str(dt)[6:]} ragged [1001,37] broadcast mask, "
+            f"query 1 with no token ({r} route)", **tol))
+
+    # long queries (Q = 96 and 128 at d = 128) through the scan (both
+    # routes), the rerank and centroid_scores
+    docs = unit(gen, (300, 100, d), torch.bfloat16, dev)
+    dm = torch.rand((300, 100), generator=gen, device=dev) > 0.05
+    cents = torch.randn((64, d), generator=gen, device=dev)
+    for Ql in (96, 128):
+        ql = unit(gen, (8, Ql, d), torch.float32, dev)
+        qlm = torch.rand((8, Ql), generator=gen, device=dev) > 0.2
+        for dt in (torch.bfloat16, torch.float32):
+            dv = docs.to(dt)
+            r = scan_route(dv, f"scan Q={Ql} {str(dt)[6:]} [300,100,{d}]")
+            errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
+                KOPS.maxsim_scores(ql, dv, qlm, dm),
+                maxsim_ref(ql, qlm, dv, dm),
+                f"scan q[8,{Ql},{d}] {str(dt)[6:]} docs ({r} route)", **tol))
+        rows = torch.randint(0, 300, (8, 64), generator=gen, device=dev)
+        errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(
+            KOPS.maxsim_rerank(ql, docs, rows, qlm, dm),
+            KOPS._rerank_ref(ql, docs, rows, qlm.float(), dm),
+            f"rerank q[8,{Ql},{d}] rows [8,64]", **tol))
+        errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
+            KOPS.centroid_scores(ql, cents, qlm),
+            KOPS.centroid_scores_ref(ql, cents, qlm),
+            f"centroid_scores q[8,{Ql},{d}] centroids [64,{d}]", **tol))
+    del docs, dm
 
     # --- rerank: onto initial (L=prefetch) and mean_pooling (L=k0)
     for name, D, L in (("initial", cfg.n_patches, 256),
@@ -288,11 +372,20 @@ def check_kernels(args, dev) -> dict:
     errs["pooling"] = max_err(got, want,
                               "pool [256,1024,128] strided, P [34,1024]",
                               rtol=1e-5, atol=1e-5)
+    # a dense P with more rows than one pass holds, ragged S, no renorm
+    pd = torch.rand((70, 1021), generator=gen, device=dev)
+    xr, mr = x_full[:40, :1021], m_full[:40, :1021]
+    errs["pooling"] = max(errs["pooling"], max_err(
+        POPS.pool_pages_fused(xr, mr, pd, l2_norm=False),
+        POPS.pool_ref(xr, mr, pd, l2_norm=False),
+        "pool [40,1021,128] dense P [70,1021] no renorm", rtol=1e-5,
+        atol=1e-5))
 
     # --- IVF routing: the scan kernel on K one-vector f32 documents
     cents = torch.randn((64, d), generator=gen, device=dev)
     for dc in (d, 64):
         c = cents[:, :dc].contiguous()
+        scan_route(c[:, None, :], f"centroid_scores [64,1,{dc}] f32")
         got = KOPS.centroid_scores(q, c, qm)
         want = KOPS.centroid_scores_ref(q, c, qm)
         errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
@@ -362,6 +455,7 @@ def check_int8_and_db_kernels(args, dev) -> dict:
                   "db scan: a fully masked doc must sink")
             del got, want
         # the int8 scan at the streamed top-k's chunk shape and whole
+        scan_route(codes, f"scan int8 {name} [{N},{D},{d}]")
         for lo, hi in ((0, chunk), (0, N)):
             got = KOPS.maxsim_scores(q, codes[lo:hi], qm, dm[lo:hi],
                                      valid[lo:hi], scales=scales[lo:hi])
@@ -537,8 +631,8 @@ def run_cascade(retriever, bench, stages, batch: int,
         ids.append(ix)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return (np.concatenate(ids), torch.cat(scores).cpu().numpy(), dt,
-            len(q))
+    return (np.concatenate(ids), torch.cat(scores).float().cpu().numpy(),
+            dt, len(q))
 
 
 def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str,
@@ -1003,6 +1097,105 @@ def routed_stage0_times(args, dev, r, bench, two, n_clusters: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the scan's compute-type policy (Stage.dtype)
+# ---------------------------------------------------------------------------
+
+def dtype_path(args, dev, main) -> dict:
+    """The 2-stage cascade with ``Stage.dtype="bfloat16"`` on the scan
+    stage (query and float documents cast to bf16; the kernel reads the
+    cast query widened to f32) through the kernels, against the same
+    cascade through the plain path on the card. (A 1-stage cascade's
+    plain bf16 scan returns bf16 scores, as ``repro``'s does, whose
+    rounding reorders its top-10 against any f32 ranking; the kernel
+    returns f32 scores of the same bf16 inputs.)"""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+
+    r, bench = main["retriever"], main["bench"]
+    results = {}
+    for n, stages in ((2, MST.two_stage(256, 10)),):
+        kern = MST.with_rerank_policy(MST.with_scan_policy(
+            stages, use_kernel=True, dtype="bfloat16"), rerank_kernel=True)
+        DSP.reset_counts()
+        ids, sc, dt, nq = run_cascade(r, bench, kern, args.batch)
+        counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+        check(counts["maxsim_scan"] > 0, f"dtype {n}-stage: the scan kernel "
+              "was never launched")
+        plain = MST.with_scan_policy(stages, use_kernel=False, chunk=256,
+                                     dtype="bfloat16")
+        ids_p, sc_p, dt_p, _ = run_cascade(r, bench, plain, args.batch)
+        swaps = compare_rankings(ids, sc, ids_p, sc_p,
+                                 f"dtype bf16 {n}-stage kernel vs plain")
+        m, mp = (evaluate_ranking(x, bench.qrels, ks=(5, 10))
+                 for x in (ids, ids_p))
+        for k in m:
+            check(abs(m[k] - mp[k]) < 5e-4, f"dtype bf16 {n}-stage {k}: "
+                  f"kernel {m[k]:.4f} != plain {mp[k]:.4f} to 3 decimals")
+        f32 = main["results"][n]["metrics"]["ndcg@10"]
+        results[n] = dict(qps=nq / dt, plain_qps=nq / dt_p, metrics=m,
+                          counts=counts)
+        log(f"[dtype] {n}-stage Stage.dtype=bfloat16: kernel QPS "
+            f"{nq / dt:.1f}, plain QPS {nq / dt_p:.1f}; kernel == plain ids "
+            f"({swaps} tie swaps), metrics equal to 3 decimals; " + "  ".join(
+                f"{k}={v:.4f}" for k, v in m.items())
+            + f" (f32 scan ndcg@10 {f32:.4f}); launches {used(counts)}")
+    return results
+
+
+def used(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: routed full probe on duplicate pages (exact ties)
+# ---------------------------------------------------------------------------
+
+def duplicate_routed_path(args, dev, main) -> dict:
+    """The phase-4 pages plus a second copy of the first 256 (each copy
+    ties its original exactly at every stage), clustered into 64 IVF
+    clusters: the routed 2-stage kernel cascade at full probe must give
+    the exhaustive kernel cascade's ids exactly, ties included."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.routing import RoutingPolicy
+    from repro_torch.retrieval.segments import bucket_capacity
+    from repro_torch.retrieval.store import VectorStore
+
+    bench = main["bench"]
+    base = base_store(main)
+    n, n_dup = base.n_docs, 256
+    store = VectorStore({k: torch.cat([v, v[:n_dup]]) for k, v in
+                         base.vectors.items()}, n + n_dup)
+    r = Retriever(store, capacity=bucket_capacity(n + n_dup), device=dev,
+                  routing=RoutingPolicy(64))
+    two = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    DSP.reset_counts()
+    ids_x, sc_x, _, nq = run_cascade(r, bench, two, args.batch)
+    ids_r, sc_r, dt, _ = run_cascade(r, bench, MST.with_routing_policy(
+        two, n_probe=64, n_clusters=64), args.batch)
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    for k in ("maxsim_scan", "maxsim_rerank", "ivf_route"):
+        check(counts[k] > 0, f"duplicate pages: kernel {k} was never "
+              "launched")
+    check(np.array_equal(ids_r, ids_x), "duplicate pages: routed full probe "
+          f"ids differ from the exhaustive ids at "
+          f"{int((ids_r != ids_x).sum())} places")
+    check(np.allclose(sc_r, sc_x, rtol=1e-5, atol=1e-4),
+          "duplicate pages: routed scores differ from the exhaustive ones")
+    pairs = int(sum(len(set(row) & set(row + n)) for row in ids_x))
+    check(pairs > 0, "duplicate pages: no result holds a page and its copy")
+    log(f"[dup] {n} pages + {n_dup} copies, 64 clusters: routed full probe "
+        f"== exhaustive ids exactly over {nq} queries ({pairs} page/copy "
+        f"pairs tied in the top-10s, each in slot order); routed QPS "
+        f"{nq / dt:.1f}; launches {used(counts)}")
+    del r
+    return dict(pairs=pairs, counts=counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -1023,11 +1216,18 @@ def kernel_times(args, dev, main) -> list:
     qv = int(qm.sum())                       # valid query tokens in the batch
     entries = []
 
-    # --- scan at the 1-stage shape (initial) and the 2-stage shape
+    # --- scan at the 1-stage shape (initial) and the 2-stage shape; the
+    # kernel's time with the packed query operand built once (the wrapper
+    # packs it on every call: timed apart as "wrapper")
     for name in ("initial", "mean_pooling"):
         docs, dm = vec[name], vec[name + "_mask"]
         N, D, _ = docs.shape
-        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm))
+        route = scan_route(docs, f"scan {name} [{N},{D},{d}]")
+        op = KOPS.scan_query_operand(q, qmf)
+        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm,
+                                                operand=op))
+        wrap = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm))
+        pack = time_ms(lambda: KOPS.scan_query_operand(q, qmf))
         plain = time_ms(lambda: chunked_scan_ref(maxsim_ref, q, qmf, docs, dm), iters=3)
 
         def library():
@@ -1039,11 +1239,14 @@ def kernel_times(args, dev, main) -> list:
         nbytes = (q.numel() * 4 + qm.numel() * 4 + docs.numel() * 2
                   + dm.numel() + B * N * 4)
         flops = 2.0 * qv * int(dm.sum()) * d
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"[times] scan {name} q[{B},{Q},{d}] docs[{N},{D},{d}] bf16: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
-            f"ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        b_ms, b_by = bound_split_bf16(nbytes, flops)
+        log(f"[times] scan {name} q[{B},{Q},{d}] ({qv} valid tokens) "
+            f"docs[{N},{D},{d}] bf16, {route} route: kernel {ms:.4f} ms "
+            f"(wrapper with its query packing {wrap:.4f} ms, packing alone "
+            f"{pack:.4f} ms), plain {plain:.3f} ms, library {lib:.4f} ms, "
+            f"split bf16 bound {b_ms:.4f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / ms:.1f}% of it; {flops / ms / 1e9:.1f} f32 "
+            "TFLOP/s equivalent")
         log_bounds(f"scan {name}", ms, nbytes, flops)
         if name == "initial":
             entries.append(dict(
@@ -1097,26 +1300,25 @@ def kernel_times(args, dev, main) -> list:
     pages = torch.as_tensor(bench.pages[:256]).to(dev)
     S_full = cfg.seq_len
     x = pages[:, S_full - cfg.n_patches:]
-    m = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    m = torch.ones(x.shape[:2], dtype=torch.float32, device=dev)
     Bp, S, _ = x.shape
     n_out = pm.shape[0]
     ms = time_ms(lambda: POPS.pool_pages_fused(x, m, pm))
     plain = time_ms(lambda: POPS.pool_ref(x, m, pm))
 
     def library():
-        mf = m.float()
-        num = torch.matmul(pm, x * mf[..., None])
-        out = num / torch.matmul(mf, pm.T).clamp_min(1e-9)[..., None]
+        num = torch.matmul(pm, x * m[..., None])
+        out = num / torch.matmul(m, pm.T).clamp_min(1e-9)[..., None]
         return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-9)
     lib = time_ms(library)
     nnz = int((pm != 0).sum())
-    nbytes = Bp * S * d * 4 + Bp * S + n_out * S * 4 + Bp * n_out * d * 4
+    nbytes = Bp * S * d * 4 + Bp * S * 4 + n_out * S * 4 + Bp * n_out * d * 4
     flops = 2.0 * Bp * nnz * (d + 1)
     b_ms, b_by = bound(nbytes, flops)
     log(f"[times] pool x[{Bp},{S},{d}] f32 P[{n_out},{S}] ({nnz} nonzeros):"
-        f" kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by}), "
-        f"{nbytes / ms / 1e6:.1f} GB/s achieved")
+        f" kernel {ms:.4f} ms, plain {plain:.3f} ms, library {lib:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of "
+        f"the bound, {nbytes / ms / 1e6:.1f} GB/s achieved")
     entries.append(dict(
         name="pool", route="cuda", source="src/repro_torch/csrc/pool.cu",
         replaces="src/repro/kernels/pooling/pooling.py:54",
@@ -1192,21 +1394,25 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
         **db["int8 initial"]))
 
     # --- int8 scan at the streamed top-k's chunk shape over initial codes
-    # (and over the whole corpus, the db scan's work)
+    # (and over the whole corpus, the db scan's work), with the packed
+    # query built once as the streamed top-k does
+    op = KOPS.scan_query_operand(q, qmf)
     for lo, hi in ((0, chunk), (0, va["initial_int8"].shape[0])):
         docs = va["initial_int8"][lo:hi]
         dm, sc = va["initial_mask"][lo:hi], va["initial_scale"][lo:hi]
         N, D, _ = docs.shape
-        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm, scales=sc))
+        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm, scales=sc,
+                                                operand=op))
         plain = time_ms(lambda: KOPS.maxsim_chunked_ref(
             q, docs, qmf, dm, chunk=chunk, scales=sc), iters=3)
         lib = time_ms(lambda: library_scan(docs, dm, sc), iters=3)
         nbytes, flops = scan_cost(docs, dm, sc)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"[times] scan int8 initial q[{B},{Q},{d}] docs[{N},{D},{d}]: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
-            f"ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        b_ms, b_by = bound_split_bf16(nbytes, flops)
+        log(f"[times] scan int8 initial q[{B},{Q},{d}] docs[{N},{D},{d}], "
+            f"tensor route: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+            f"library {lib:.3f} ms, split bf16 bound {b_ms:.4f} ms "
+            f"({b_by}), kernel at {100 * b_ms / ms:.1f}% of it; "
+            f"{flops / ms / 1e9:.1f} f32 TFLOP/s equivalent")
         log_bounds(f"scan int8 initial [{N}]", ms, nbytes, flops)
         if hi == chunk:
             entries.append(dict(
@@ -1302,6 +1508,10 @@ def main() -> None:
         build.library(name)
     log(f"[build] {len(build.SIGNATURES)} CUDA libraries built in "
         f"{secs:.1f}s (sm_90a, one nvcc per source in parallel)")
+    n_hgmma = hgmma_count()
+    check(n_hgmma > 0, "the scan library's SASS holds no HGMMA (wgmma)")
+    log(f"[build] maxsim_scan library: {n_hgmma} HGMMA (wgmma) instructions "
+        "in its SASS (cuobjdump -sass)")
 
     # 3. kernels
     errs = check_kernels(args, dev)
@@ -1313,6 +1523,8 @@ def main() -> None:
     int8_res = main_path_int8(args, dev, main_res)
     filt_res = filtered_path(args, dev, main_res)
     route_res = routed_path(args, dev, main_res)
+    dtype_res = dtype_path(args, dev, main_res)
+    dup_res = duplicate_routed_path(args, dev, main_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
@@ -1361,6 +1573,12 @@ def main() -> None:
         log(f"[summary] filtered 2-stage {name} ({res['n_match']} pages): "
             f"kernel QPS {res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
             f"ndcg@10={res['metrics']['ndcg@10']:.4f}")
+    for n, res in dtype_res.items():
+        log(f"[summary] {n}-stage Stage.dtype=bfloat16: kernel QPS "
+            f"{res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
+            f"ndcg@10={res['metrics']['ndcg@10']:.4f}")
+    log(f"[summary] duplicate pages: routed full probe == exhaustive ids, "
+        f"{dup_res['pairs']} tied page/copy pairs")
     for n_probe, res in route_res["results"].items():
         log(f"[summary] routed 2-stage n_probe={n_probe}: kernel QPS "
             f"{res['qps']:.1f}, recall@10 vs exhaustive "

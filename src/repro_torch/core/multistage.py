@@ -46,6 +46,11 @@ class Stage:
     chunk          > 0 scans the corpus in chunks of that many documents,
                    bounding the plain scan's [B, chunk, Q, D] similarity
                    block (scores do not depend on it)
+    dtype          the scan stage's compute type (a torch dtype name such
+                   as "bfloat16"): the query, and float documents, are
+                   cast to it before scoring; int8 codes stay int8. The
+                   CUDA kernels read the cast query widened back to f32,
+                   which holds the same values
     scan_topk      stream a RUNNING per-query top-k across corpus chunks
                    (``kernels.maxsim.ops.maxsim_topk_chunked``; chunk
                    ``DEFAULT_SCAN_TOPK_CHUNK`` when ``chunk`` is 0) instead
@@ -75,6 +80,7 @@ class Stage:
     k: int                 # candidates kept after this stage
     use_kernel: bool = False
     chunk: int = 0
+    dtype: str | None = None
     scan_topk: bool = False
     rerank_kernel: bool = False
     n_probe: int = 0
@@ -87,6 +93,7 @@ DEFAULT_SCAN_TOPK_CHUNK = 1024
 
 def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
                      chunk: int | None = None,
+                     dtype: str | None = None,
                      scan_topk: bool | None = None) -> tuple:
     """Return ``stages`` with the scan (first) stage's dispatch policy
     replaced; ``None`` keeps the existing value."""
@@ -96,6 +103,8 @@ def with_scan_policy(stages: tuple, *, use_kernel: bool | None = None,
         kw["use_kernel"] = use_kernel
     if chunk is not None:
         kw["chunk"] = chunk
+    if dtype is not None:
+        kw["dtype"] = dtype
     if scan_topk is not None:
         kw["scan_topk"] = scan_topk
     return (dataclasses.replace(first, **kw),) + rest

@@ -49,6 +49,8 @@ maxsim_rerank_kernel(const int32_t* __restrict__ rows,
   }
 }
 
+constexpr size_t RERANK_SMEM_MAX = 232448;  // opt-in shared memory per block
+
 template <typename T>
 int launch(const int32_t* rows, const float* q, const float* qm,
            const void* docs, const float* scales, const uint8_t* dm,
@@ -56,6 +58,14 @@ int launch(const int32_t* rows, const float* q, const float* qm,
            cudaStream_t stream) {
   const int Qp = padded_q(Q);
   const size_t smem = query_smem_bytes(Qp, d);
+  // a query block above the 48 KB default needs the opt-in maximum
+  if (smem > RERANK_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        maxsim_rerank_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid((L + WARPS - 1) / WARPS, B < 65535 ? B : 65535);
   maxsim_rerank_kernel<T><<<grid, THREADS, smem, stream>>>(
       rows, q, qm, static_cast<const T*>(docs), scales, dm, dm_stride, out,

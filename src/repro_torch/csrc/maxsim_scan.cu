@@ -1,26 +1,40 @@
 // Streaming MaxSim scan: scores[b, n] for every query b against every
-// document n of a corpus.
+// document n of a corpus, with the NEG/2 floor per valid query token.
 //
 // Replaces the TPU kernel `maxsim_pallas` (src/repro/kernels/maxsim/
-// maxsim.py, body `_maxsim_kernel`), with its int8 variant (`scales`).
-// On the TPU the grid walks (B, N/bn, D/bd) in order and carries the
-// running max in VMEM scratch across D tiles. Here blocks run in parallel
-// in no order, so nothing carries between blocks: a block holds one query
-// in shared memory and each of its warps walks all D vectors of one
-// document, keeping the running max in registers (maxsim_common.cuh).
-// Ragged N, D and Q are masked in the kernel, so the wrapper pads nothing.
-// int8 documents load 8 codes per 8-byte load and multiply each by its
-// vector's scale before the multiply-add, as the TPU body does.
+// maxsim.py:80, body `_maxsim_kernel`), with its int8 variant (`scales`,
+// :105). On the TPU the grid walks (B, N/bn, D/bd) in order and carries
+// the running max in VMEM scratch across D tiles. Here blocks run in
+// parallel in no order, so nothing carries between blocks: a block owns
+// whole documents and carries their running max itself.
 //
-// What bounds it on an H100: the f32 multiply-adds, 2*B*Q*N*D*d operations
-// at 67 TFLOP/s on the CUDA cores (at ColPali width the corpus read is far
-// smaller than that: N*D*d*2 bytes, or N*D*(d+4) for int8, at 3.35 TB/s).
-// The design keeps the [B, N, Q, D] similarity tensor out of device memory
-// entirely; blocks of one document tile for consecutive queries are
-// adjacent in the grid (query index fastest), so a tile is read from
-// device memory once per wave and from L2 by the other queries. Tensor
-// cores (wgmma) and TMA pipelining are left for a later change.
+// Two routes, chosen by `maxsim_scan_route` from the document type, D and
+// d alone (never by a failed launch):
+//
+// - tensor (bf16 documents or int8 codes, D >= 16, d of 32, 64 or 128):
+//   the bf16 wgmma kernel of maxsim_wgmma.cuh, one block per SM over a
+//   range of whole documents. Documents are the M side in 64-row tiles of
+//   the flattened [N*D, d] rows, streamed through a 3-slot cp.async ring;
+//   the packed VALID query tokens of a group of queries are the N side,
+//   held in shared memory as a split-precision pair (q_hi + q_lo, bf16),
+//   so each document tile is read once per group (one group holds the
+//   main path's 32 queries) and masked query slots cost nothing. What
+//   bounds it on an H100: the
+//   two bf16 products per f32 multiply-add, 4*T*N*D*d operations for T
+//   valid tokens at 989 TFLOP/s (the corpus read, N*D*d*2 bytes at 3.35
+//   TB/s, is smaller at the main path's 320 tokens per batch).
+// - warp (f32 documents, D < 16 such as the D = 1 IVF centroid scores,
+//   or another d): one warp per (query, document) on the CUDA cores
+//   (maxsim_common.cuh), the query in shared memory as f32, bound by the
+//   f32 multiply-adds at 67 TFLOP/s. A 64-row tile of one vector would
+//   waste 63/64 of a tensor-core product.
+//
+// Both routes opt in to the card's shared-memory maximum, and the launcher
+// returns cudaErrorInvalidValue when a query does not fit: the wrappers
+// check the same limits first (`ops.scan_token_cap`,
+// `ops.warp_query_cap`).
 #include "maxsim_common.cuh"
+#include "maxsim_wgmma.cuh"
 
 namespace maxsim {
 
@@ -55,6 +69,13 @@ int launch(const float* q, const float* qm, const void* docs,
            cudaStream_t stream) {
   const int Qp = padded_q(Q);
   const size_t smem = query_smem_bytes(Qp, d);
+  if (smem > wg::SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        maxsim_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int tiles = (N + WARPS - 1) / WARPS;
   const dim3 grid(B, tiles < 65535 ? tiles : 65535);
   maxsim_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
@@ -63,17 +84,90 @@ int launch(const float* q, const float* qm, const void* docs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool INT8, int DIM>
+int launch_tc(const __nv_bfloat16* qpack, const int* qstart,
+              const int* qcount, int B, int TP, const void* docs,
+              const float* scales, const uint8_t* dm, int64_t dm_stride,
+              float* out, int N, int D, int d, cudaStream_t stream) {
+  const size_t smem = wg::smem_bytes(TP, d, INT8 ? 1 : 2);
+  if (TP <= 0 || TP % wg::CH || TP > wg::token_cap(d, INT8 ? 1 : 2) ||
+      smem > wg::SMEM_MAX || reinterpret_cast<uintptr_t>(docs) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      wg::scan_wgmma_kernel<INT8, DIM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // one block per SM, each over a range of whole documents
+  const int ranges = N < sms ? N : sms;
+  // a block counts its rows in 32 bits
+  if ((int64_t)(N / ranges + 1) * D > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::scan_wgmma_kernel<INT8, DIM><<<ranges, wg::THREADS, smem, stream>>>(
+      qpack, qstart, qcount, B, TP, docs, scales, dm, dm_stride, out, N, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace maxsim
+
+// The route a scan of docs_type (0 f32, 1 bf16, 2 int8 codes) with D
+// vectors of dim d per document takes: 1 = tensor cores (wgmma), 0 = warp.
+extern "C" int maxsim_scan_route(int docs_type, int D, int d) {
+  using namespace maxsim;
+  return docs_type != DOC_F32 && D >= wg::MIN_D &&
+                 (d == 32 || d == 64 || d == 128)
+             ? 1
+             : 0;
+}
+
+namespace maxsim {
+
+template <bool INT8>
+int launch_tc_d(const __nv_bfloat16* qpack, const int* qstart,
+                const int* qcount, int B, int TP, const void* docs,
+                const float* scales, const uint8_t* dm, int64_t dm_stride,
+                float* out, int N, int D, int d, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_tc<INT8, 32>(qpack, qstart, qcount, B, TP, docs, scales,
+                                 dm, dm_stride, out, N, D, d, stream);
+    case 64:
+      return launch_tc<INT8, 64>(qpack, qstart, qcount, B, TP, docs, scales,
+                                 dm, dm_stride, out, N, D, d, stream);
+    case 128:
+      return launch_tc<INT8, 128>(qpack, qstart, qcount, B, TP, docs,
+                                  scales, dm, dm_stride, out, N, D, d,
+                                  stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace maxsim
+
+// Tokens per query group (a multiple of 64) that the tensor route holds in
+// shared memory at vector dim d.
+extern "C" int maxsim_scan_token_cap(int docs_type, int d) {
+  return wg::token_cap(d, docs_type == maxsim::DOC_INT8 ? 1 : 2);
+}
 
 // q [B,Q,d] f32, q_mask [B,Q] f32, docs [N,D,d] of docs_type (0 f32,
 // 1 bf16, 2 int8 codes with scales [N,D] f32; scales is unused otherwise),
 // doc_mask rows of D bytes (row stride doc_mask_stride: D, or 0 for one
-// broadcast row), out [B,N] f32. Returns the launch's cudaError_t.
+// broadcast row), out [B,N] f32. The tensor route reads the query from
+// the packed operand instead (`ops.scan_query_operand`): qpack [*, 2, d]
+// bf16 (the valid tokens' q_hi, q_lo in query order), qstart/qcount [B]
+// int32 (query b's first token and count) and TP, the tokens a group may
+// hold; it is required there and must be null (TP 0) on the warp route.
+// Returns the launch's cudaError_t.
 extern "C" int maxsim_scan_launch(const void* q, const void* q_mask,
                                   const void* docs, int docs_type,
                                   const void* scales, const void* doc_mask,
                                   long long doc_mask_stride, void* out, int B,
-                                  int Q, int N, int D, int d, void* stream) {
+                                  int Q, int N, int D, int d,
+                                  const void* qpack, const void* qstart,
+                                  const void* qcount, int TP, void* stream) {
   using namespace maxsim;
   const float* qf = static_cast<const float*>(q);
   const float* qmf = static_cast<const float*>(q_mask);
@@ -82,6 +176,19 @@ extern "C" int maxsim_scan_launch(const void* q, const void* q_mask,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t st = (int64_t)doc_mask_stride;
+  if (maxsim_scan_route(docs_type, D, d)) {
+    if (!qpack || !qstart || !qcount || TP <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);  // prepared for warp
+    const auto* qp = static_cast<const __nv_bfloat16*>(qpack);
+    const int* qs = static_cast<const int*>(qstart);
+    const int* qc = static_cast<const int*>(qcount);
+    return docs_type == DOC_INT8
+               ? launch_tc_d<true>(qp, qs, qc, B, TP, docs, sc, dm, st, o, N,
+                                   D, d, s)
+               : launch_tc_d<false>(qp, qs, qc, B, TP, docs, sc, dm, st, o,
+                                    N, D, d, s);
+  }
+  if (qpack || TP) return static_cast<int>(cudaErrorInvalidValue);  // tensor
   switch (docs_type) {
     case DOC_F32:
       return launch<float>(qf, qmf, docs, sc, dm, st, o, B, Q, N, D, d, s);

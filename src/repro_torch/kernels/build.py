@@ -35,9 +35,14 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "maxsim_scan": {
         # q, q_mask, docs, docs_type, scales, doc_mask, doc_mask_stride,
-        # out, B, Q, N, D, d, stream
+        # out, B, Q, N, D, d, then the tensor route's packed query: qpack,
+        # qstart, qcount, TP; stream
         "maxsim_scan_launch": [_P, _P, _P, _I, _P, _P, _I64, _P,
-                               _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+        # docs_type, D, d -> 1 tensor-core route, 0 warp route
+        "maxsim_scan_route": [_I, _I, _I],
+        # docs_type, d -> query tokens per group on the tensor route
+        "maxsim_scan_token_cap": [_I, _I],
     },
     "maxsim_scan_db": {
         # q, q_mask, docs, docs_type, scales, doc_mask, doc_mask_stride,
@@ -52,10 +57,10 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P],
     },
     "pool": {
-        # x, x_page_stride, mask, mask_page_stride, pool_mat, out,
-        # B, S, d, n_out, l2_norm, stream
-        "pool_launch": [_P, _I64, _P, _I64, _P, _P,
-                        _I, _I, _I, _I, _I, _P],
+        # x, x_page_stride, mask [B, S4], pool_mat [n_out, S4], out,
+        # B, S, S4, d, n_out, l2_norm, stream
+        "pool_launch": [_P, _I64, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P],
     },
     "embed_bag": {
         # table, table_type (0 f32, 1 bf16, 2 f16), idx, w, out, B, L, d,

@@ -3,8 +3,20 @@
 ``maxsim_scores(q, docs, ...)`` is the scan: [B, N] MaxSim scores of a
 query batch against a whole corpus. For CUDA tensors it launches the
 hand-written scan kernel (``csrc/maxsim_scan.cu``), which masks the ragged
-Q, N and D edges itself (nothing is padded); for CPU tensors it runs the
-plain version ``maxsim_ref``.
+N and D edges itself; for CPU tensors it runs the plain version
+``maxsim_ref``. The launcher takes one of two routes, from the document
+type, D and d alone (``scan_route`` states the rule):
+
+- ``tensor``: bf16 documents or int8 codes with D >= 16 and d of 32, 64
+  or 128. bf16 wgmma over the documents (M side) and the packed VALID
+  query tokens (N side) as a split-precision pair: ``scan_query_operand``
+  packs and splits the query on its device (q = q_hi + q_lo in bf16,
+  within 2^-16 relative), the kernel groups whole queries itself, and
+  ``maxsim_split_ref`` is the same arithmetic in plain PyTorch. Scores
+  agree with ``maxsim_ref`` to rtol 1e-5, atol 1e-4 at the main path's
+  10 unit-vector tokens per query;
+- ``warp``: f32 documents, small D (the D = 1 IVF centroid scores) and
+  other d: one warp per (query, document) in f32 on the CUDA cores.
 
 ``maxsim_scores_chunked(q, docs, ..., chunk=C)`` is the chunked scan. For
 CUDA tensors with 0 < C < N it promotes itself, as the JAX package's does,
@@ -43,8 +55,11 @@ from repro_torch.kernels import dispatch as DSP
 from repro_torch.kernels.dispatch import full_f32
 from repro_torch.kernels.maxsim.ref import NEG, dequantize, maxsim_ref, top_k
 
-_QT = 16                     # query tokens per register pass in the kernels
-_SMEM_LIMIT = 48 * 1024      # static launch limit of the scan and rerank
+_QT = 16                     # query tokens per register pass (warp kernels)
+_SMEM_OPTIN = 232448         # opt-in shared memory per block on sm_90
+_CH = 64                     # query tokens per tensor-core chunk
+_TM, _STAGES, _NSLOT = 64, 3, 8   # tensor route: tile rows, ring, open docs
+_WGS, _NCW = 2, 3            # warpgroups, chunks each: at most 384 tokens
 _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INV_127 = np.float32(1.0 / 127.0)
 
@@ -101,12 +116,105 @@ def _kernel_inputs(q, q_mask, docs, scales, what: str) -> tuple:
     return qf, qm, _DOC_TYPES[docs.dtype], scales
 
 
-def _check_query_smem(q, what: str) -> None:
-    qp = -(-q.shape[1] // _QT) * _QT
-    if (qp * q.shape[-1] + qp) * 4 > _SMEM_LIMIT:
+def scan_route(docs_dtype, D: int, d: int) -> str:
+    """The scan launcher's route for documents of ``docs_dtype`` with D
+    vectors of dim d: "tensor" (bf16 wgmma) or "warp" (f32 CUDA cores).
+    The same rule as ``maxsim_scan_route`` in ``csrc/maxsim_scan.cu``; the
+    launcher refuses a call prepared for the other route."""
+    tc = docs_dtype in (torch.bfloat16, torch.int8)
+    return "tensor" if tc and D >= 16 and d in (32, 64, 128) else "warp"
+
+
+def _tc_smem_bytes(tp: int, d: int, esize: int) -> int:
+    """Shared memory of the tensor route (``wg::smem_bytes``): the query
+    operand and the bf16 tiles take d rounded up to 64-element swizzle
+    atoms."""
+    dp = -(-d // 64) * 64
+    tiles = (_STAGES * _TM * dp * 2 if esize == 2
+             else _STAGES * _TM * d + _TM * dp * 2)
+    return tp * 2 * dp * 2 + tiles + _NSLOT * tp * 4 + 1024
+
+
+def scan_token_cap(docs_dtype, d: int) -> int:
+    """Query tokens per group (a multiple of 64) that the tensor route
+    holds in shared memory and registers (``maxsim_scan_token_cap``): 320
+    at d = 128, at most 384."""
+    esize = 1 if docs_dtype == torch.int8 else 2
+    tp = 0
+    while (tp + _CH <= _WGS * _NCW * _CH
+           and _tc_smem_bytes(tp + _CH, d, esize) <= _SMEM_OPTIN):
+        tp += _CH
+    return tp
+
+
+def warp_query_cap(d: int) -> int:
+    """Query tokens the warp kernels (the scan's warp route, the rerank,
+    ``centroid_scores``) hold in shared memory: ((Qp*d + Qp) * 4 bytes,
+    Qp = Q rounded up to 16) within the opt-in maximum; 448 at d = 128."""
+    return _SMEM_OPTIN // (4 * (d + 1)) // _QT * _QT
+
+
+def _check_query_smem(q, what: str, cap: int) -> None:
+    """Raise unless the query's Q token slots fit the kernel (``cap``)."""
+    if q.shape[1] > cap:
         raise ValueError(f"{what}: {q.shape[1]} query tokens of dim "
-                         f"{q.shape[-1]} do not fit the kernel's "
-                         "shared-memory query block")
+                         f"{q.shape[-1]} exceed the kernel's {cap} "
+                         "(shared-memory query block)")
+
+
+def split_bf16(x: torch.Tensor) -> tuple:
+    """f32 x -> (hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi): hi +
+    lo equals x to within 2^-16 relative."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi).to(torch.bfloat16)
+
+
+def scan_query_operand(q: torch.Tensor, q_mask: torch.Tensor) -> tuple:
+    """The tensor route's query operand, built on q's device with no wait
+    for it: (qpack [B*Q + 1, 2, d] bf16 — the valid tokens' (q_hi, q_lo)
+    in (query, token) order from row 0; rows past the last valid token
+    are never read, and the masked slots are written to the last row —,
+    qstart [B] int32 (a query's first row), qcount [B] int32). The kernel
+    groups whole queries itself, at most ``scan_token_cap`` tokens per
+    group."""
+    B, Q, d = q.shape
+    valid = q_mask > 0
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    rows = torch.where(valid, torch.cumsum(valid, 1) + (starts[:, None] - 1),
+                       B * Q)
+    qpack = torch.empty((B * Q + 1, 2, d), dtype=torch.bfloat16,
+                        device=q.device)
+    qpack.index_copy_(0, rows.reshape(-1),
+                      torch.stack(split_bf16(q.reshape(B * Q, d)), dim=1))
+    return qpack, starts, counts
+
+
+def maxsim_split_ref(operand: tuple, docs: torch.Tensor,
+                     doc_mask: torch.Tensor | None = None,
+                     scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The tensor route's arithmetic in plain PyTorch: [B, N] scores from
+    a ``scan_query_operand`` and bf16 documents or int8 codes. Each
+    similarity is docs . q_hi + docs . q_lo with exact bf16 products and
+    f32 sums, times the int8 row scale after the product; masked rows
+    score NEG, each valid token's max is floored at NEG/2."""
+    full_f32()
+    qpack, qstart, qcount = operand
+    df = docs.float()                                  # bf16 / int8 exact
+    hi, lo = qpack[:, 0].float(), qpack[:, 1].float()
+    sim = (torch.einsum("njd,td->ntj", df, hi)
+           + torch.einsum("njd,td->ntj", df, lo))      # [N, rows, D]
+    if scales is not None:
+        sim = sim * scales.float()[:, None, :]
+    if doc_mask is not None:
+        sim.masked_fill_(~(doc_mask > 0)[:, None, :], NEG)
+    best = sim.amax(dim=-1).clamp_min(NEG / 2)         # [N, rows]
+    out = torch.zeros((qstart.shape[0], docs.shape[0]), dtype=torch.float32,
+                      device=docs.device)
+    for b, (s0, c) in enumerate(zip(qstart.tolist(), qcount.tolist())):
+        out[b] = best[:, s0:s0 + c].sum(dim=-1)
+    return out
 
 
 def _ptr(t) -> int:
@@ -114,9 +222,11 @@ def _ptr(t) -> int:
 
 
 def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
-                 scales) -> torch.Tensor:
-    """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db"): the
-    two take the same arguments. [B, N] f32 scores (NEG/2 floor). Counts
+                 scales, operand=None) -> torch.Tensor:
+    """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db").
+    [B, N] f32 scores (NEG/2 floor). "maxsim_scan" also takes the tensor
+    route's query operand (``scan_query_operand``; built here when the
+    route is "tensor" and none is given), null for the warp route. Counts
     one launch of ``counter`` once the launch succeeded; an empty query
     batch or corpus launches nothing and counts nothing."""
     B, Q, d = q.shape
@@ -126,11 +236,20 @@ def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
     if B == 0 or N == 0:
         return out
     dm, stride = _mask_arg(doc_mask, N, D, docs.device)
+    extra = []
+    if entry == "maxsim_scan":
+        if scan_route(docs.dtype, D, d) == "tensor":
+            if operand is None:
+                operand = scan_query_operand(qf, qm)
+            extra = [t.data_ptr() for t in operand]
+            extra.append(scan_token_cap(docs.dtype, d))
+        else:
+            extra = [0, 0, 0, 0]
     lib = build.library(entry)
     with torch.cuda.device(docs.device):
         rc = getattr(lib, entry + "_launch")(
             qf.data_ptr(), qm.data_ptr(), docs.data_ptr(), dtype, _ptr(sc),
-            dm.data_ptr(), stride, out.data_ptr(), B, Q, N, D, d,
+            dm.data_ptr(), stride, out.data_ptr(), B, Q, N, D, d, *extra,
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, entry)
     DSP.record(counter)
@@ -141,23 +260,28 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
                   q_mask: torch.Tensor | None = None,
                   doc_mask: torch.Tensor | None = None,
                   doc_valid: torch.Tensor | None = None,
-                  *, scales: torch.Tensor | None = None) -> torch.Tensor:
+                  *, scales: torch.Tensor | None = None,
+                  operand: tuple | None = None) -> torch.Tensor:
     """q [B,Q,d], docs [N,D,d] (f32/bf16, or int8 codes with ``scales``
     [N,D] f32) -> scores [B,N] (f32).
 
     ``doc_valid`` [N] bool marks live documents in a capacity-padded store;
     dead slots score NEG so they can never enter a top-k on merit. The mask
     is applied to the kernel OUTPUT: the kernel still streams the full
-    padded corpus."""
-    B, Q, _ = q.shape
+    padded corpus. ``operand`` is a ``scan_query_operand`` of (q, q_mask)
+    built once for repeated scans of one query batch (the tensor route)."""
+    B, Q, d = q.shape
     N, D, _ = docs.shape
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        _check_query_smem(q, "maxsim_scan")
+        tensor = scan_route(docs.dtype, D, d) == "tensor"
+        _check_query_smem(q, "maxsim_scan", scan_token_cap(docs.dtype, d)
+                          if tensor else warp_query_cap(d))
         out = _scan_launch("maxsim_scan", "maxsim_scan_int8"
                            if scales is not None else "maxsim_scan",
-                           q, q_mask, docs, doc_mask, scales)
+                           q, q_mask, docs, doc_mask, scales,
+                           operand if tensor else None)
     else:
         if doc_mask is None:
             doc_mask = _ones_mask((1, D), docs.device)
@@ -270,7 +394,7 @@ def _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales) -> torch.Tensor:
     B, Q, d = q.shape
     N, D, _ = docs.shape
     L = rows.shape[1]
-    _check_query_smem(q, "maxsim_rerank")
+    _check_query_smem(q, "maxsim_rerank", warp_query_cap(d))
     qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales,
                                        "maxsim_rerank")
     out = torch.empty((B, L), dtype=torch.float32, device=docs.device)
@@ -356,7 +480,7 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
         q = q[..., :dc]
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
-    _check_query_smem(q, "centroid_scores")
+    _check_query_smem(q, "centroid_scores", warp_query_cap(dc))
     docs = centroids.float()[:, None, :].contiguous()           # [K, 1, dc]
     return _scan_launch("maxsim_scan", "ivf_route", q, q_mask, docs, None,
                         None)
@@ -397,13 +521,24 @@ def maxsim_topk_chunked(q: torch.Tensor, docs: torch.Tensor,
     N = docs.shape[0]
     k = min(k, N)
 
+    operand = None
+    if (use_kernel and DSP.on_cuda(docs) and B and N
+            and scan_route(docs.dtype, docs.shape[1], q.shape[-1])
+            == "tensor"):
+        # one packed query operand for every chunk's launch
+        qm = _ones_mask(q.shape[:2], docs.device) if q_mask is None \
+            else q_mask.to(device=docs.device, dtype=torch.float32)
+        operand = scan_query_operand(
+            q.to(device=docs.device, dtype=torch.float32), qm)
+
     def score(lo, hi):
         dm = doc_mask
         if dm is not None and dm.shape[0] != 1:
             dm = dm[lo:hi]
         sc = None if scales is None else scales[lo:hi]
         if use_kernel:
-            return maxsim_scores(q, docs[lo:hi], q_mask, dm, scales=sc)
+            return maxsim_scores(q, docs[lo:hi], q_mask, dm, scales=sc,
+                                 operand=operand)
         return maxsim_chunked_ref(q, docs[lo:hi], q_mask, dm, chunk=0,
                                   scales=sc)
 

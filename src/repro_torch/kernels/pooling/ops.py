@@ -9,7 +9,9 @@ visual-token range).
 
 ``pool_pages_fused`` launches the hand-written kernel (``csrc/pool.cu``)
 for CUDA tensors and runs the plain version ``pool_ref`` for CPU
-tensors. ``pool_pages_grouped`` is the factored evaluation of the same
+tensors. The kernel skips P's structural zeros, which gives the same
+result for finite pages (a page holding inf or NaN where its weight is
+zero gives NaN in the plain version only). ``pool_pages_grouped`` is the factored evaluation of the same
 operator (group reshape-sum + a small stage-2 matrix).
 """
 from __future__ import annotations
@@ -179,28 +181,37 @@ def pool_ref(x: torch.Tensor, mask: torch.Tensor, pool_mat: torch.Tensor,
 
 
 def _pool_cuda(x, mask, pool_mat, l2_norm: bool) -> torch.Tensor:
-    """Launch ``pool_launch``: [B, n_out, d] f32."""
+    """Launch ``pool_launch``: [B, n_out, d] f32. The mask and pooling
+    matrix go to the kernel as f32 rows of S rounded up to a multiple of 4
+    (zero past S), so every row starts 16-byte aligned."""
     B, S, d = x.shape
     n_out = pool_mat.shape[0]
     if pool_mat.shape[1] != S:
         raise ValueError(f"pool_mat {tuple(pool_mat.shape)} does not match "
                          f"S={S}")
-    if d > 1024:
-        raise ValueError(f"vector dim {d} exceeds one block of threads")
+    if d % 4 or d > 1024:
+        raise ValueError(f"vector dim {d} must be a multiple of 4 and at "
+                         "most 1024 (16-byte row loads, 256 threads)")
     dev = x.device
     x = x.float()
-    if x.stride(2) != 1 or x.stride(1) != d:
+    if (x.stride(2) != 1 or x.stride(1) != d or x.stride(0) % 4
+            or x.data_ptr() % 16):
         x = x.contiguous()
-    m = mask.to(device=dev, dtype=torch.float32).contiguous()
-    p = pool_mat.to(device=dev, dtype=torch.float32).contiguous()
+    s4 = -(-S // 4) * 4
+    m = mask.to(device=dev, dtype=torch.float32)
+    p = pool_mat.to(device=dev, dtype=torch.float32)
+    if s4 != S:
+        m = torch.nn.functional.pad(m, (0, s4 - S))
+        p = torch.nn.functional.pad(p, (0, s4 - S))
+    m, p = m.contiguous(), p.contiguous()
     out = torch.empty((B, n_out, d), dtype=torch.float32, device=dev)
     if B == 0 or n_out == 0:
         return out
     lib = build.library("pool")
     with torch.cuda.device(dev):
-        rc = lib.pool_launch(x.data_ptr(), x.stride(0), m.data_ptr(), S,
-                             p.data_ptr(), out.data_ptr(), B, S, d, n_out,
-                             int(l2_norm),
+        rc = lib.pool_launch(x.data_ptr(), x.stride(0), m.data_ptr(),
+                             p.data_ptr(), out.data_ptr(), B, S, s4, d,
+                             n_out, int(l2_norm),
                              torch.cuda.current_stream().cuda_stream)
     build.check(rc, "pool")
     DSP.record("pooling")

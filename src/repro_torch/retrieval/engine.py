@@ -27,10 +27,13 @@ segments of a ``SegmentedStore``:
   ``n_probe`` clusters' -1-padded member-slot lists become the candidate
   rows, and those rows are scored by ``_score_candidates``, the rerank
   stages' machinery (the gather-rerank kernel with ``use_kernel`` or
-  ``rerank_kernel``). At ``n_probe == K`` every live slot sits in exactly
-  one member list, so the routed stage recovers the exhaustive candidate
-  set; ties between equal scores are broken by position in the probed
-  rows there, by slot id in the exhaustive scan.
+  ``rerank_kernel``). Each query's probed rows are put in slot-id order
+  (padding last) before they are scored, so equal scores keep the lower
+  slot id first, as in the exhaustive scan: at ``n_probe == K`` every
+  live slot sits in exactly one member list and the routed stage gives
+  the exhaustive ids, exact ties included. (``repro``'s routed stage
+  breaks ties by probed-row position instead, so its routed ids can
+  differ from these on exact ties, and only there.)
 
 The oracle is ``repro_torch.core.multistage.search``.
 """
@@ -52,12 +55,25 @@ NEG = -1e30
 INT8_REF_CHUNK = 1024      # plain int8 scan chunk when the stage sets none
 
 
-def _scan_prep(vecs, q):
+def _prefix(vecs, q):
     """The Matryoshka query-prefix slice: a stage whose vectors are
     narrower than the query scores the matching prefix."""
     if vecs.shape[-1] < q.shape[-1]:
         q = q[..., : vecs.shape[-1]]
     return q
+
+
+def _scan_prep(stage: Stage, vecs, q, scales):
+    """The scan stage's compute-type policy (``Stage.dtype``: the query,
+    and float documents, cast to it; int8 codes stay int8) and the
+    Matryoshka prefix slice, shared by the score and streamed top-k
+    paths: (vecs, q)."""
+    if stage.dtype is not None:
+        dt = getattr(torch, stage.dtype)
+        q = q.to(dt)
+        if scales is None:                    # int8 codes must stay int8
+            vecs = vecs.to(dt)
+    return vecs, _prefix(vecs, q)
 
 
 def _single_vector_scores(q, vecs, q_mask, scales, doc_valid):
@@ -82,7 +98,7 @@ def _dispatch_scan(stage: Stage, vecs, mask, q, q_mask, scales,
     plain chunked scan, dequantising one chunk at a time (a whole
     [N, D, d] float copy would undo the int8 saving), with a bounded
     default chunk; a float stage runs ``core.maxsim``."""
-    q = _scan_prep(vecs, q)
+    vecs, q = _scan_prep(stage, vecs, q, scales)
     if vecs.ndim == 2:                        # single-vector stage
         return _single_vector_scores(q, vecs, q_mask, scales, doc_valid)
     if stage.use_kernel:
@@ -106,7 +122,7 @@ def _dispatch_scan_topk(stage: Stage, vecs, mask, q, q_mask, scales,
     scan kernel when the stage sets ``use_kernel``). Single-vector scans
     keep score-then-select: their [B, N] scores are the product's output,
     not an avoidable intermediate."""
-    q = _scan_prep(vecs, q)
+    vecs, q = _scan_prep(stage, vecs, q, scales)
     if vecs.ndim == 2:
         s = _single_vector_scores(q, vecs, q_mask, scales, doc_valid)
         return top_k(s, min(k, vecs.shape[0]))
@@ -130,7 +146,7 @@ def _score_candidates(stage_vecs, stage_mask, stage_scales, q, q_mask, rows,
     its [L, D, d] candidates and scores them with ``maxsim_scan``, the
     oracle's math. Single-vector stages are a small gather + product.
     """
-    q = _scan_prep(stage_vecs, q)
+    q = _prefix(stage_vecs, q)
     if stage_vecs.ndim == 2:
         vecs = stage_vecs[rows.long()]                          # [B, L, d]
         if stage_scales is not None:
@@ -169,7 +185,8 @@ def _routed_rows(store: dict, stage: Stage, q, q_mask):
     """Stage-0 candidate rows by centroid routing for ONE segment: score
     the query against the segment's [K, d] centroids, keep the top
     ``n_probe`` clusters, and emit their member-slot lists as one
-    [B, n_probe * C] row set (-1 marks padded member slots)."""
+    [B, n_probe * C] row set in slot-id order, -1 (padded member slots)
+    last, so a stable select breaks score ties by slot id."""
     routing = routing_arrays(store)
     if routing is None:
         raise ValueError(
@@ -182,7 +199,9 @@ def _routed_rows(store: dict, stage: Stage, q, q_mask):
         else KOPS.centroid_scores_ref
     cs = score(q, cents, q_mask)                      # [B, K]
     _, cid = top_k(cs, min(stage.n_probe, cents.shape[0]))
-    return members[cid].reshape(q.shape[0], -1)
+    rows = members[cid].reshape(q.shape[0], -1).long()
+    key = torch.where(rows >= 0, rows, torch.iinfo(torch.int64).max)
+    return torch.gather(rows, 1, torch.sort(key, dim=1, stable=True)[1])
 
 
 def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
@@ -191,7 +210,7 @@ def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
     GLOBAL slot ids [B, k0]) with k0 = min(stage.k, cap[, probed rows])."""
     vecs, mask, scales = scan_arrays(store, stage.vector)
     if stage.n_probe > 0:
-        rows = _routed_rows(store, stage, q, q_mask).long()
+        rows = _routed_rows(store, stage, q, q_mask)
         rclip = rows.clamp(0, cap - 1)
         ok = rows >= 0                  # -1 = padded member slot
         if eff is not None:
