@@ -85,9 +85,12 @@ line) at the first phase that goes wrong:
             which keeps near-f32 accuracy over the bf16 documents (int8
             codes are exact in bf16, so the same bound holds for them).
             The tensor-route scan computes exactly that, so its JSON
-            bound is the split one; its time is the launch with the
-            packed query built once (the wrapper's packing is timed
-            apart).
+            bound is the split one. Every ``ms`` times one wrapper call
+            per sample on the inputs the main path gives it (bool masks;
+            the scan packs its query on every call), as earlier PRs
+            did; the scans' ``kernel_ms`` is the launch with the packed
+            query built once, and ``b2b_ms`` (scans and pool) the mean
+            of 5 wrapper calls enqueued back to back per sample.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
@@ -130,11 +133,12 @@ def log(msg: str) -> None:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
-    """Milliseconds of one call of ``fn`` on the card (CUDA events), after
-    one warm-up call: the median over ``iters`` samples, each the mean of
-    ``reps`` calls enqueued back to back (so that the host's work of one
-    call overlaps the card's work of the one before)."""
+def time_ms(fn, iters: int = 10, reps: int = 1) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events), after one
+    warm-up call: each of ``iters`` samples times one call (the JSON
+    ``ms``), or with ``reps`` > 1 the mean of that many calls enqueued
+    back to back, so that the host's work of a call overlaps the card's
+    work of the one before (the JSON ``b2b_ms``)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -219,24 +223,16 @@ def chunked_scan_ref(maxsim_ref, q, qm, docs, dm, chunk=256):
 
 
 def scan_route(docs, what: str) -> str:
-    """The scan launcher's route for ``docs`` (``maxsim_scan_route`` in the
-    library), which must be the wrappers' ``scan_route``; printed."""
-    from repro_torch.kernels import build
+    """The scan launcher's route for ``docs`` as the scan library states it
+    (``maxsim_scan_route``, the wrapper's source too); printed with the
+    tensor route's query-token cap."""
     from repro_torch.kernels.maxsim import ops as KOPS
-    code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[docs.dtype]
     N, D, d = docs.shape
-    lib = build.library("maxsim_scan")
-    route = "tensor" if lib.maxsim_scan_route(code, D, d) else "warp"
-    check(route == KOPS.scan_route(docs.dtype, D, d),
-          f"{what}: launcher route {route} != wrapper route "
-          f"{KOPS.scan_route(docs.dtype, D, d)}")
-    if route == "tensor":
-        cap = lib.maxsim_scan_token_cap(code, d)
-        check(cap == KOPS.scan_token_cap(docs.dtype, d),
-              f"{what}: launcher token cap {cap} != wrapper's")
+    route = KOPS.scan_route(docs.dtype, D, d)
     log(f"  route {what}: {route}"
-        + (" (bf16 wgmma, split-precision query)" if route == "tensor"
-           else " (f32 warp on the CUDA cores)"))
+        + (" (bf16 wgmma, split-precision query, "
+           f"{KOPS.scan_token_cap(docs.dtype, d)} query tokens per group)"
+           if route == "tensor" else " (f32 warp on the CUDA cores)"))
     return route
 
 
@@ -324,7 +320,28 @@ def check_kernels(args, dev) -> dict:
             KOPS.centroid_scores(ql, cents, qlm),
             KOPS.centroid_scores_ref(ql, cents, qlm),
             f"centroid_scores q[8,{Ql},{d}] centroids [64,{d}]", **tol))
-    del docs, dm
+    # refused before a launch: a query above the tensor route's token cap,
+    # int8 codes that are 8- but not 16-byte aligned
+    cap = KOPS.scan_token_cap(torch.bfloat16, d)
+    codes, sc = KOPS.quantize_int8(docs)
+    buf = torch.empty(codes.numel() + 32, dtype=torch.int8, device=dev)
+    off = (8 - buf.data_ptr()) % 16
+    shifted = buf[off:off + codes.numel()].view(codes.shape)
+    shifted.copy_(codes)
+    for what, call in (
+            (f"q[1,{cap + 1},{d}] above the token cap",
+             lambda: KOPS.maxsim_scores(
+                 unit(gen, (1, cap + 1, d), torch.float32, dev), docs,
+                 None, dm)),
+            ("int8 codes 8 bytes past a 16-byte boundary",
+             lambda: KOPS.maxsim_scores(q, shifted, qm, dm, scales=sc))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"  scan refuses {what}: {e}")
+        else:
+            fail(f"scan launched {what}")
+    del docs, dm, codes, buf, shifted
 
     # --- rerank: onto initial (L=prefetch) and mean_pooling (L=k0)
     for name, D, L in (("initial", cfg.n_patches, 256),
@@ -1216,17 +1233,21 @@ def kernel_times(args, dev, main) -> list:
     qv = int(qm.sum())                       # valid query tokens in the batch
     entries = []
 
-    # --- scan at the 1-stage shape (initial) and the 2-stage shape; the
-    # kernel's time with the packed query operand built once (the wrapper
-    # packs it on every call: timed apart as "wrapper")
+    # --- scan at the 1-stage shape (initial) and the 2-stage shape: the
+    # wrapper as the main path calls it, its query packed on every call
+    # (ms); the launch with the packed operand built once (kernel_ms); the
+    # wrapper's calls back to back (b2b_ms); the packing alone
     for name in ("initial", "mean_pooling"):
         docs, dm = vec[name], vec[name + "_mask"]
         N, D, _ = docs.shape
         route = scan_route(docs, f"scan {name} [{N},{D},{d}]")
+        check(route == "tensor", f"scan {name}: the main path's shape takes "
+              "the warp route")
         op = KOPS.scan_query_operand(q, qmf)
-        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm,
-                                                operand=op))
-        wrap = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm))
+        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm))
+        kern = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm,
+                                                  operand=op))
+        b2b = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm), reps=5)
         pack = time_ms(lambda: KOPS.scan_query_operand(q, qmf))
         plain = time_ms(lambda: chunked_scan_ref(maxsim_ref, q, qmf, docs, dm), iters=3)
 
@@ -1241,12 +1262,13 @@ def kernel_times(args, dev, main) -> list:
         flops = 2.0 * qv * int(dm.sum()) * d
         b_ms, b_by = bound_split_bf16(nbytes, flops)
         log(f"[times] scan {name} q[{B},{Q},{d}] ({qv} valid tokens) "
-            f"docs[{N},{D},{d}] bf16, {route} route: kernel {ms:.4f} ms "
-            f"(wrapper with its query packing {wrap:.4f} ms, packing alone "
-            f"{pack:.4f} ms), plain {plain:.3f} ms, library {lib:.4f} ms, "
-            f"split bf16 bound {b_ms:.4f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / ms:.1f}% of it; {flops / ms / 1e9:.1f} f32 "
-            "TFLOP/s equivalent")
+            f"docs[{N},{D},{d}] bf16, {route} route: wrapper {ms:.4f} ms "
+            f"(launch with the query packed once {kern:.4f} ms, wrapper "
+            f"back to back {b2b:.4f} ms, packing alone {pack:.4f} ms), "
+            f"plain {plain:.3f} ms, library {lib:.4f} ms, split bf16 bound "
+            f"{b_ms:.4f} ms ({b_by}), wrapper at {100 * b_ms / ms:.1f}% "
+            f"and launch at {100 * b_ms / kern:.1f}% of it; "
+            f"{flops / kern / 1e9:.1f} f32 TFLOP/s equivalent")
         log_bounds(f"scan {name}", ms, nbytes, flops)
         if name == "initial":
             entries.append(dict(
@@ -1254,7 +1276,8 @@ def kernel_times(args, dev, main) -> list:
                 source="src/repro_torch/csrc/maxsim_scan.cu",
                 replaces="src/repro/kernels/maxsim/maxsim.py:80",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}]"))
+                library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
+                shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}]"))
 
     # --- rerank at the 2-stage final shape: rows [B, 256] onto initial
     docs, dm = vec["initial"], vec["initial_mask"]
@@ -1300,30 +1323,34 @@ def kernel_times(args, dev, main) -> list:
     pages = torch.as_tensor(bench.pages[:256]).to(dev)
     S_full = cfg.seq_len
     x = pages[:, S_full - cfg.n_patches:]
-    m = torch.ones(x.shape[:2], dtype=torch.float32, device=dev)
+    m = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
     Bp, S, _ = x.shape
     n_out = pm.shape[0]
     ms = time_ms(lambda: POPS.pool_pages_fused(x, m, pm))
+    b2b = time_ms(lambda: POPS.pool_pages_fused(x, m, pm), reps=5)
     plain = time_ms(lambda: POPS.pool_ref(x, m, pm))
 
     def library():
-        num = torch.matmul(pm, x * m[..., None])
-        out = num / torch.matmul(m, pm.T).clamp_min(1e-9)[..., None]
+        mf = m.float()
+        num = torch.matmul(pm, x * mf[..., None])
+        out = num / torch.matmul(mf, pm.T).clamp_min(1e-9)[..., None]
         return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-9)
     lib = time_ms(library)
     nnz = int((pm != 0).sum())
-    nbytes = Bp * S * d * 4 + Bp * S * 4 + n_out * S * 4 + Bp * n_out * d * 4
+    nbytes = Bp * S * d * 4 + Bp * S + n_out * S * 4 + Bp * n_out * d * 4
     flops = 2.0 * Bp * nnz * (d + 1)
     b_ms, b_by = bound(nbytes, flops)
     log(f"[times] pool x[{Bp},{S},{d}] f32 P[{n_out},{S}] ({nnz} nonzeros):"
-        f" kernel {ms:.4f} ms, plain {plain:.3f} ms, library {lib:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of "
-        f"the bound, {nbytes / ms / 1e6:.1f} GB/s achieved")
+        f" kernel {ms:.4f} ms (back to back {b2b:.4f} ms), plain "
+        f"{plain:.3f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), kernel at {100 * b_ms / ms:.1f}% of the bound "
+        f"({100 * b_ms / b2b:.1f}% back to back), "
+        f"{nbytes / ms / 1e6:.1f} GB/s achieved")
     entries.append(dict(
         name="pool", route="cuda", source="src/repro_torch/csrc/pool.cu",
         replaces="src/repro/kernels/pooling/pooling.py:54",
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, shape=f"x[{Bp},{S},{d}] P[{n_out},{S}]"))
+        library_ms=lib, b2b_ms=b2b, shape=f"x[{Bp},{S},{d}] P[{n_out},{S}]"))
     return entries
 
 
@@ -1394,25 +1421,31 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
         **db["int8 initial"]))
 
     # --- int8 scan at the streamed top-k's chunk shape over initial codes
-    # (and over the whole corpus, the db scan's work), with the packed
-    # query built once as the streamed top-k does
+    # (and over the whole corpus, the db scan's work): the wrapper packing
+    # its query on every call (ms), and with the packed query built once as
+    # the streamed top-k does (kernel_ms)
     op = KOPS.scan_query_operand(q, qmf)
     for lo, hi in ((0, chunk), (0, va["initial_int8"].shape[0])):
         docs = va["initial_int8"][lo:hi]
         dm, sc = va["initial_mask"][lo:hi], va["initial_scale"][lo:hi]
         N, D, _ = docs.shape
-        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm, scales=sc,
-                                                operand=op))
+        ms = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm, scales=sc))
+        kern = time_ms(lambda: KOPS.maxsim_scores(q, docs, qmf, dm,
+                                                  scales=sc, operand=op))
+        b2b = time_ms(lambda: KOPS.maxsim_scores(q, docs, qm, dm, scales=sc),
+                      reps=5)
         plain = time_ms(lambda: KOPS.maxsim_chunked_ref(
             q, docs, qmf, dm, chunk=chunk, scales=sc), iters=3)
         lib = time_ms(lambda: library_scan(docs, dm, sc), iters=3)
         nbytes, flops = scan_cost(docs, dm, sc)
         b_ms, b_by = bound_split_bf16(nbytes, flops)
         log(f"[times] scan int8 initial q[{B},{Q},{d}] docs[{N},{D},{d}], "
-            f"tensor route: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-            f"library {lib:.3f} ms, split bf16 bound {b_ms:.4f} ms "
-            f"({b_by}), kernel at {100 * b_ms / ms:.1f}% of it; "
-            f"{flops / ms / 1e9:.1f} f32 TFLOP/s equivalent")
+            f"tensor route: wrapper {ms:.4f} ms (launch with the query "
+            f"packed once {kern:.4f} ms, wrapper back to back {b2b:.4f} "
+            f"ms), plain {plain:.3f} ms, library {lib:.3f} ms, split bf16 "
+            f"bound {b_ms:.4f} ms ({b_by}), wrapper at "
+            f"{100 * b_ms / ms:.1f}% and launch at {100 * b_ms / kern:.1f}%"
+            f" of it; {flops / kern / 1e9:.1f} f32 TFLOP/s equivalent")
         log_bounds(f"scan int8 initial [{N}]", ms, nbytes, flops)
         if hi == chunk:
             entries.append(dict(
@@ -1420,8 +1453,8 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
                 source="src/repro_torch/csrc/maxsim_scan.cu",
                 replaces="src/repro/kernels/maxsim/maxsim.py:105",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}] "
-                "int8"))
+                library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
+                shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}] int8"))
 
     # --- int8 rerank: rows [B, 256] onto initial codes (the 2-stage
     # cascade over the 1-stage int8 store)
@@ -1588,8 +1621,9 @@ def main() -> None:
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in entries]}))
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in keys + ("kernel_ms", "b2b_ms") if k in e}
+        for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,9 +30,10 @@
 //   waste 63/64 of a tensor-core product.
 //
 // Both routes opt in to the card's shared-memory maximum, and the launcher
-// returns cudaErrorInvalidValue when a query does not fit: the wrappers
-// check the same limits first (`ops.scan_token_cap`,
-// `ops.warp_query_cap`).
+// returns cudaErrorInvalidValue when a query does not fit. The wrappers
+// take the route and the tensor route's token cap from this library
+// (`maxsim_scan_route`, `maxsim_scan_token_cap`) and check a query's Q
+// token slots against it (or `ops.warp_query_cap`) before the launch.
 #include "maxsim_common.cuh"
 #include "maxsim_wgmma.cuh"
 

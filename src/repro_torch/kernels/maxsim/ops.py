@@ -5,16 +5,17 @@ query batch against a whole corpus. For CUDA tensors it launches the
 hand-written scan kernel (``csrc/maxsim_scan.cu``), which masks the ragged
 N and D edges itself; for CPU tensors it runs the plain version
 ``maxsim_ref``. The launcher takes one of two routes, from the document
-type, D and d alone (``scan_route`` states the rule):
+type, D and d alone; the wrapper asks the scan library which
+(``scan_route``, ``scan_token_cap``):
 
 - ``tensor``: bf16 documents or int8 codes with D >= 16 and d of 32, 64
   or 128. bf16 wgmma over the documents (M side) and the packed VALID
   query tokens (N side) as a split-precision pair: ``scan_query_operand``
   packs and splits the query on its device (q = q_hi + q_lo in bf16,
-  within 2^-16 relative), the kernel groups whole queries itself, and
-  ``maxsim_split_ref`` is the same arithmetic in plain PyTorch. Scores
-  agree with ``maxsim_ref`` to rtol 1e-5, atol 1e-4 at the main path's
-  10 unit-vector tokens per query;
+  within 2^-16 relative) and the kernel groups whole queries itself. A
+  query's Q token slots must fit the library's token cap (320 at d =
+  128). Scores agree with ``maxsim_ref`` to rtol 1e-5, atol 1e-4 at the
+  main path's 10 unit-vector tokens per query;
 - ``warp``: f32 documents, small D (the D = 1 IVF centroid scores) and
   other d: one warp per (query, document) in f32 on the CUDA cores.
 
@@ -57,9 +58,6 @@ from repro_torch.kernels.maxsim.ref import NEG, dequantize, maxsim_ref, top_k
 
 _QT = 16                     # query tokens per register pass (warp kernels)
 _SMEM_OPTIN = 232448         # opt-in shared memory per block on sm_90
-_CH = 64                     # query tokens per tensor-core chunk
-_TM, _STAGES, _NSLOT = 64, 3, 8   # tensor route: tile rows, ring, open docs
-_WGS, _NCW = 2, 3            # warpgroups, chunks each: at most 384 tokens
 _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INV_127 = np.float32(1.0 / 127.0)
 
@@ -118,33 +116,20 @@ def _kernel_inputs(q, q_mask, docs, scales, what: str) -> tuple:
 
 def scan_route(docs_dtype, D: int, d: int) -> str:
     """The scan launcher's route for documents of ``docs_dtype`` with D
-    vectors of dim d: "tensor" (bf16 wgmma) or "warp" (f32 CUDA cores).
-    The same rule as ``maxsim_scan_route`` in ``csrc/maxsim_scan.cu``; the
-    launcher refuses a call prepared for the other route."""
-    tc = docs_dtype in (torch.bfloat16, torch.int8)
-    return "tensor" if tc and D >= 16 and d in (32, 64, 128) else "warp"
-
-
-def _tc_smem_bytes(tp: int, d: int, esize: int) -> int:
-    """Shared memory of the tensor route (``wg::smem_bytes``): the query
-    operand and the bf16 tiles take d rounded up to 64-element swizzle
-    atoms."""
-    dp = -(-d // 64) * 64
-    tiles = (_STAGES * _TM * dp * 2 if esize == 2
-             else _STAGES * _TM * d + _TM * dp * 2)
-    return tp * 2 * dp * 2 + tiles + _NSLOT * tp * 4 + 1024
+    vectors of dim d, as the scan library states it (``maxsim_scan_route``
+    in ``csrc/maxsim_scan.cu``, the rule's one statement): "tensor" (bf16
+    wgmma) or "warp" (f32 CUDA cores). Needs the built library."""
+    lib = build.library("maxsim_scan")
+    code = _DOC_TYPES.get(docs_dtype, 0)      # another type is refused later
+    return "tensor" if lib.maxsim_scan_route(code, D, d) else "warp"
 
 
 def scan_token_cap(docs_dtype, d: int) -> int:
     """Query tokens per group (a multiple of 64) that the tensor route
-    holds in shared memory and registers (``maxsim_scan_token_cap``): 320
-    at d = 128, at most 384."""
-    esize = 1 if docs_dtype == torch.int8 else 2
-    tp = 0
-    while (tp + _CH <= _WGS * _NCW * _CH
-           and _tc_smem_bytes(tp + _CH, d, esize) <= _SMEM_OPTIN):
-        tp += _CH
-    return tp
+    holds in shared memory and registers, as the scan library states it
+    (``maxsim_scan_token_cap``); a query's Q token slots must fit."""
+    lib = build.library("maxsim_scan")
+    return lib.maxsim_scan_token_cap(_DOC_TYPES.get(docs_dtype, 0), d)
 
 
 def warp_query_cap(d: int) -> int:
@@ -191,44 +176,36 @@ def scan_query_operand(q: torch.Tensor, q_mask: torch.Tensor) -> tuple:
     return qpack, starts, counts
 
 
-def maxsim_split_ref(operand: tuple, docs: torch.Tensor,
-                     doc_mask: torch.Tensor | None = None,
-                     scales: torch.Tensor | None = None) -> torch.Tensor:
-    """The tensor route's arithmetic in plain PyTorch: [B, N] scores from
-    a ``scan_query_operand`` and bf16 documents or int8 codes. Each
-    similarity is docs . q_hi + docs . q_lo with exact bf16 products and
-    f32 sums, times the int8 row scale after the product; masked rows
-    score NEG, each valid token's max is floored at NEG/2."""
-    full_f32()
-    qpack, qstart, qcount = operand
-    df = docs.float()                                  # bf16 / int8 exact
-    hi, lo = qpack[:, 0].float(), qpack[:, 1].float()
-    sim = (torch.einsum("njd,td->ntj", df, hi)
-           + torch.einsum("njd,td->ntj", df, lo))      # [N, rows, D]
-    if scales is not None:
-        sim = sim * scales.float()[:, None, :]
-    if doc_mask is not None:
-        sim.masked_fill_(~(doc_mask > 0)[:, None, :], NEG)
-    best = sim.amax(dim=-1).clamp_min(NEG / 2)         # [N, rows]
-    out = torch.zeros((qstart.shape[0], docs.shape[0]), dtype=torch.float32,
-                      device=docs.device)
-    for b, (s0, c) in enumerate(zip(qstart.tolist(), qcount.tolist())):
-        out[b] = best[:, s0:s0 + c].sum(dim=-1)
-    return out
-
-
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _check_operand(operand: tuple, B: int, Q: int, d: int, device) -> None:
+    """Raise unless ``operand`` has the layout ``scan_query_operand`` gives
+    a [B, Q, d] query on ``device``. The kernel reads qstart and qcount of
+    every query and the qpack rows they point at, so an operand built for
+    another batch would read out of bounds on the card."""
+    qpack, qstart, qcount = operand
+    ok = (qpack.dtype == torch.bfloat16
+          and tuple(qpack.shape) == (B * Q + 1, 2, d)
+          and all(t.dtype == torch.int32 and tuple(t.shape) == (B,)
+                  for t in (qstart, qcount))
+          and all(t.device == device and t.is_contiguous() for t in operand))
+    if not ok:
+        raise ValueError(
+            "maxsim_scan: the query operand is not a scan_query_operand of "
+            f"this [{B}, {Q}, {d}] query on {device}")
+
+
 def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
-                 scales, operand=None) -> torch.Tensor:
+                 scales, cap: int = 0, operand=None) -> torch.Tensor:
     """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db").
-    [B, N] f32 scores (NEG/2 floor). "maxsim_scan" also takes the tensor
-    route's query operand (``scan_query_operand``; built here when the
-    route is "tensor" and none is given), null for the warp route. Counts
-    one launch of ``counter`` once the launch succeeded; an empty query
-    batch or corpus launches nothing and counts nothing."""
+    [B, N] f32 scores (NEG/2 floor). ``cap`` > 0 takes "maxsim_scan"'s
+    tensor route with that many query tokens per group: the launch then
+    reads the packed query operand (``scan_query_operand``; built here
+    unless given); cap 0 is the warp route. Counts one launch of
+    ``counter`` once the launch succeeded; an empty query batch or corpus
+    launches nothing and counts nothing."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales, entry)
@@ -238,11 +215,11 @@ def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
     dm, stride = _mask_arg(doc_mask, N, D, docs.device)
     extra = []
     if entry == "maxsim_scan":
-        if scan_route(docs.dtype, D, d) == "tensor":
+        if cap:
             if operand is None:
                 operand = scan_query_operand(qf, qm)
-            extra = [t.data_ptr() for t in operand]
-            extra.append(scan_token_cap(docs.dtype, d))
+            _check_operand(operand, B, Q, d, docs.device)
+            extra = [t.data_ptr() for t in operand] + [cap]
         else:
             extra = [0, 0, 0, 0]
     lib = build.library(entry)
@@ -269,19 +246,24 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
     dead slots score NEG so they can never enter a top-k on merit. The mask
     is applied to the kernel OUTPUT: the kernel still streams the full
     padded corpus. ``operand`` is a ``scan_query_operand`` of (q, q_mask)
-    built once for repeated scans of one query batch (the tensor route)."""
+    built once for repeated scans of one query batch (the tensor route);
+    one of another shape or device is refused."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        tensor = scan_route(docs.dtype, D, d) == "tensor"
-        _check_query_smem(q, "maxsim_scan", scan_token_cap(docs.dtype, d)
-                          if tensor else warp_query_cap(d))
+        cap = (scan_token_cap(docs.dtype, d)
+               if scan_route(docs.dtype, D, d) == "tensor" else 0)
+        _check_query_smem(q, "maxsim_scan", cap or warp_query_cap(d))
+        if cap and docs.data_ptr() % 16:
+            raise ValueError("maxsim_scan: the tensor route reads documents "
+                             "in 16-byte copies; docs must be 16-byte "
+                             "aligned")
         out = _scan_launch("maxsim_scan", "maxsim_scan_int8"
                            if scales is not None else "maxsim_scan",
-                           q, q_mask, docs, doc_mask, scales,
-                           operand if tensor else None)
+                           q, q_mask, docs, doc_mask, scales, cap,
+                           operand if cap else None)
     else:
         if doc_mask is None:
             doc_mask = _ones_mask((1, D), docs.device)
@@ -482,6 +464,8 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor,
         q_mask = _ones_mask((B, Q), q.device)
     _check_query_smem(q, "centroid_scores", warp_query_cap(dc))
     docs = centroids.float()[:, None, :].contiguous()           # [K, 1, dc]
+    # f32 one-vector documents: the warp route (the launcher refuses a
+    # warp call for a shape of the tensor route)
     return _scan_launch("maxsim_scan", "ivf_route", q, q_mask, docs, None,
                         None)
 

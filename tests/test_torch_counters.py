@@ -4,8 +4,10 @@ never for a launch that returned an error.
 
 The CUDA side is stood in for on the CPU: ``on_cuda`` reports True, and
 ``build.library`` hands back a library whose every entry point returns
-the given CUDA status without touching memory. The wrappers' own argument
-checks, early returns and counting run as they do on the card.
+the given CUDA status without touching memory, and whose scan route is
+the warp route, as the real one's for these small shapes. The wrappers'
+own argument checks, early returns and counting run as they do on the
+card.
 """
 import contextlib
 import types
@@ -28,6 +30,9 @@ class _FakeLibrary:
         self.rc = rc
         self.calls = 0
         self.entries = []
+
+    def maxsim_scan_route(self, docs_type, D, d):
+        return 0               # the warp route, as for these small shapes
 
     def __getattr__(self, entry):
         def launch(*args):

@@ -6,14 +6,17 @@
    oracle's and ``repro``'s, the scores lie within the reference's
    rtol=atol=2e-2 of the oracle; int8 codes stay int8.
 2. Queries longer than 80 tokens at d = 128: each kernel's query limit
-   (``ops.scan_token_cap``, ``ops.warp_query_cap``) admits Q = 128, and
-   the check reads shapes only (it runs here on meta tensors).
+   (the scan library's token cap for the tensor route, which the wrapper
+   asks for, and ``ops.warp_query_cap``) admits Q = 128, and the check
+   reads shapes only (it runs here on meta tensors).
 3. Routed tie order: on a store with duplicate pages (exact score ties),
    routed full probe gives the exhaustive ids exactly. ``repro``'s routed
    stage breaks ties by probed-row position, so its routed ids differ from
    the port's there, and only on exact ties between duplicate pages.
 """
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from repro.retrieval import store as JS
 from repro.retrieval.retriever import Retriever as JaxRetriever
 from repro.retrieval.store import build_store as jax_build
 from repro_torch.core import multistage as TM
+from repro_torch.kernels import build
+from repro_torch.kernels import dispatch as DSP
 from repro_torch.kernels.maxsim import ops as KOPS
 from repro_torch.retrieval import engine
 from repro_torch.retrieval import store as TS
@@ -129,11 +134,44 @@ def test_int8_scan_with_dtype_keeps_codes(bench, scan_topk):
 # fault 2: the kernels' query limits
 # ----------------------------------------------------------------------
 
-def test_query_limits_admit_128_tokens_at_d128():
-    assert KOPS.scan_token_cap(torch.bfloat16, 128) == 320
-    assert KOPS.scan_token_cap(torch.int8, 128) == 320
+class _TensorRouteLibrary:
+    """A stand-in scan library that answers the tensor route with the
+    token cap the real one gives at d = 128 (320, printed per shape by
+    ``chip_smoke.py``) and records its launches."""
+    CAP = 320
+
+    def __init__(self):
+        self.launches = 0
+
+    def maxsim_scan_route(self, docs_type, D, d):
+        return 1
+
+    def maxsim_scan_token_cap(self, docs_type, d):
+        return self.CAP
+
+    def maxsim_scan_launch(self, *args):
+        self.launches += 1
+        return 0
+
+
+def test_query_limits_admit_128_tokens_at_d128(monkeypatch):
+    """The warp kernels hold 448 query slots at d = 128; the scan wrapper
+    checks Q against the token cap the library gives, so a 128-token
+    query launches on the tensor route and one above the cap does not."""
     assert KOPS.warp_query_cap(128) == 448
-    assert KOPS.scan_token_cap(torch.bfloat16, 64) == 384   # chunk bound
+    lib = _TensorRouteLibrary()
+    monkeypatch.setattr(DSP, "on_cuda", lambda t: True)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    docs = torch.zeros((3, 16, 128), dtype=torch.bfloat16)
+    KOPS.maxsim_scores(torch.zeros((2, 128, 128)), docs)
+    assert lib.launches == 1
+    with pytest.raises(ValueError, match="exceed"):
+        KOPS.maxsim_scores(torch.zeros((1, lib.CAP + 1, 128)), docs)
+    assert lib.launches == 1
 
 
 @pytest.mark.parametrize("Q", [96, 128])
@@ -142,7 +180,7 @@ def test_query_check_reads_shapes_only(Q, cap):
     """The check runs on meta tensors (shapes, no data) and admits the
     96- and 128-token queries the old 48 KB limit refused (80 at most)."""
     q = torch.empty((2, Q, 128), device="meta")
-    limit = {"scan_tensor": KOPS.scan_token_cap(torch.bfloat16, 128),
+    limit = {"scan_tensor": _TensorRouteLibrary.CAP,
              "scan_warp": KOPS.warp_query_cap(128),
              "rerank": KOPS.warp_query_cap(128)}[cap]
     KOPS._check_query_smem(q, cap, limit)

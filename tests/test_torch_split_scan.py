@@ -6,13 +6,16 @@ is given and what it computes are held here:
 - ``split_bf16``: q_hi + q_lo equals q to within 2^-16 relative;
 - ``scan_query_operand``: the valid tokens' hi and lo rows in query
   order, each query's first row and count, as a loop over the mask;
-- ``maxsim_split_ref`` (the kernel's arithmetic: exact bf16 products, f32
+- ``split_ref`` below (the kernel's arithmetic: exact bf16 products, f32
   sums, the int8 scale after the product) stays within the scan's stated
   tolerance, rtol=1e-5 and atol=1e-4 on scores of unit-vector tokens, of
   ``maxsim_ref`` and of ``repro``'s ``maxsim_scores(impl="pallas")``
   (``maxsim_pallas`` in interpret mode), with the same sentinels;
-- ``scan_route`` and the launcher's arguments: the tensor route gets the
-  packed operand, the warp route null pointers.
+- the wrapper and the launcher's arguments: the route and the token cap
+  are the scan library's answers (stood in for here; ``chip_smoke.py``
+  prints the real ones), the tensor route gets the packed operand and the
+  warp route null pointers, and an operand of another batch or documents
+  that are not 16-byte aligned are refused before any launch.
 """
 import contextlib
 import types
@@ -26,7 +29,7 @@ from repro.kernels.maxsim import ops as JOPS
 from repro_torch.kernels import build
 from repro_torch.kernels import dispatch as DSP
 from repro_torch.kernels.maxsim import ops as KOPS
-from repro_torch.kernels.maxsim.ref import maxsim_ref
+from repro_torch.kernels.maxsim.ref import NEG, maxsim_ref
 
 torch.set_num_threads(1)
 
@@ -81,6 +84,30 @@ def test_query_operand_equals_a_loop(seed, B):
         assert int(qcount[b]) == row - int(qstart[b])
 
 
+def split_ref(operand: tuple, docs: torch.Tensor,
+              doc_mask: torch.Tensor | None = None,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The tensor route's arithmetic in plain PyTorch: [B, N] scores from
+    a ``scan_query_operand`` and bf16 documents or int8 codes. Each
+    similarity is docs . q_hi + docs . q_lo with exact bf16 products and
+    f32 sums, times the int8 row scale after the product; masked rows
+    score NEG, each valid token's max is floored at NEG/2."""
+    qpack, qstart, qcount = operand
+    df = docs.float()                                  # bf16 / int8 exact
+    hi, lo = qpack[:, 0].float(), qpack[:, 1].float()
+    sim = (torch.einsum("njd,td->ntj", df, hi)
+           + torch.einsum("njd,td->ntj", df, lo))      # [N, rows, D]
+    if scales is not None:
+        sim = sim * scales.float()[:, None, :]
+    if doc_mask is not None:
+        sim.masked_fill_(~(doc_mask > 0)[:, None, :], NEG)
+    best = sim.amax(dim=-1).clamp_min(NEG / 2)         # [N, rows]
+    out = torch.zeros((qstart.shape[0], docs.shape[0]), dtype=torch.float32)
+    for b, (s0, c) in enumerate(zip(qstart.tolist(), qcount.tolist())):
+        out[b] = best[:, s0:s0 + c].sum(dim=-1)
+    return out
+
+
 def _close(got, want):
     sent = want <= -1e20
     assert torch.equal(got <= -1e20, sent)
@@ -99,7 +126,7 @@ def test_split_arithmetic_within_scan_tolerance(D, kind, seed):
     else:
         dv, sc = KOPS.quantize_int8(td)
     op = KOPS.scan_query_operand(tq, tqm)
-    got = KOPS.maxsim_split_ref(op, dv, tdm, sc)
+    got = split_ref(op, dv, tdm, sc)
     _close(got, maxsim_ref(tq, tqm, dv, tdm, sc))
     assert bool((got[1] == 0).all())              # no valid token: 0
     # repro's Pallas scan kernel (interpret mode) on the same inputs
@@ -112,18 +139,22 @@ def test_split_arithmetic_within_scan_tolerance(D, kind, seed):
     _close(got, torch.from_numpy(np.array(js, np.float32)))
 
 
-@pytest.mark.parametrize("dtype,D,d,route", [
-    (torch.bfloat16, 1024, 128, "tensor"), (torch.int8, 34, 128, "tensor"),
-    (torch.bfloat16, 16, 64, "tensor"), (torch.bfloat16, 64, 96, "warp"), (torch.float32, 1024, 128, "warp"),
-    (torch.bfloat16, 1, 128, "warp"), (torch.int8, 15, 128, "warp"),
-    (torch.bfloat16, 34, 40, "warp")])
-def test_scan_route_rule(dtype, D, d, route):
-    assert KOPS.scan_route(dtype, D, d) == route
-
-
 class _Recorder:
-    def __init__(self):
-        self.args = []
+    """A stand-in scan library: answers the route and token-cap queries
+    with ``route`` and ``cap`` (recording them) and records every launch's
+    arguments."""
+
+    def __init__(self, route: int = 1, cap: int = 384):
+        self.route, self.cap = route, cap
+        self.args, self.queries = [], []
+
+    def maxsim_scan_route(self, *args):
+        self.queries.append(("route", args))
+        return self.route
+
+    def maxsim_scan_token_cap(self, *args):
+        self.queries.append(("cap", args))
+        return self.cap
 
     def __getattr__(self, entry):
         def launch(*args):
@@ -146,22 +177,93 @@ def fake_card(monkeypatch):
     DSP.reset_counts()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, "int8", torch.float32])
-def test_launcher_gets_the_operand_on_the_tensor_route(fake_card, dtype):
-    q, qm, docs, dm = _inputs(6, d=32)
+def _scan_args(dtype, seed=6, **kw):
+    q, qm, docs, dm = _inputs(seed, d=32, **kw)
     td = torch.from_numpy(docs)
     dv, sc = KOPS.quantize_int8(td) if dtype == "int8" else \
         (td.to(dtype), None)
-    KOPS.maxsim_scores(torch.from_numpy(q), dv, torch.from_numpy(qm),
-                       torch.from_numpy(dm), scales=sc)
+    return torch.from_numpy(q), dv, torch.from_numpy(qm), \
+        torch.from_numpy(dm), sc
+
+
+@pytest.mark.parametrize("route", [1, 0])
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1), ("int8", 2),
+                                        (torch.float32, 0)])
+def test_scan_route_rule(fake_card, dtype, code, route):
+    """The wrapper asks the library for the route of (type code, D, d) and
+    takes it: the tensor route passes the packed operand and the token cap
+    the library gave, the warp route null pointers and no cap."""
+    fake_card.route = route
+    q, dv, qm, dm, sc = _scan_args(dtype)
+    KOPS.maxsim_scores(q, dv, qm, dm, scales=sc)
+    assert fake_card.queries[0] == ("route", (code, 34, 32))
     (entry, args), = fake_card.args
     assert entry == "maxsim_scan_launch"
-    if dtype == torch.float32:
-        assert args[13:17] == (0, 0, 0, 0)
+    if route:
+        assert fake_card.queries[1] == ("cap", (code, 32))
+        assert all(args[13:16]) and args[16] == fake_card.cap
     else:
-        assert all(args[13:16]) and args[16] == 384   # d = 32: chunk cap
+        assert len(fake_card.queries) == 1
+        assert args[13:17] == (0, 0, 0, 0)
     assert DSP.launch_count("maxsim_scan_int8" if sc is not None
                             else "maxsim_scan") == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "int8"])
+def test_launcher_gets_the_operand_on_the_tensor_route(fake_card, dtype):
+    """A given operand is the one launched, unchanged."""
+    q, dv, qm, dm, sc = _scan_args(dtype)
+    op = KOPS.scan_query_operand(q, qm)
+    KOPS.maxsim_scores(q, dv, qm, dm, scales=sc, operand=op)
+    (_, args), = fake_card.args
+    assert args[13:16] == tuple(t.data_ptr() for t in op)
+
+
+def _other_operand(kind, q, qm):
+    B, Q, d = q.shape
+    if kind == "fewer queries":
+        return KOPS.scan_query_operand(q[:B - 1], qm[:B - 1])
+    if kind == "more tokens":
+        return KOPS.scan_query_operand(torch.cat([q, q], 1),
+                                       torch.cat([qm, qm], 1))
+    if kind == "another dim":
+        return KOPS.scan_query_operand(q[..., :16], qm)
+    qpack, qstart, qcount = KOPS.scan_query_operand(q, qm)
+    if kind == "f32 rows":
+        return qpack.float(), qstart, qcount
+    return qpack, qstart.long(), qcount                 # int64 starts
+
+
+@pytest.mark.parametrize("kind", ["fewer queries", "more tokens",
+                                  "another dim", "f32 rows", "int64 starts"])
+def test_operand_of_another_batch_is_refused(fake_card, kind):
+    """The kernel reads every query's start and count and the rows they
+    point at: an operand not built for this query is refused, not
+    launched."""
+    q, dv, qm, dm, _ = _scan_args(torch.bfloat16)
+    with pytest.raises(ValueError, match="not a scan_query_operand"):
+        KOPS.maxsim_scores(q, dv, qm, dm,
+                           operand=_other_operand(kind, q, qm))
+    assert fake_card.args == []
+    assert DSP.launch_count("maxsim_scan") == 0
+
+
+def test_tensor_route_refuses_docs_not_16_byte_aligned(fake_card):
+    """int8 codes 8 bytes into a buffer pass the warp kernels' alignment
+    but not the tensor route's 16-byte copies: a ValueError, no launch."""
+    q, dv, qm, dm, sc = _scan_args("int8")
+    N, D, d = dv.shape
+    buf = torch.zeros(N * D * d + 32, dtype=torch.int8)
+    base = (8 - buf.data_ptr()) % 16
+    view = buf[base:base + N * D * d].view(N, D, d)
+    view.copy_(dv)
+    assert view.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        KOPS.maxsim_scores(q, view, qm, dm, scales=sc)
+    assert fake_card.args == []
+    fake_card.route = 0                  # the warp route reads 8-byte rows
+    KOPS.maxsim_scores(q, view, qm, dm, scales=sc)
+    assert len(fake_card.args) == 1
 
 
 def test_streamed_topk_packs_the_query_once(fake_card, monkeypatch):
