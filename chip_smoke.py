@@ -14,18 +14,22 @@ line) at the first phase that goes wrong:
 3. kernels  holds each kernel against its plain PyTorch version on the
             card at the main paths' shapes (f32, bf16 and int8 docs, dead
             ``doc_valid`` slots, fully masked documents and candidates, a
-            broadcast mask, ragged N and D, a Matryoshka prefix, N no
-            multiple of the chunk), printing each tolerance and the
-            largest error, and the scan's route per shape (tensor: bf16
-            wgmma over the packed valid query tokens, split into bf16 hi
-            + lo parts; warp: f32 on the CUDA cores) as the launcher
-            reports it; queries of 96 and 128 tokens at d=128 through the
-            scan (both routes), the rerank and ``centroid_scores``;
+            broadcast mask, ragged N and D, a Matryoshka prefix, clipped
+            candidate rows, N no multiple of the chunk), printing each
+            tolerance and the largest error, and the route of each
+            checked scan, db scan and rerank shape as the scan library
+            states it (tensor: bf16 wgmma over the packed valid query
+            tokens, split into bf16 hi + lo parts; warp: f32 on the CUDA
+            cores); queries of 96 and 128 tokens at d=128 through the
+            scan (both routes), the db scan, the rerank and
+            ``centroid_scores``; a fully masked rerank candidate must
+            score Qv * NEG on both routes;
             ``quantize_int8`` on the card must give the CPU's codes and
             scales bit for bit, and an empty query batch or corpus must
             count no launch; ``centroid_scores`` (the scan kernel's warp
             route on a D=1 view of a [64, 128] centroid table) against
-            its plain product; the scan library's SASS must hold HGMMA;
+            its plain product; the SASS of the scan, db scan and rerank
+            libraries must each hold HGMMA;
 3b. embed   the ``embed_bag`` op at three shapes: ``kernel_micro``'s
             (table [100000, 64] f32, bags [4096, 8]), the same with a
             bf16 table, and a table the size of Criteo-1TB's largest
@@ -33,7 +37,10 @@ line) at the first phase that goes wrong:
             bags [16384, 100]; -1 padding, both modes, with and without
             a ``valid`` mask, held against the plain version at
             rtol=1e-5, atol=1e-5; then the op's own run (counts zeroed
-            before, read after) and its times;
+            before, read after) and its times; last, f32 and bf16 tables
+            with inf and NaN in the rows that padded and masked-out slots
+            point at: NaN in the plain version's places (0 * inf, as in
+            the reference), the rest as above;
 4. main     indexes the synthetic benchmark through ``IngestPipeline``
             (pooling kernel) in batches of 256 pages, then runs the 1/2/3-
             stage cascades through ``Retriever.search`` with the scan and
@@ -84,13 +91,17 @@ line) at the first phase that goes wrong:
             hi + lo parts, two products per multiply-add at 989 TFLOP/s),
             which keeps near-f32 accuracy over the bf16 documents (int8
             codes are exact in bf16, so the same bound holds for them).
-            The tensor-route scan computes exactly that, so its JSON
-            bound is the split one. Every ``ms`` times one wrapper call
-            per sample on the inputs the main path gives it (bool masks;
-            the scan packs its query on every call), as earlier PRs
-            did; the scans' ``kernel_ms`` is the launch with the packed
-            query built once, and ``b2b_ms`` (scans and pool) the mean
-            of 5 wrapper calls enqueued back to back per sample.
+            The tensor-route scan, db scan and rerank compute exactly
+            that, so their JSON bound is the split one; the rerank's
+            bytes are its distinct candidates' rows, read once. Every
+            ``ms`` times one wrapper call per sample on the inputs the
+            main path gives it (bool masks; the tensor route packs its
+            query on every call), as earlier PRs did; ``kernel_ms``
+            (scans, db scan, rerank) is the launch with the packed query
+            built once, and ``b2b_ms`` (those and the pool) the mean of
+            5 wrapper calls enqueued back to back per sample. The main
+            path's db scan and rerank shapes must take the tensor
+            route.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
@@ -171,6 +182,21 @@ def bound_split_bf16(nbytes: float, flops: float) -> tuple:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def rerank_cost(q, qm, rows, dm, D: int, row_bytes: int) -> tuple:
+    """(bytes, operations, distinct candidates) of a rerank: the distinct
+    candidates' rows (``row_bytes`` per document vector: the vector, its
+    mask byte and an int8 scale) read once, candidates that several
+    queries share counted once; the rows, query, query mask and output;
+    2*d operations per (valid query token, unmasked candidate vector)."""
+    B, L = rows.shape
+    uniq = torch.unique(rows).numel()
+    vecs_needed = int(dm[rows.long()].sum(-1).float().mul(
+        qm.sum(-1, keepdim=True).float()).sum())
+    nbytes = (rows.numel() * 4 + q.numel() * 4 + qm.numel() * 4
+              + uniq * D * row_bytes + B * L * 4)
+    return nbytes, 2.0 * vecs_needed * q.shape[-1], uniq
+
+
 def log_bounds(what: str, ms: float, nbytes: float, flops: float) -> None:
     """Print the f32 and the split-bf16 tensor-core bound of one timed
     kernel, each with the kernel's share of it."""
@@ -222,25 +248,35 @@ def chunked_scan_ref(maxsim_ref, q, qm, docs, dm, chunk=256):
                       for i in range(0, docs.shape[0], chunk)], dim=1)
 
 
-def scan_route(docs, what: str) -> str:
-    """The scan launcher's route for ``docs`` as the scan library states it
-    (``maxsim_scan_route``, the wrapper's source too); printed with the
-    tensor route's query-token cap."""
+def scan_route(docs, what: str, d: int | None = None,
+               kernel: str = "scan") -> str:
+    """The launcher's route for ``docs`` (scored at vector dim ``d``,
+    the documents' own by default) as the scan library states it
+    (``maxsim_scan_route``, the rule the scan, db scan and rerank
+    launchers apply and their wrappers ask); printed with the tensor
+    route's query tokens per group (scans) or per pass (rerank)."""
     from repro_torch.kernels.maxsim import ops as KOPS
-    N, D, d = docs.shape
+    N, D, dd = docs.shape
+    d = dd if d is None else d
     route = KOPS.scan_route(docs.dtype, D, d)
-    log(f"  route {what}: {route}"
-        + (" (bf16 wgmma, split-precision query, "
-           f"{KOPS.scan_token_cap(docs.dtype, d)} query tokens per group)"
-           if route == "tensor" else " (f32 warp on the CUDA cores)"))
+    if route != "tensor":
+        how = " (f32 warp on the CUDA cores)"
+    elif kernel == "rerank":
+        how = (" (bf16 wgmma m64n32k16, split-precision query, 16 query "
+               "tokens per pass)")
+    else:
+        how = (" (bf16 wgmma, split-precision query, "
+               f"{KOPS.scan_token_cap(docs.dtype, d)} query tokens per "
+               "group)")
+    log(f"  route {what}: {route}{how}")
     return route
 
 
-def hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the scan library's SASS."""
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of library ``name``."""
     from repro_torch.kernels import build
     from torch.utils.cpp_extension import CUDA_HOME
-    so = build._lib_path("maxsim_scan")
+    so = build._lib_path(name)
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, timeout=300).stdout
@@ -312,10 +348,12 @@ def check_kernels(args, dev) -> dict:
                 maxsim_ref(ql, qlm, dv, dm),
                 f"scan q[8,{Ql},{d}] {str(dt)[6:]} docs ({r} route)", **tol))
         rows = torch.randint(0, 300, (8, 64), generator=gen, device=dev)
+        r = scan_route(docs, f"rerank Q={Ql} bf16 [300,100,{d}]",
+                       kernel="rerank")
         errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(
             KOPS.maxsim_rerank(ql, docs, rows, qlm, dm),
             KOPS._rerank_ref(ql, docs, rows, qlm.float(), dm),
-            f"rerank q[8,{Ql},{d}] rows [8,64]", **tol))
+            f"rerank q[8,{Ql},{d}] rows [8,64] ({r} route)", **tol))
         errs["maxsim_scan"] = max(errs["maxsim_scan"], max_err(
             KOPS.centroid_scores(ql, cents, qlm),
             KOPS.centroid_scores_ref(ql, cents, qlm),
@@ -352,30 +390,53 @@ def check_kernels(args, dev) -> dict:
         rows = torch.randint(0, N, (B, L), generator=gen, device=dev)
         rows[:, 0] = 7
         ok = torch.rand((B, L), generator=gen, device=dev) > 0.1
+        scan_route(docs, f"rerank bf16 {name} [{N},{D},{d}]",
+                   kernel="rerank")
+        scan_route(docs[..., :64], f"rerank bf16 {name} d=64 prefix",
+                   kernel="rerank")
         got = KOPS.maxsim_rerank(q, docs, rows, qm, dm, ok)
         want = KOPS._rerank_ref(q, docs, rows, qm.float(), dm)
         want = want.masked_fill(~ok, NEG)
         errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(got, want, f"rerank bf16 {name} rows [{B},{L}] ok-mask",
             **tol))
+        live = ok[:, 0]
+        check(bool(torch.allclose(got[live, 0], torch.full_like(
+            got[live, 0], Qv * NEG))),
+              "rerank: a fully masked candidate must score Qv*NEG")
         raw = KOPS.maxsim_rerank(q[:, :, :64], docs[..., :64].contiguous(),
                                  rows, qm, None)
         want = KOPS._rerank_ref(q[:, :, :64], docs[..., :64].contiguous(),
                                 rows, qm.float(), None)
         errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(raw, want, f"rerank {name} d=64 broadcast mask", **tol))
         del docs, dm
-    # fully masked candidate: Qv*NEG, no NEG/2 floor; Matryoshka prefix
-    docs = unit(gen, (300, 45, 32), torch.float32, dev)
+    # fully masked candidate: Qv*NEG, no NEG/2 floor; Matryoshka prefix;
+    # ragged D; clipped rows (-1 and N, which the wrapper clips); f32
+    # documents (warp route) and bf16 ones (tensor route); a query with
+    # no token
+    base = unit(gen, (300, 45, 32), torch.float32, dev)
     dm = torch.ones((300, 45), dtype=torch.bool, device=dev)
     dm[5] = False
     rows = torch.randint(0, 300, (B, 9), generator=gen, device=dev)
     rows[:, 1] = 5
-    got = KOPS.maxsim_rerank(q, docs, rows, qm, dm)
-    want = KOPS._rerank_ref(q[..., :32], docs, rows, qm.float(), dm)
-    check(bool(torch.allclose(got[:, 1], torch.full_like(got[:, 1],
-                                                         Qv * NEG))),
-          "rerank: a fully masked candidate must score Qv*NEG")
-    errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(got, want, "rerank f32 Matryoshka q[..., :32] ragged D=45",
-        **tol))
+    rows[0, 2], rows[3, 4] = -1, 300
+    qz = qm.clone()
+    qz[2] = False
+    for dt in (torch.float32, torch.bfloat16):
+        docs = base.to(dt)
+        r = scan_route(docs, f"rerank {str(dt)[6:]} [300,45,32]",
+                       kernel="rerank")
+        got = KOPS.maxsim_rerank(q, docs, rows, qz, dm)
+        want = KOPS._rerank_ref(q[..., :32], docs, rows.clamp(0, 299),
+                                qz.float(), dm)
+        live = qz.any(-1)
+        check(bool(torch.allclose(got[live, 1], torch.full_like(
+            got[live, 1], Qv * NEG))),
+              "rerank: a fully masked candidate must score Qv*NEG")
+        check(bool((got[2] == 0).all()),
+              "rerank: a query with no token must score 0")
+        errs["maxsim_rerank"] = max(errs["maxsim_rerank"], max_err(
+            got, want, f"rerank {str(dt)[6:]} Matryoshka q[..., :32] ragged "
+            f"D=45, clipped rows ({r} route)", **tol))
 
     # --- pooling: a batch of 256 ColPali pages, P [34, 1024]
     pm = torch.from_numpy(POPS.pooling_matrix_static(cfg)[0]).to(dev)
@@ -457,6 +518,8 @@ def check_int8_and_db_kernels(args, dev) -> dict:
         dm[3] = False                                # a fully masked doc
         valid = torch.rand((N,), generator=gen, device=dev) > 0.1
         for what, dv, sc in (("bf16", docs, None), ("int8", codes, scales)):
+            scan_route(dv, f"db scan {what} {name} [{N},{D},{d}]",
+                       kernel="db scan")
             DSP.reset_counts()
             got = KOPS.maxsim_scores_chunked(q, dv, qm, dm, valid,
                                              chunk=chunk, scales=sc)
@@ -484,20 +547,43 @@ def check_int8_and_db_kernels(args, dev) -> dict:
                 "doc_valid", **tol))
         # broadcast [1, D] mask through the db scan
         row = dm[:1].clone()
-        got = KOPS.maxsim_scores_chunked(q, codes, qm, row, None,
-                                         chunk=chunk, scales=scales)
-        want = KOPS.maxsim_chunked_ref(q, codes, qm, row, None, chunk=chunk,
-                                       scales=scales)
-        note("maxsim_scan_db", max_err(
-            got, want, f"db scan int8 {name} broadcast [1,{D}] mask", **tol))
+        for what, dv, sc in (("bf16", docs, None), ("int8", codes, scales)):
+            got = KOPS.maxsim_scores_chunked(q, dv, qm, row, None,
+                                             chunk=chunk, scales=sc)
+            want = KOPS.maxsim_chunked_ref(q, dv, qm, row, None, chunk=chunk,
+                                           scales=sc)
+            note("maxsim_scan_db", max_err(
+                got, want, f"db scan {what} {name} broadcast [1,{D}] mask",
+                **tol))
         del docs, codes, scales, dm, got, want
-    # f32 docs, ragged N, D and Q, broadcast (absent) mask
-    docs = unit(gen, (1001, 37, d), torch.float32, dev)
+    # ragged N, D and Q, broadcast (absent) mask: f32 docs (warp route),
+    # bf16 docs and int8 codes (tensor route, tiles across documents)
     q7 = q[:5, :7].contiguous()
-    got = KOPS.maxsim_scores_chunked(q7, docs, None, None, chunk=100)
-    want = KOPS.maxsim_chunked_ref(q7, docs, None, None, chunk=100)
-    note("maxsim_scan_db", max_err(
-        got, want, "db scan f32 ragged q[5,7] [1001,37] no mask", **tol))
+    x = unit(gen, (1001, 37, d), torch.float32, dev)
+    c7, s7 = KOPS.quantize_int8(x)
+    for what, dv, sc in (("f32", x, None), ("bf16", x.to(torch.bfloat16),
+                                            None), ("int8", c7, s7)):
+        r = scan_route(dv, f"db scan {what} [1001,37,{d}]", kernel="db scan")
+        got = KOPS.maxsim_scores_chunked(q7, dv, None, None, chunk=100,
+                                         scales=sc)
+        want = KOPS.maxsim_chunked_ref(q7, dv, None, None, chunk=100,
+                                       scales=sc)
+        note("maxsim_scan_db", max_err(
+            got, want, f"db scan {what} ragged q[5,7] [1001,37] no mask "
+            f"({r} route)", **tol))
+    # long queries (Q = 96 and 128 at d = 128) through the db scan
+    docs = unit(gen, (300, 100, d), torch.bfloat16, dev)
+    dm = torch.rand((300, 100), generator=gen, device=dev) > 0.05
+    for Ql in (96, 128):
+        ql = unit(gen, (8, Ql, d), torch.float32, dev)
+        qlm = torch.rand((8, Ql), generator=gen, device=dev) > 0.2
+        r = scan_route(docs, f"db scan Q={Ql} bf16 [300,100,{d}]",
+                       kernel="db scan")
+        note("maxsim_scan_db", max_err(
+            KOPS.maxsim_scores_chunked(ql, docs, qlm, dm, chunk=64),
+            KOPS.maxsim_chunked_ref(ql, docs, qlm, dm, chunk=64),
+            f"db scan q[8,{Ql},{d}] bf16 [300,100] ({r} route)", **tol))
+    del c7, s7, dm
 
     # --- int8 rerank: onto initial (L=prefetch) and mean_pooling (L=k0)
     for name, D, L in (("initial", cfg.n_patches, 256),
@@ -509,6 +595,8 @@ def check_int8_and_db_kernels(args, dev) -> dict:
         rows = torch.randint(0, N, (B, L), generator=gen, device=dev)
         rows[:, 0] = 7
         ok = torch.rand((B, L), generator=gen, device=dev) > 0.1
+        scan_route(codes, f"rerank int8 {name} [{N},{D},{d}]",
+                   kernel="rerank")
         got = KOPS.maxsim_rerank(q, codes, rows, qm, dm, ok, scales=scales)
         want = KOPS._rerank_ref(q, codes, rows, qm.float(), dm, scales)
         live = ok[:, 0]
@@ -518,7 +606,36 @@ def check_int8_and_db_kernels(args, dev) -> dict:
         want = want.masked_fill(~ok, NEG)
         note("maxsim_rerank_int8", max_err(
             got, want, f"rerank int8 {name} rows [{B},{L}] ok-mask", **tol))
+        row = dm[:1].clone()
+        got = KOPS.maxsim_rerank(q[..., :64], codes[..., :64].contiguous(),
+                                 rows, qm, row,
+                                 scales=scales)
+        want = KOPS._rerank_ref(q[..., :64], codes[..., :64].contiguous(),
+                                rows, qm.float(), row, scales)
+        note("maxsim_rerank_int8", max_err(
+            got, want, f"rerank int8 {name} d=64 broadcast [1,{D}] mask",
+            **tol))
         del codes, scales, dm
+    # int8 Matryoshka prefix, ragged D = 45, a fully masked candidate,
+    # clipped rows (tensor route)
+    codes, scales = KOPS.quantize_int8(unit(gen, (300, 45, 32),
+                                            torch.float32, dev))
+    dm = torch.ones((300, 45), dtype=torch.bool, device=dev)
+    dm[5] = False
+    rows = torch.randint(0, 300, (B, 9), generator=gen, device=dev)
+    rows[:, 1] = 5
+    rows[0, 2], rows[3, 4] = -1, 300
+    r = scan_route(codes, "rerank int8 [300,45,32]", kernel="rerank")
+    got = KOPS.maxsim_rerank(q, codes, rows, qm, dm, scales=scales)
+    want = KOPS._rerank_ref(q[..., :32], codes, rows.clamp(0, 299),
+                            qm.float(), dm, scales)
+    check(bool(torch.allclose(got[:, 1], torch.full_like(got[:, 1],
+                                                         Qv * NEG))),
+          "int8 rerank: a fully masked candidate must score Qv*NEG")
+    note("maxsim_rerank_int8", max_err(
+        got, want, f"rerank int8 Matryoshka q[..., :32] ragged D=45, clipped "
+        f"rows ({r} route)", **tol))
+    del codes, scales, dm
 
     # --- an empty query batch or corpus launches nothing and counts nothing
     DSP.reset_counts()
@@ -526,8 +643,9 @@ def check_int8_and_db_kernels(args, dev) -> dict:
                                             dev))
     KOPS.maxsim_scores(q, codes, scales=scales)
     KOPS.maxsim_scores_pipelined(q, codes, chunk=chunk, scales=scales)
-    KOPS.maxsim_scores_pipelined(q[:0], docs, chunk=chunk)
-    KOPS.maxsim_rerank(q[:0], docs, rows[:0])
+    for dv in (x, docs):                       # warp and tensor routes
+        KOPS.maxsim_scores_pipelined(q[:0], dv, chunk=chunk)
+        KOPS.maxsim_rerank(q[:0], dv, rows[:0])
     torch.cuda.synchronize()
     check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
           "an empty scan or rerank counted a launch")
@@ -602,15 +720,16 @@ def embed_bag_phase(args, dev) -> dict:
         except RuntimeError as e:         # the yardstick only, not the port
             log(f"  F.embedding_bag refused {what}: {e}")
             lib = None
-        # bound: the rows this data needs (distinct ids of nonzero
-        # weight), the ids and weights, the output
-        need = torch.unique(i32[w != 0]).numel()
+        # bound: the rows this data needs (the distinct ids of every
+        # slot: a zero-weight slot reads its clipped row too, as in the
+        # reference), the ids and weights, the output
+        need = torch.unique(i32).numel()
         nbytes = (need * d * table.element_size() + B * L * 8 + B * d * 4)
         flops = 2.0 * int((w != 0).sum()) * d
         b_ms, b_by = bound(nbytes, flops)
         log(f"[times] embed_bag {what} table [{V},{d}] {gb:.2f} GB (made "
             f"in {time.perf_counter() - t0:.1f}s), bags [{B},{L}] "
-            f"({need} distinct rows of nonzero weight): kernel {ms:.4f} ms, "
+            f"({need} distinct rows): kernel {ms:.4f} ms, "
             f"op {op_ms:.4f} ms, plain {plain:.4f} ms, library "
             f"(F.embedding_bag, per_sample_weights, {str(dtype)[6:]} out) "
             f"{lib} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -620,6 +739,40 @@ def embed_bag_phase(args, dev) -> dict:
                          library_ms=lib, shape=f"[{V},{d}] bags [{B},{L}]"))
         del table, idx, valid, out, w, i32, wl
         torch.cuda.empty_cache()
+    # non-finite rows under zero-weight slots: -1 padding clips to row 0
+    # (inf, -inf, NaN) and masked-out slots point at row 7 (inf); every
+    # slot adds w * row as in the reference, so 0 * inf makes those bags'
+    # columns NaN, in the plain version's places
+    for dtype in (torch.float32, torch.bfloat16):
+        V, d, B, L = 100_000, 64, 4096, 8
+        table = torch.randn((V, d), generator=gen, device=dev)
+        table[0, :3] = torch.tensor([float("inf"), -float("inf"),
+                                     float("nan")], device=dev)
+        table[7, 3] = float("inf")
+        table = table.to(dtype)
+        idx = torch.randint(1, V, (B, L), generator=gen, device=dev)
+        idx[torch.rand((B, L), generator=gen, device=dev) < 0.2] = -1
+        idx[::3, 2] = 7
+        valid = idx >= 0
+        valid[::3, 2] = False
+        for vv in (None, valid):
+            got = embed_bag(table, idx, vv)
+            w = ((idx >= 0) if vv is None else vv).float()
+            want = embed_bag_ref(table, idx.clamp(0, V - 1), w)
+            nan = torch.isnan(want)
+            check(bool(nan.any()) and bool(torch.equal(torch.isnan(got),
+                                                       nan)),
+                  f"embed_bag {str(dtype)[6:]}: NaN pattern under zero-weight "
+                  "slots differs from the plain version's")
+            try:
+                torch.testing.assert_close(got, want, equal_nan=True, **tol)
+            except AssertionError as e:
+                fail(f"embed_bag non-finite rows: kernel != plain: {e}")
+            log(f"  embed_bag {str(dtype)[6:]} [{V},{d}] bags [{B},{L}] with "
+                "inf/NaN rows under padded"
+                + (" and masked-out" if vv is not None else "")
+                + f" slots: {int(nan.sum())} NaN, the plain version's "
+                "places; the rest ok")
     return dict(entry=dict(
         name="embed_bag", route="cuda",
         source="src/repro_torch/csrc/embed_bag.cu",
@@ -1279,7 +1432,10 @@ def kernel_times(args, dev, main) -> list:
                 library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
                 shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}]"))
 
-    # --- rerank at the 2-stage final shape: rows [B, 256] onto initial
+    # --- rerank at the 2-stage final shape: rows [B, 256] onto initial:
+    # the wrapper as the main path calls it, its query packed on every
+    # call (ms); the launch with the packed operand built once
+    # (kernel_ms); the wrapper's calls back to back (b2b_ms)
     docs, dm = vec["initial"], vec["initial_mask"]
     N, D, _ = docs.shape
     s0 = KOPS.maxsim_scores(q, vec["mean_pooling"], qm,
@@ -1287,7 +1443,15 @@ def kernel_times(args, dev, main) -> list:
     rows = torch.sort(s0, dim=-1, descending=True,
                       stable=True)[1][:, :256].to(torch.int32)
     L = rows.shape[1]
+    route = scan_route(docs, f"rerank initial [{N},{D},{d}]",
+                       kernel="rerank")
+    check(route == "tensor", "rerank initial: the main path's shape takes "
+          "the warp route")
+    op = KOPS.scan_query_operand(q, qmf)
     ms = time_ms(lambda: KOPS.maxsim_rerank(q, docs, rows, qm, dm))
+    kern = time_ms(lambda: KOPS.maxsim_rerank(q, docs, rows, qmf, dm,
+                                              operand=op))
+    b2b = time_ms(lambda: KOPS.maxsim_rerank(q, docs, rows, qm, dm), reps=5)
     plain = time_ms(lambda: KOPS._rerank_ref(q, docs, rows, qmf, dm),
                     iters=3)
 
@@ -1299,24 +1463,25 @@ def kernel_times(args, dev, main) -> list:
         sim.masked_fill_(~gm[:, :, None, :], NEG)
         return torch.where(qm[:, None, :], sim.amax(-1), 0.0).sum(-1)
     lib = time_ms(library, iters=3)
-    uniq = torch.unique(rows)
-    vecs_needed = int(dm[rows.long()].sum(-1).float().mul(
-        qm.sum(-1, keepdim=True).float()).sum())
-    nbytes = (rows.numel() * 4 + q.numel() * 4 + qm.numel() * 4
-              + uniq.numel() * D * (d * 2 + 1) + B * L * 4)
-    flops = 2.0 * vecs_needed * d
-    b_ms, b_by = bound(nbytes, flops)
+    nbytes, flops, uniq = rerank_cost(q, qm, rows, dm, D, d * 2 + 1)
+    b_ms, b_by = bound_split_bf16(nbytes, flops)
     log(f"[times] rerank initial rows[{B},{L}] docs[{N},{D},{d}] bf16 "
-        f"({uniq.numel()} distinct candidates): kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, library {lib:.3f} ms, bound {b_ms:.3f} ms "
-        f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s achieved")
+        f"({uniq} distinct candidates), {route} route: wrapper {ms:.4f} ms "
+        f"(launch with the query packed once {kern:.4f} ms, wrapper back "
+        f"to back {b2b:.4f} ms), plain {plain:.3f} ms, library {lib:.3f} "
+        f"ms, split bf16 bound {b_ms:.4f} ms ({b_by}: the {uniq} distinct "
+        f"candidates' rows and mask bytes once), wrapper at "
+        f"{100 * b_ms / ms:.1f}% and launch at {100 * b_ms / kern:.1f}% of "
+        f"it; {B * L * D * (d * 2 + 1) / kern / 1e6:.1f} GB/s of candidate "
+        "rows (each (query, candidate) pair's) streamed by the launch")
     log_bounds("rerank initial", ms, nbytes, flops)
     entries.append(dict(
         name="maxsim_rerank", route="cuda",
         source="src/repro_torch/csrc/maxsim_rerank.cu",
         replaces="src/repro/kernels/maxsim/maxsim.py:270",
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, shape=f"rows[{B},{L}] docs[{N},{D},{d}]"))
+        library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
+        shape=f"rows[{B},{L}] docs[{N},{D},{d}]"))
 
     # --- pooling at the index batch shape: 256 pages, P [34, 1024]
     pm = torch.from_numpy(POPS.pooling_matrix_static(cfg)[0]).to(dev)
@@ -1388,7 +1553,10 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
         return nbytes, 2.0 * qv * int(dm.sum()) * d
 
     # --- double-buffered scan: int8 initial (the 1-stage int8 cascade),
-    # bf16 initial, int8 and bf16 mean_pooling
+    # bf16 initial, int8 and bf16 mean_pooling: the wrapper as the main
+    # path calls it (ms), the launch with the packed query built once
+    # (kernel_ms), the wrapper's calls back to back (b2b_ms)
+    op = KOPS.scan_query_operand(q, qmf)
     db = {}
     for name, docs, dm, sc in (
             ("int8 initial", va["initial_int8"], va["initial_mask"],
@@ -1399,21 +1567,33 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
             ("bf16 mean_pooling", vf["mean_pooling"],
              vf["mean_pooling_mask"], None)):
         N, D, _ = docs.shape
+        route = scan_route(docs, f"db scan {name} [{N},{D},{d}]",
+                           kernel="db scan")
+        check(route == "tensor", f"db scan {name}: the main path's shape "
+              "takes the warp route")
         ms = time_ms(lambda: KOPS.maxsim_scores_chunked(
             q, docs, qm, dm, chunk=chunk, scales=sc))
+        kern = time_ms(lambda: KOPS.maxsim_scores_pipelined(
+            q, docs, qmf, dm, chunk=chunk, scales=sc, operand=op))
+        b2b = time_ms(lambda: KOPS.maxsim_scores_chunked(
+            q, docs, qm, dm, chunk=chunk, scales=sc), reps=5)
         plain = time_ms(lambda: KOPS.maxsim_chunked_ref(
             q, docs, qmf, dm, chunk=chunk, scales=sc), iters=3)
         lib = time_ms(lambda: library_scan(docs, dm, sc), iters=3)
         nbytes, flops = scan_cost(docs, dm, sc)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"[times] db scan {name} q[{B},{Q},{d}] docs[{N},{D},{d}]: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} "
-            f"ms, bound {b_ms:.3f} ms ({b_by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        b_ms, b_by = bound_split_bf16(nbytes, flops)
+        log(f"[times] db scan {name} q[{B},{Q},{d}] docs[{N},{D},{d}], "
+            f"{route} route: wrapper {ms:.4f} ms (launch with the query "
+            f"packed once {kern:.4f} ms, wrapper back to back {b2b:.4f} "
+            f"ms), plain {plain:.3f} ms, library {lib:.3f} ms, split bf16 "
+            f"bound {b_ms:.4f} ms ({b_by}), wrapper at "
+            f"{100 * b_ms / ms:.1f}% and launch at {100 * b_ms / kern:.1f}%"
+            f" of it; {flops / kern / 1e9:.1f} f32 TFLOP/s equivalent")
         log_bounds(f"db scan {name}", ms, nbytes, flops)
         db[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib, shape=f"q[{B},{Q},{d}] "
-                        f"docs[{N},{D},{d}] {name.split()[0]}")
+                        library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
+                        shape=f"q[{B},{Q},{d}] docs[{N},{D},{d}] "
+                        f"{name.split()[0]}")
     entries.append(dict(
         name="maxsim_scan_db", route="cuda",
         source="src/repro_torch/csrc/maxsim_scan_db.cu",
@@ -1424,7 +1604,6 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
     # (and over the whole corpus, the db scan's work): the wrapper packing
     # its query on every call (ms), and with the packed query built once as
     # the streamed top-k does (kernel_ms)
-    op = KOPS.scan_query_operand(q, qmf)
     for lo, hi in ((0, chunk), (0, va["initial_int8"].shape[0])):
         docs = va["initial_int8"][lo:hi]
         dm, sc = va["initial_mask"][lo:hi], va["initial_scale"][lo:hi]
@@ -1466,8 +1645,16 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
     rows = torch.sort(s0, dim=-1, descending=True,
                       stable=True)[1][:, :256].to(torch.int32)
     L = rows.shape[1]
+    route = scan_route(codes, f"rerank int8 initial [{N},{D},{d}]",
+                       kernel="rerank")
+    check(route == "tensor", "int8 rerank initial: the main path's shape "
+          "takes the warp route")
     ms = time_ms(lambda: KOPS.maxsim_rerank(q, codes, rows, qm, dm,
                                             scales=sc))
+    kern = time_ms(lambda: KOPS.maxsim_rerank(q, codes, rows, qmf, dm,
+                                              scales=sc, operand=op))
+    b2b = time_ms(lambda: KOPS.maxsim_rerank(q, codes, rows, qm, dm,
+                                             scales=sc), reps=5)
     plain = time_ms(lambda: KOPS._rerank_ref(q, codes, rows, qmf, dm, sc),
                     iters=3)
 
@@ -1480,24 +1667,24 @@ def kernel_times_int8_and_db(args, dev, main, m8) -> list:
         sim.masked_fill_(~gm[:, :, None, :], NEG)
         return torch.where(qm[:, None, :], sim.amax(-1), 0.0).sum(-1)
     lib = time_ms(library, iters=3)
-    uniq = torch.unique(rows)
-    vecs_needed = int(dm[rows.long()].sum(-1).float().mul(
-        qm.sum(-1, keepdim=True).float()).sum())
-    nbytes = (rows.numel() * 4 + q.numel() * 4 + qm.numel() * 4
-              + uniq.numel() * D * (d + 4 + 1) + B * L * 4)
-    flops = 2.0 * vecs_needed * d
-    b_ms, b_by = bound(nbytes, flops)
+    nbytes, flops, uniq = rerank_cost(q, qm, rows, dm, D, d + 4 + 1)
+    b_ms, b_by = bound_split_bf16(nbytes, flops)
     log(f"[times] rerank int8 initial rows[{B},{L}] codes[{N},{D},{d}] "
-        f"({uniq.numel()} distinct candidates): kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, library {lib:.3f} ms, bound {b_ms:.3f} ms "
-        f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s achieved")
+        f"({uniq} distinct candidates), {route} route: wrapper {ms:.4f} ms "
+        f"(launch with the query packed once {kern:.4f} ms, wrapper back "
+        f"to back {b2b:.4f} ms), plain {plain:.3f} ms, library {lib:.3f} "
+        f"ms, split bf16 bound {b_ms:.4f} ms ({b_by}: the {uniq} distinct "
+        f"candidates' codes, scales and mask bytes once), wrapper at "
+        f"{100 * b_ms / ms:.1f}% and launch at {100 * b_ms / kern:.1f}% of "
+        "it")
     log_bounds("rerank int8 initial", ms, nbytes, flops)
     entries.append(dict(
         name="maxsim_rerank_int8", route="cuda",
         source="src/repro_torch/csrc/maxsim_rerank.cu",
         replaces="src/repro/kernels/maxsim/maxsim.py:312",
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, shape=f"rows[{B},{L}] codes[{N},{D},{d}]"))
+        library_ms=lib, kernel_ms=kern, b2b_ms=b2b,
+        shape=f"rows[{B},{L}] codes[{N},{D},{d}]"))
     return entries
 
 
@@ -1541,10 +1728,12 @@ def main() -> None:
         build.library(name)
     log(f"[build] {len(build.SIGNATURES)} CUDA libraries built in "
         f"{secs:.1f}s (sm_90a, one nvcc per source in parallel)")
-    n_hgmma = hgmma_count()
-    check(n_hgmma > 0, "the scan library's SASS holds no HGMMA (wgmma)")
-    log(f"[build] maxsim_scan library: {n_hgmma} HGMMA (wgmma) instructions "
-        "in its SASS (cuobjdump -sass)")
+    for name in ("maxsim_scan", "maxsim_scan_db", "maxsim_rerank"):
+        n_hgmma = hgmma_count(name)
+        check(n_hgmma > 0, f"the {name} library's SASS holds no HGMMA "
+              "(wgmma)")
+        log(f"[build] {name} library: {n_hgmma} HGMMA (wgmma) instructions "
+            "in its SASS (cuobjdump -sass)")
 
     # 3. kernels
     errs = check_kernels(args, dev)

@@ -13,12 +13,16 @@
 // then walks j = 0..L-1 keeping its VEC sums in f32 registers. Rows load as
 // 16 bytes per thread (4 f32 or 8 bf16/f16) where the row width allows.
 //
-// Zero-weight slots (padding, entries outside `valid`) are not read. The
-// TPU kernel adds w * row there too, which is 0 for a finite table, so the
-// result is the same; skipping them saves the row's bytes.
+// Every slot is read and adds w * row, zero-weight slots (padding, entries
+// outside `valid`) included, as the TPU kernel does: the op points a padded
+// slot at its clamped id, so a non-finite value in a row under a zero-weight
+// slot makes that bag's column NaN (0 * inf), as in the reference. In the
+// op's usual call every padded slot reads the same clamped row, which stays
+// in cache.
 //
-// What bounds it on an H100: device-memory bytes, the random table rows
-// (B*L*d*elem, 256-512 B each) at 3.35 TB/s; the 2*B*L*d operations are
+// What bounds it on an H100: device-memory bytes, the distinct table rows
+// the slots point at (256-512 B each; every slot's row counts, padded ones
+// too) at 3.35 TB/s; the 2*B*L*d operations are
 // far below the f32 rate. The j loop is unrolled by UNROLL so that many
 // row loads are in flight per thread before their sums, which keep the j
 // order.
@@ -125,14 +129,8 @@ embed_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
     for (; j + UNROLL <= n; j += UNROLL) {
       float v[UNROLL][VEC];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (my_w[j + u] != 0.f) {
-          load_row<T, VEC>(table + (size_t)my_idx[j + u] * d + col, v[u]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) v[u][i] = 0.f;
-        }
-      }
+      for (int u = 0; u < UNROLL; ++u)
+        load_row<T, VEC>(table + (size_t)my_idx[j + u] * d + col, v[u]);
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const float wu = my_w[j + u];
@@ -142,7 +140,6 @@ embed_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
     }
     for (; j < n; ++j) {
       const float wj = my_w[j];
-      if (wj == 0.f) continue;
       float v[VEC];
       load_row<T, VEC>(table + (size_t)my_idx[j] * d + col, v);
 #pragma unroll

@@ -8,8 +8,9 @@
 // parallel in no order, so nothing carries between blocks: a block owns
 // whole documents and carries their running max itself.
 //
-// Two routes, chosen by `maxsim_scan_route` from the document type, D and
-// d alone (never by a failed launch):
+// Two routes, chosen by `wg::tensor_route` (exported as
+// `maxsim_scan_route`) from the document type, D and d alone (never by a
+// failed launch):
 //
 // - tensor (bf16 documents or int8 codes, D >= 16, d of 32, 64 or 128):
 //   the bf16 wgmma kernel of maxsim_wgmma.cuh, one block per SM over a
@@ -85,67 +86,15 @@ int launch(const float* q, const float* qm, const void* docs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool INT8, int DIM>
-int launch_tc(const __nv_bfloat16* qpack, const int* qstart,
-              const int* qcount, int B, int TP, const void* docs,
-              const float* scales, const uint8_t* dm, int64_t dm_stride,
-              float* out, int N, int D, int d, cudaStream_t stream) {
-  const size_t smem = wg::smem_bytes(TP, d, INT8 ? 1 : 2);
-  if (TP <= 0 || TP % wg::CH || TP > wg::token_cap(d, INT8 ? 1 : 2) ||
-      smem > wg::SMEM_MAX || reinterpret_cast<uintptr_t>(docs) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      wg::scan_wgmma_kernel<INT8, DIM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // one block per SM, each over a range of whole documents
-  const int ranges = N < sms ? N : sms;
-  // a block counts its rows in 32 bits
-  if ((int64_t)(N / ranges + 1) * D > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  wg::scan_wgmma_kernel<INT8, DIM><<<ranges, wg::THREADS, smem, stream>>>(
-      qpack, qstart, qcount, B, TP, docs, scales, dm, dm_stride, out, N, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace maxsim
 
 // The route a scan of docs_type (0 f32, 1 bf16, 2 int8 codes) with D
 // vectors of dim d per document takes: 1 = tensor cores (wgmma), 0 = warp.
+// The rule is `wg::tensor_route`, which the double-buffered scan and the
+// rerank launchers apply too; the wrappers of all three ask it here.
 extern "C" int maxsim_scan_route(int docs_type, int D, int d) {
-  using namespace maxsim;
-  return docs_type != DOC_F32 && D >= wg::MIN_D &&
-                 (d == 32 || d == 64 || d == 128)
-             ? 1
-             : 0;
+  return wg::tensor_route(docs_type, D, d) ? 1 : 0;
 }
-
-namespace maxsim {
-
-template <bool INT8>
-int launch_tc_d(const __nv_bfloat16* qpack, const int* qstart,
-                const int* qcount, int B, int TP, const void* docs,
-                const float* scales, const uint8_t* dm, int64_t dm_stride,
-                float* out, int N, int D, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_tc<INT8, 32>(qpack, qstart, qcount, B, TP, docs, scales,
-                                 dm, dm_stride, out, N, D, d, stream);
-    case 64:
-      return launch_tc<INT8, 64>(qpack, qstart, qcount, B, TP, docs, scales,
-                                 dm, dm_stride, out, N, D, d, stream);
-    case 128:
-      return launch_tc<INT8, 128>(qpack, qstart, qcount, B, TP, docs,
-                                  scales, dm, dm_stride, out, N, D, d,
-                                  stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace maxsim
 
 // Tokens per query group (a multiple of 64) that the tensor route holds in
 // shared memory at vector dim d.
@@ -177,18 +126,9 @@ extern "C" int maxsim_scan_launch(const void* q, const void* q_mask,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t st = (int64_t)doc_mask_stride;
-  if (maxsim_scan_route(docs_type, D, d)) {
-    if (!qpack || !qstart || !qcount || TP <= 0)
-      return static_cast<int>(cudaErrorInvalidValue);  // prepared for warp
-    const auto* qp = static_cast<const __nv_bfloat16*>(qpack);
-    const int* qs = static_cast<const int*>(qstart);
-    const int* qc = static_cast<const int*>(qcount);
-    return docs_type == DOC_INT8
-               ? launch_tc_d<true>(qp, qs, qc, B, TP, docs, sc, dm, st, o, N,
-                                   D, d, s)
-               : launch_tc_d<false>(qp, qs, qc, B, TP, docs, sc, dm, st, o,
-                                    N, D, d, s);
-  }
+  if (wg::tensor_route(docs_type, D, d))
+    return wg::launch_scan(qpack, qstart, qcount, B, TP, docs, docs_type, sc,
+                           dm, st, o, N, D, d, s);
   if (qpack || TP) return static_cast<int>(cudaErrorInvalidValue);  // tensor
   switch (docs_type) {
     case DOC_F32:

@@ -2,47 +2,53 @@
 // against every document n of a corpus, in one launch.
 //
 // Replaces the TPU kernel `maxsim_pallas_db` (src/repro/kernels/maxsim/
-// maxsim.py, body `_maxsim_db_kernel`). There one launch walks the corpus
-// in chunks with the whole [B, Q, d] query block resident in VMEM, and the
-// DMA of chunk i+1 into the idle half of a 2-slot buffer is in flight
-// while the MXU scores chunk i (`make_async_copy` + DMA semaphores).
+// maxsim.py:181, body `_maxsim_db_kernel`). There one launch walks the
+// corpus in chunks with the whole [B, Q, d] query block resident in VMEM,
+// and the DMA of chunk i+1 into the idle half of a 2-slot buffer is in
+// flight while the MXU scores chunk i (`make_async_copy` + DMA
+// semaphores).
 //
-// On Hopper the same design, resized:
-// - The resident query block: a block may hold at most 227 KB of shared
-//   memory, and the main path's 32 x 16 x 128 f32 query block alone is
-//   256 KB. So the batch is split into query groups of up to 8 queries
-//   (64 KB at Qp = 16, d = 128), one warp per query; the grid is (query
-//   groups, document ranges) and each group reads the corpus once.
-// - The 2-slot ring: each block streams its document range through two
-//   shared-memory tiles of DB_TILE vectors. Tile i+1 is copied with
-//   16-byte (f32, bf16) or 8-byte (int8) `cp.async` while the warps score
-//   tile i; `cp.async.wait_group 1` plus a block barrier play the part of
-//   the TPU's DMA semaphore wait. A tile is up to DB_TILE vectors of one
-//   document (a document longer than that spans several tiles, and each
-//   warp carries the per-token running max across them in shared memory).
-//   Staged rows are padded by 16 (8 for int8) bytes so that the 32 lanes,
-//   each reading its own row, hit distinct shared-memory banks.
-// - Masks and int8 scales are read from global memory (they are 1/128 and
-//   4/128 of a bf16 row) with a row stride of 0 for a broadcast [1, D]
-//   mask.
-// - Ragged N, D and Q are masked in the kernel; the wrapper pads nothing.
+// On Hopper that design is the tensor-route scan's kernel,
+// `wg::scan_wgmma_kernel` of maxsim_wgmma.cuh, and this file launches it
+// (`wg::launch_scan`) for the shapes of its route (`wg::tensor_route`:
+// bf16 documents or int8 codes, D >= 16, d of 32, 64 or 128):
+// - The resident query block becomes the packed VALID query tokens of a
+//   group of whole queries in shared memory, split into bf16 hi + lo rows
+//   (`ops.scan_query_operand`); one group holds the main path's 32
+//   queries, so each block streams its documents once.
+// - The 2-slot DMA buffer becomes a 3-slot `cp.async` ring of 64-row
+//   document tiles: the copies of tiles i+1 and i+2 are in flight while
+//   the tensor cores score tile i (`cp.async.wait_group` plus a block
+//   barrier play the DMA semaphore wait).
+// - The TPU's sequential chunk axis becomes one block per SM over a range
+//   of whole documents, since blocks run in parallel in no order; the
+//   per-token running max stays in registers while tiles belong to one
+//   document. Which chunk the caller names changes no score.
+// What bounds it: the split product, 4*T*N*D*d operations for T valid
+// tokens at 989 TFLOP/s, as for the scan.
 //
-// The output contract is the scan's: each valid query token's max is
-// floored at NEG/2, masked tokens add 0; the wrapper applies doc_valid.
+// The warp route (f32 documents, D < 16, another d) is the f32 kernel
+// below: the batch in query groups of up to 8 queries (one warp each)
+// resident in shared memory, each block streaming a document range
+// through two shared-memory tiles of DB_TILE vectors; tile i+1 is copied
+// with 16-byte (f32, bf16) or 8-byte (int8) `cp.async` while the warps
+// score tile i. A document longer than a tile spans several, and each
+// warp carries the per-token running max across them in shared memory.
+// Staged rows are padded by 16 (8 for int8) bytes so that the 32 lanes,
+// each reading its own row, hit distinct banks. It is bound by the f32
+// multiply-adds at 67 TFLOP/s.
 //
-// What bounds it on an H100: the f32 multiply-adds at 67 TFLOP/s on the
-// CUDA cores, as for maxsim_scan.cu (the corpus read, N*D*d*2 bytes, or
-// N*D*(d+4) for int8, once per query group, is far below that at ColPali
-// width). Tensor cores (wgmma on bf16 tiles; int8 codes are exact in
-// bf16), TMA tensor maps and warp specialisation are left for a later
-// change.
+// Both routes mask ragged N, D and Q themselves and read masks with a row
+// stride (0 for a broadcast [1, D] mask). The output contract is the
+// scan's: each valid query token's max is floored at NEG/2, masked tokens
+// add 0; the wrapper applies doc_valid.
 #include "maxsim_common.cuh"
+#include "maxsim_wgmma.cuh"
 
 namespace maxsim {
 
 constexpr int DB_TILE = 64;     // document vectors per staged tile
 constexpr int DB_MAX_QB = 8;    // queries (warps) per block
-constexpr size_t DB_SMEM_MAX = 232448;  // opt-in shared memory per block
 
 template <typename T>
 struct DbStage {
@@ -196,9 +202,9 @@ int launch(const float* q, const float* qm, const void* docs,
            cudaStream_t stream) {
   const int Qp = padded_q(Q);
   int qb = B < DB_MAX_QB ? B : DB_MAX_QB;
-  while (qb > 1 && db_smem_bytes<T>(qb, Qp, d) > DB_SMEM_MAX) --qb;
+  while (qb > 1 && db_smem_bytes<T>(qb, Qp, d) > wg::SMEM_MAX) --qb;
   const size_t smem = db_smem_bytes<T>(qb, Qp, d);
-  if (smem > DB_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > wg::SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (B + qb - 1) / qb;
   // about four blocks per SM over the whole grid
   int ranges = (4 * sm_count() + groups - 1) / groups;
@@ -221,7 +227,11 @@ int launch(const float* q, const float* qm, const void* docs,
 // q [B,Q,d] f32, q_mask [B,Q] f32, docs [N,D,d] of docs_type (0 f32,
 // 1 bf16, 2 int8 codes with scales [N,D] f32; scales is unused otherwise),
 // doc_mask rows of D bytes (row stride doc_mask_stride: D, or 0 for one
-// broadcast row), out [B,N] f32. Returns the launch's cudaError_t
+// broadcast row), out [B,N] f32. The tensor route reads the query from
+// the packed operand instead, as `maxsim_scan_launch` does: qpack [*, 2,
+// d] bf16, qstart/qcount [B] int32 and TP, the tokens a group may hold
+// (`maxsim_scan_token_cap`); they are required there and must be null
+// (TP 0) on the warp route. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue when even one query does not fit the block's
 // shared memory).
 extern "C" int maxsim_scan_db_launch(const void* q, const void* q_mask,
@@ -229,6 +239,8 @@ extern "C" int maxsim_scan_db_launch(const void* q, const void* q_mask,
                                      const void* scales, const void* doc_mask,
                                      long long doc_mask_stride, void* out,
                                      int B, int Q, int N, int D, int d,
+                                     const void* qpack, const void* qstart,
+                                     const void* qcount, int TP,
                                      void* stream) {
   using namespace maxsim;
   const float* qf = static_cast<const float*>(q);
@@ -238,6 +250,10 @@ extern "C" int maxsim_scan_db_launch(const void* q, const void* q_mask,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t st = (int64_t)doc_mask_stride;
+  if (wg::tensor_route(docs_type, D, d))
+    return wg::launch_scan(qpack, qstart, qcount, B, TP, docs, docs_type, sc,
+                           dm, st, o, N, D, d, s);
+  if (qpack || TP) return static_cast<int>(cudaErrorInvalidValue);  // tensor
   switch (docs_type) {
     case DOC_F32:
       return launch<float>(qf, qmf, docs, sc, dm, st, o, B, Q, N, D, d, s);

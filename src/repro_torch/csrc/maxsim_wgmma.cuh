@@ -40,11 +40,20 @@
 // keys), which also joins the 4 warps of a warpgroup. When a tile ends a
 // document, the group's queries each sum their tokens' maxima, floored at
 // NEG/2, and write scores[b, n].
+//
+// Callers: the scan (`maxsim_scan.cu`) and the double-buffered scan
+// (`maxsim_scan_db.cu`) both launch `scan_wgmma_kernel` through
+// `launch_scan`; the gather-rerank (`maxsim_rerank.cu`) builds its own
+// kernel from the swizzle, descriptors, tile loads and int8 conversion
+// here. All three take the tensor route by `tensor_route`, the rule's one
+// statement.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "maxsim_common.cuh"
 
 namespace wg {
 
@@ -58,6 +67,15 @@ constexpr int THREADS = 128 * WGS;
 constexpr int NCW = 3;            // chunks per warpgroup at most
 constexpr int MIN_D = 16;         // the tensor route's smallest document
 constexpr size_t SMEM_MAX = 232448;  // opt-in shared memory per block
+
+// The route of a scan or rerank of docs_type (maxsim::DocType) with D
+// vectors of dim d per document: true = tensor cores (bf16 documents or
+// int8 codes, D >= MIN_D, d of 32, 64 or 128), false = the f32 warp
+// kernels. A 64-row tile of fewer vectors would waste most of a product.
+inline bool tensor_route(int docs_type, int D, int d) {
+  return docs_type != maxsim::DOC_F32 && D >= MIN_D &&
+         (d == 32 || d == 64 || d == 128);
+}
 
 // d rounded up to whole 64-element swizzle atoms.
 __host__ __device__ inline int padded_d(int d) { return (d + 63) / 64 * 64; }
@@ -187,12 +205,13 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&c)[64], uint64_t da,
 // chunk c of row r at c * TM * 16 + r * 16 (so that the conversion reads
 // consecutive rows from consecutive threads). Rows at or beyond nrows are
 // zero-filled.
-template <bool INT8, int DIM>
+// NT threads of the block share the copies.
+template <bool INT8, int DIM, int NT = THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const char* base,
                                           int nrows, int t) {
   constexpr int ROW = DIM * (INT8 ? 1 : 2);       // bytes per row
   constexpr int CPR = ROW / 16;                   // 16-byte chunks per row
-  for (int i = threadIdx.x; i < TM * CPR; i += THREADS) {
+  for (int i = threadIdx.x; i < TM * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
     const int row = t * TM + r;
     const bool in = row < nrows;
@@ -203,10 +222,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const char* base,
   }
 }
 
-// int8 codes of one raw tile -> bf16 in the swizzled layout.
-template <int DIM>
+// int8 codes of one raw tile -> bf16 in the swizzled layout, by NT
+// threads.
+template <int DIM, int NT = THREADS>
 __device__ __forceinline__ void convert_int8(const char* raw, char* out) {
-  for (int i = threadIdx.x; i < TM * DIM / 16; i += THREADS) {
+  for (int i = threadIdx.x; i < TM * DIM / 16; i += NT) {
     const int r = i % TM, c = i / TM;
     const int4 v = *reinterpret_cast<const int4*>(raw + c * TM * 16 + r * 16);
     const int8_t* b = reinterpret_cast<const int8_t*>(&v);
@@ -468,6 +488,80 @@ scan_wgmma_kernel(const __nv_bfloat16* __restrict__ qpack,
     }
     __syncthreads();                     // the next group reuses the tiles
   }
+}
+
+// Launch `scan_wgmma_kernel` over docs [N, D, DIM] (bf16, or int8 codes
+// with scales [N, D]): one block per SM, each over a range of whole
+// documents; qpack/qstart/qcount as the kernel takes them, TP tokens per
+// group (a multiple of CH within `token_cap`). Returns the cudaError_t.
+template <bool INT8, int DIM>
+int launch_scan_dim(const __nv_bfloat16* qpack, const int* qstart,
+                    const int* qcount, int B, int TP, const void* docs,
+                    const float* scales, const uint8_t* dm,
+                    int64_t dm_stride, float* out, int N, int D,
+                    cudaStream_t stream) {
+  const size_t smem = smem_bytes(TP, DIM, INT8 ? 1 : 2);
+  if (TP <= 0 || TP % CH || TP > token_cap(DIM, INT8 ? 1 : 2) ||
+      smem > SMEM_MAX || reinterpret_cast<uintptr_t>(docs) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_wgmma_kernel<INT8, DIM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // one block per SM, each over a range of whole documents
+  const int ranges = N < sms ? N : sms;
+  // a block counts its rows in 32 bits
+  if ((int64_t)(N / ranges + 1) * D > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  scan_wgmma_kernel<INT8, DIM><<<ranges, THREADS, smem, stream>>>(
+      qpack, qstart, qcount, B, TP, docs, scales, dm, dm_stride, out, N, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `launch_scan_dim` for a run-time d (32, 64 or 128).
+template <bool INT8>
+int launch_scan_d(const __nv_bfloat16* qpack, const int* qstart,
+                  const int* qcount, int B, int TP, const void* docs,
+                  const float* scales, const uint8_t* dm, int64_t dm_stride,
+                  float* out, int N, int D, int d, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_scan_dim<INT8, 32>(qpack, qstart, qcount, B, TP, docs,
+                                       scales, dm, dm_stride, out, N, D,
+                                       stream);
+    case 64:
+      return launch_scan_dim<INT8, 64>(qpack, qstart, qcount, B, TP, docs,
+                                       scales, dm, dm_stride, out, N, D,
+                                       stream);
+    case 128:
+      return launch_scan_dim<INT8, 128>(qpack, qstart, qcount, B, TP, docs,
+                                        scales, dm, dm_stride, out, N, D,
+                                        stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A launcher's tensor route for docs of docs_type (maxsim::DocType) as
+// the C entry points receive them; a call prepared for the warp route
+// (no packed query, TP 0) is refused.
+inline int launch_scan(const void* qpack, const void* qstart,
+                       const void* qcount, int B, int TP, const void* docs,
+                       int docs_type, const float* scales, const uint8_t* dm,
+                       int64_t dm_stride, float* out, int N, int D, int d,
+                       cudaStream_t stream) {
+  if (!qpack || !qstart || !qcount || TP <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qp = static_cast<const __nv_bfloat16*>(qpack);
+  const int* qs = static_cast<const int*>(qstart);
+  const int* qc = static_cast<const int*>(qcount);
+  return docs_type == maxsim::DOC_INT8
+             ? launch_scan_d<true>(qp, qs, qc, B, TP, docs, scales, dm,
+                                   dm_stride, out, N, D, d, stream)
+             : launch_scan_d<false>(qp, qs, qc, B, TP, docs, scales, dm,
+                                    dm_stride, out, N, D, d, stream);
 }
 
 }  // namespace wg

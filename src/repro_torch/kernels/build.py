@@ -45,16 +45,18 @@ SIGNATURES = {
         "maxsim_scan_token_cap": [_I, _I],
     },
     "maxsim_scan_db": {
-        # q, q_mask, docs, docs_type, scales, doc_mask, doc_mask_stride,
-        # out, B, Q, N, D, d, stream
+        # the scan's arguments: q, q_mask, docs, docs_type, scales,
+        # doc_mask, doc_mask_stride, out, B, Q, N, D, d, qpack, qstart,
+        # qcount, TP, stream
         "maxsim_scan_db_launch": [_P, _P, _P, _I, _P, _P, _I64, _P,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     },
     "maxsim_rerank": {
         # rows, q, q_mask, docs, docs_type, scales, doc_mask,
-        # doc_mask_stride, out, B, L, Q, D, d, stream
+        # doc_mask_stride, out, B, L, Q, D, d, then the tensor route's
+        # packed query: qpack, qstart, qcount; stream
         "maxsim_rerank_launch": [_P, _P, _P, _P, _I, _P, _P, _I64, _P,
-                                 _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "pool": {
         # x, x_page_stride, mask [B, S4], pool_mat [n_out, S4], out,

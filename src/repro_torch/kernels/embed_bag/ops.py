@@ -53,7 +53,12 @@ def embed_bag(table: torch.Tensor, indices: torch.Tensor,
     table [V,d] (any float type); indices [B,L] (entries < 0, or where
     ``valid`` is False, are padding); mode "sum" or "mean" (the sum over
     the valid entries divided by max(count, 1)). Indices are clipped to
-    [0, V-1]. Returns [B,d] f32."""
+    [0, V-1]. Returns [B,d] f32.
+
+    Every slot adds weight * row, padding included (weight 0, at its
+    clipped id), as in the reference: a non-finite value in a row that a
+    padded or masked-out slot points at propagates (0 * inf is NaN), on
+    the card and on the CPU alike."""
     if table.ndim != 2 or indices.ndim != 2:
         raise ValueError(f"embed_bag: table must be [V, d] and indices "
                          f"[B, L], got {tuple(table.shape)} and "

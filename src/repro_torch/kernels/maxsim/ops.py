@@ -22,14 +22,20 @@ type, D and d alone; the wrapper asks the scan library which
 ``maxsim_scores_chunked(q, docs, ..., chunk=C)`` is the chunked scan. For
 CUDA tensors with 0 < C < N it promotes itself, as the JAX package's does,
 to ``maxsim_scores_pipelined``: ONE launch of the double-buffered scan
-(``csrc/maxsim_scan_db.cu``). For CPU tensors it runs the plain chunked
-loop ``maxsim_chunked_ref``. ``chunk`` never changes a score.
+(``csrc/maxsim_scan_db.cu``), which on the tensor route launches the
+scan's own tensor-core kernel over the packed query and on the warp route
+its f32 kernel. For CPU tensors it runs the plain chunked loop
+``maxsim_chunked_ref``. ``chunk`` never changes a score.
 
 ``maxsim_rerank(q, docs, rows, ...)`` is the fused gather + MaxSim rerank:
 per-query candidate slot ids in, [B, L] exact MaxSim scores out. For CUDA
 tensors it launches ``csrc/maxsim_rerank.cu``, which reads each
 candidate's rows straight from the corpus (no gathered [B, L, D, d]
-copy); for CPU tensors it runs the plain version ``_rerank_ref``.
+copy): on the tensor route a bf16 wgmma kernel over the packed query's
+valid tokens, 16 per pass (any Q), on the warp route one warp per (query,
+candidate) in f32. For CPU tensors it runs the plain version
+``_rerank_ref``. The db scan and the rerank take the scan's route, asked
+of the scan library (``scan_route``).
 
 ``maxsim_topk_chunked`` is the streamed scan top-k: it scores the corpus
 chunk by chunk and carries a running per-query top-k, so the [B, N] score
@@ -180,9 +186,10 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _check_operand(operand: tuple, B: int, Q: int, d: int, device) -> None:
+def _check_operand(operand: tuple, B: int, Q: int, d: int, device,
+                   what: str = "maxsim_scan") -> None:
     """Raise unless ``operand`` has the layout ``scan_query_operand`` gives
-    a [B, Q, d] query on ``device``. The kernel reads qstart and qcount of
+    a [B, Q, d] query on ``device``. The kernels read qstart and qcount of
     every query and the qpack rows they point at, so an operand built for
     another batch would read out of bounds on the card."""
     qpack, qstart, qcount = operand
@@ -193,19 +200,40 @@ def _check_operand(operand: tuple, B: int, Q: int, d: int, device) -> None:
           and all(t.device == device and t.is_contiguous() for t in operand))
     if not ok:
         raise ValueError(
-            "maxsim_scan: the query operand is not a scan_query_operand of "
+            f"{what}: the query operand is not a scan_query_operand of "
             f"this [{B}, {Q}, {d}] query on {device}")
+
+
+def _tensor_cap(q, docs, what: str) -> int:
+    """The scan kernels' route for ``docs`` as the scan library states it:
+    0 for the warp route, else the tensor route's query tokens per group
+    (``scan_token_cap``), once the query's Q token slots are within that
+    cap and the documents are 16-byte aligned (``ValueError`` otherwise,
+    before any launch)."""
+    d = q.shape[-1]
+    if scan_route(docs.dtype, docs.shape[1], d) != "tensor":
+        return 0
+    cap = scan_token_cap(docs.dtype, d)
+    _check_query_smem(q, what, cap)
+    _check_aligned_16(docs, what)
+    return cap
+
+
+def _check_aligned_16(docs, what: str) -> None:
+    if docs.data_ptr() % 16:
+        raise ValueError(f"{what}: the tensor route reads documents in "
+                         "16-byte copies; docs must be 16-byte aligned")
 
 
 def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
                  scales, cap: int = 0, operand=None) -> torch.Tensor:
     """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db").
-    [B, N] f32 scores (NEG/2 floor). ``cap`` > 0 takes "maxsim_scan"'s
-    tensor route with that many query tokens per group: the launch then
-    reads the packed query operand (``scan_query_operand``; built here
-    unless given); cap 0 is the warp route. Counts one launch of
-    ``counter`` once the launch succeeded; an empty query batch or corpus
-    launches nothing and counts nothing."""
+    [B, N] f32 scores (NEG/2 floor). ``cap`` > 0 takes the tensor route
+    with that many query tokens per group: the launch then reads the
+    packed query operand (``scan_query_operand``; built here unless
+    given); cap 0 is the warp route. Counts one launch of ``counter`` once
+    the launch succeeded; an empty query batch or corpus launches nothing
+    and counts nothing."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales, entry)
@@ -213,15 +241,12 @@ def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
     if B == 0 or N == 0:
         return out
     dm, stride = _mask_arg(doc_mask, N, D, docs.device)
-    extra = []
-    if entry == "maxsim_scan":
-        if cap:
-            if operand is None:
-                operand = scan_query_operand(qf, qm)
-            _check_operand(operand, B, Q, d, docs.device)
-            extra = [t.data_ptr() for t in operand] + [cap]
-        else:
-            extra = [0, 0, 0, 0]
+    extra = [0, 0, 0, 0]
+    if cap:
+        if operand is None:
+            operand = scan_query_operand(qf, qm)
+        _check_operand(operand, B, Q, d, docs.device, entry)
+        extra = [t.data_ptr() for t in operand] + [cap]
     lib = build.library(entry)
     with torch.cuda.device(docs.device):
         rc = getattr(lib, entry + "_launch")(
@@ -253,13 +278,9 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        cap = (scan_token_cap(docs.dtype, d)
-               if scan_route(docs.dtype, D, d) == "tensor" else 0)
-        _check_query_smem(q, "maxsim_scan", cap or warp_query_cap(d))
-        if cap and docs.data_ptr() % 16:
-            raise ValueError("maxsim_scan: the tensor route reads documents "
-                             "in 16-byte copies; docs must be 16-byte "
-                             "aligned")
+        cap = _tensor_cap(q, docs, "maxsim_scan")
+        if not cap:
+            _check_query_smem(q, "maxsim_scan", warp_query_cap(d))
         out = _scan_launch("maxsim_scan", "maxsim_scan_int8"
                            if scales is not None else "maxsim_scan",
                            q, q_mask, docs, doc_mask, scales, cap,
@@ -307,21 +328,27 @@ def maxsim_scores_pipelined(q: torch.Tensor, docs: torch.Tensor,
                             doc_mask: torch.Tensor | None = None,
                             doc_valid: torch.Tensor | None = None,
                             *, chunk: int,
-                            scales: torch.Tensor | None = None
+                            scales: torch.Tensor | None = None,
+                            operand: tuple | None = None
                             ) -> torch.Tensor:
     """The double-buffered streaming scan: for CUDA tensors ONE launch of
-    ``csrc/maxsim_scan_db.cu``, which streams the corpus through a 2-slot
-    shared-memory ring (the copy of tile i+1 in flight while tile i is
-    scored); its staging tile is its own, so ``chunk`` only sets the
-    plain version's chunk. For CPU tensors, ``maxsim_chunked_ref``."""
+    ``csrc/maxsim_scan_db.cu``, which streams the corpus through a ring
+    of shared-memory tiles (the copies of the next tiles in flight while
+    one is scored). Its route is the scan's, as the scan library states
+    it: on the tensor route it launches the scan's tensor-core kernel
+    over the packed query (``operand``, as in ``maxsim_scores``), on the
+    warp route its own f32 kernel. Its tiles are its own, so ``chunk``
+    only sets the plain version's chunk and changes no score. For CPU
+    tensors, ``maxsim_chunked_ref``."""
     B, Q, _ = q.shape
     if not DSP.on_cuda(docs):
         return maxsim_chunked_ref(q, docs, q_mask, doc_mask, doc_valid,
                                   chunk=chunk, scales=scales)
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
+    cap = _tensor_cap(q, docs, "maxsim_scan_db")
     out = _scan_launch("maxsim_scan_db", "maxsim_scan_db", q, q_mask, docs,
-                       doc_mask, scales)
+                       doc_mask, scales, cap, operand if cap else None)
     if doc_valid is not None:
         out = out.masked_fill(~doc_valid[None, :], NEG)
     return out
@@ -371,25 +398,40 @@ def _rerank_ref(q, docs, rows, q_mask, doc_mask, scales=None):
     return torch.stack(out) if out else q.new_zeros((0, rows.shape[1]))
 
 
-def _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales) -> torch.Tensor:
-    """Launch ``maxsim_rerank_launch``: [B, L] f32 scores (no floor)."""
+def _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales,
+                 operand) -> torch.Tensor:
+    """Launch ``maxsim_rerank_launch``: [B, L] f32 scores (no floor). The
+    route is the scan library's rule for the documents: the tensor route
+    reads the packed query (``scan_query_operand``, built here unless
+    given) and takes any Q; the warp route holds Q token slots up to
+    ``warp_query_cap``."""
     B, Q, d = q.shape
     N, D, _ = docs.shape
     L = rows.shape[1]
-    _check_query_smem(q, "maxsim_rerank", warp_query_cap(d))
+    tensor = scan_route(docs.dtype, D, d) == "tensor"
+    if not tensor:
+        _check_query_smem(q, "maxsim_rerank", warp_query_cap(d))
     qf, qm, dtype, sc = _kernel_inputs(q, q_mask, docs, scales,
                                        "maxsim_rerank")
+    if tensor:
+        _check_aligned_16(docs, "maxsim_rerank")
     out = torch.empty((B, L), dtype=torch.float32, device=docs.device)
     if B == 0 or L == 0:
         return out
     rows = rows.to(device=docs.device, dtype=torch.int32).contiguous()
     dm, stride = _mask_arg(doc_mask, N, D, docs.device)
+    extra = [0, 0, 0]
+    if tensor:
+        if operand is None:
+            operand = scan_query_operand(qf, qm)
+        _check_operand(operand, B, Q, d, docs.device, "maxsim_rerank")
+        extra = [t.data_ptr() for t in operand]
     lib = build.library("maxsim_rerank")
     with torch.cuda.device(docs.device):
         rc = lib.maxsim_rerank_launch(
             rows.data_ptr(), qf.data_ptr(), qm.data_ptr(), docs.data_ptr(),
             dtype, _ptr(sc), dm.data_ptr(), stride, out.data_ptr(), B, L, Q,
-            D, d, torch.cuda.current_stream().cuda_stream)
+            D, d, *extra, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "maxsim_rerank")
     DSP.record("maxsim_rerank_int8" if scales is not None
                else "maxsim_rerank")
@@ -400,7 +442,8 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
                   q_mask: torch.Tensor | None = None,
                   doc_mask: torch.Tensor | None = None,
                   ok: torch.Tensor | None = None,
-                  *, scales: torch.Tensor | None = None) -> torch.Tensor:
+                  *, scales: torch.Tensor | None = None,
+                  operand: tuple | None = None) -> torch.Tensor:
     """Fused gather + exact MaxSim rerank: q [B,Q,d], docs [N,D,d] (float,
     or int8 codes with ``scales`` [N,D]), rows [B,L] candidate slot ids ->
     scores [B,L] f32.
@@ -409,7 +452,9 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
     caller actually owns — the rest score NEG so they can never win a
     top-k slot on merit. ``doc_mask`` is [N,D], a broadcast [1,D] row, or
     None (a broadcast all-ones row). Matryoshka stores (docs narrower than
-    q) score against the matching query prefix."""
+    q) score against the matching query prefix. ``operand`` is a
+    ``scan_query_operand`` of that (prefix) query for the tensor route,
+    built once for repeated calls; one of another shape is refused."""
     B, Q, d = q.shape
     N, D, dd = docs.shape
     if dd < d:                                # Matryoshka rerank stage
@@ -418,7 +463,8 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
     if DSP.on_cuda(docs):
-        out = _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales)
+        out = _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales,
+                           operand)
     else:
         out = _rerank_ref(q, docs, rows, q_mask, doc_mask, scales)
     if ok is not None:

@@ -137,3 +137,48 @@ def test_cpu_call_counts_no_launch():
     _, table, idx = _inputs(6, 50, 16, 4, 3)
     embed_bag(torch.from_numpy(table), torch.from_numpy(idx))
     assert all(DSP.launch_count(k) == 0 for k in DSP.KERNELS)
+
+
+def _non_finite_inputs(seed):
+    """A table whose row 0 (where -1 padding points once clipped) holds
+    inf, -inf and NaN, and whose row 7 holds inf; ids with -1 padding and
+    a ``valid`` mask that masks out slots pointing at row 7."""
+    rng, table, idx = _inputs(seed, 40, 16, 12, 6, lo=1)
+    table[0, :3] = (np.inf, -np.inf, np.nan)
+    table[7, 3] = np.inf
+    idx[rng.random(idx.shape) < 0.25] = -1
+    idx[::3, 2] = 7
+    valid = idx >= 0
+    valid[::3, 2] = False                  # masked-out slots on row 7
+    valid[1, 1] = True                     # a kept -1: reads row 0 at w=1
+    return table, idx, valid
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_non_finite_rows_under_zero_weight_slots(impl, mode, with_valid):
+    """A zero-weight slot still adds 0 * row, as repro's kernel and
+    reference do: inf or NaN in a row under padded or masked-out slots
+    makes those bags' columns NaN in the same places; every other entry
+    agrees at the usual tolerance. The plain version and the op agree."""
+    table, idx, valid = _non_finite_inputs(9)
+    vv = valid if with_valid else None
+    want = np.asarray(jax_embed_bag(
+        jnp.asarray(table), jnp.asarray(idx),
+        None if vv is None else jnp.asarray(vv), mode=mode, impl=impl),
+        np.float32)
+    got = embed_bag(torch.from_numpy(table), torch.from_numpy(idx),
+                    None if vv is None else torch.from_numpy(vv),
+                    mode=mode).numpy()
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
+    # the plain version on the op's weights and clipped ids
+    w = torch.from_numpy((idx >= 0) if vv is None else vv).float()
+    if mode == "mean":
+        w = w / w.sum(-1, keepdim=True).clamp_min(1.0)
+    ref = embed_bag_ref(torch.from_numpy(table),
+                        torch.from_numpy(idx).clamp(0, 39), w).numpy()
+    np.testing.assert_array_equal(np.isnan(ref), np.isnan(want))
+    np.testing.assert_allclose(ref, want, equal_nan=True, **TOL)
