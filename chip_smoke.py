@@ -81,6 +81,40 @@ line) at the first phase that goes wrong:
 4f. dup     the phase-4 pages plus a copy of the first 256 (exact ties):
             the routed 2-stage kernel cascade at full probe must give the
             exhaustive ids exactly;
+4g. ingest  the phase-4 pages through ``Retriever.ingest`` (the fused
+            write: index the bucket-padded batch with the pooling kernel,
+            one slice copy per array into the segment tail) in batches of
+            64 into a store seeded with the first batch: every segment
+            array must equal ``IngestPipeline.index`` + ``add_pages`` of
+            the same batches bit for bit, no batch after the first of its
+            bucket may build anything (``retrieval.tracing``), and the
+            2-stage kernel cascade over it must give phase 4's NDCG@10;
+            prints pages/s of both paths, and ``index`` of 129 pages
+            (padded to 256) against the same pages unpadded and against
+            128 pages, the cost of bucket padding; then ``serve.py
+            --ingest-pipeline`` (512 pages, 8 batches of 64) must report
+            0 steady-state builds;
+4h. front   a ``ServingFrontend`` (max_batch 16, max_q 32, flush 2 ms,
+            warmed) over the 2-stage kernel cascade: (s) the benchmark
+            queries all due at once (the served rate is the frontend's
+            capacity in this run) and (a) replayed open loop at half that
+            capacity must give phase 4's NDCG@10; (b) the same queries cut
+            to 4-16
+            token slots (lengths drawn from ``--seed``), replayed the same
+            way: every result must equal a per-request
+            ``Retriever.search`` of the cut query bit for bit, and some
+            dispatched block must hold padded rows (no valid token); no
+            build over the traffic; prints p50/p99 latency, dispatches and
+            the padded-row share; then ``serve.py --traffic 300 --int8
+            --chunk 256`` (512 pages; the double-buffered scan) must
+            report 0 builds;
+4i. mrl     ``add_truncated_stage(..., "mean_pooling", 32)`` over the
+            phase-4 pages: the cascade (mean_pooling_mrl32, 128),
+            (initial, 10) through the kernels (the d=32 scan on the
+            tensor route) must give the plain path's ids apart from
+            near-exact ties and its metrics to 3 decimals; then
+            ``examples/quickstart_torch.py`` runs on the card and on the
+            CPU, and its ``[search]`` lines must be equal;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -1366,6 +1400,347 @@ def duplicate_routed_path(args, dev, main) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the fused ingest
+# ---------------------------------------------------------------------------
+
+def same_segments(a, b, what: str) -> int:
+    """Every segment array of stores ``a`` and ``b`` equal bit for bit
+    (never-claimed slots included), and the same fills and page ids.
+    Returns the number of arrays compared."""
+    check(a.capacities == b.capacities, f"{what}: capacities "
+          f"{a.capacities} != {b.capacities}")
+    n = 0
+    for sa, sb in zip(a.segments, b.segments):
+        check(sa.n_docs == sb.n_docs and np.array_equal(sa.doc_ids,
+                                                        sb.doc_ids),
+              f"{what}: fills or page ids differ")
+        check(set(sa.vectors) == set(sb.vectors), f"{what}: key sets differ")
+        for k in sa.vectors:
+            check(sa.vectors[k].dtype == sb.vectors[k].dtype
+                  and bool(torch.equal(sa.vectors[k], sb.vectors[k])),
+                  f"{what}: {k} differs")
+            n += 1
+    return n
+
+
+def ingest_path(args, dev, main) -> dict:
+    """The phase-4 pages through ``Retriever.ingest`` in batches of 64 (the
+    fused write, pooling kernel) into a store seeded with the first batch,
+    against ``IngestPipeline.index`` + ``add_pages`` of the same batches
+    on the same pipeline; then the 2-stage kernel cascade over the
+    ingested store, and the serve CLI's fused-ingest mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.launch import serve
+    from repro_torch.retrieval import tracing
+    from repro_torch.retrieval.ingest import IngestPipeline, batch_bucket
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.segments import bucket_capacity
+
+    bench = main["bench"]
+    tt = bench.token_types
+    n, step = len(bench.pages), 64
+    pipe = IngestPipeline.for_config(get_config("colpali"), device=dev)
+    check(pipe.pool_path == "fused-cuda", f"pool path {pipe.pool_path}")
+    cap = bucket_capacity(n)
+    DSP.reset_counts()
+    fused = Retriever(pipe.index(bench.pages[:step], tt), capacity=cap,
+                      device=dev, ingest=pipe)
+    seen, deltas = set(), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(step, n, step):
+        bucket = batch_bucket(len(bench.pages[i:i + step]))
+        before = tracing.trace_count()
+        fused.ingest(bench.pages[i:i + step], tt)
+        if bucket in seen:
+            deltas.append(tracing.trace_count() - before)
+        seen.add(bucket)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    check(counts["pooling"] > 0, "the fused ingest never launched the "
+          "pooling kernel")
+    check(deltas and not any(deltas), "fused ingest: a batch after the "
+          f"first of its bucket built something (deltas {sorted(set(deltas))})")
+    legacy = Retriever(pipe.index(bench.pages[:step], tt), capacity=cap,
+                       device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(step, n, step):
+        legacy.upsert(pipe.index(bench.pages[i:i + step], tt))
+    torch.cuda.synchronize()
+    t_legacy = time.perf_counter() - t0
+    n_arrays = same_segments(fused.store, legacy.store,
+                             "fused ingest vs index + add_pages")
+    del legacy
+    pad = padding_cost(pipe, bench, dev)
+    pps, pps_legacy = (n - step) / t_fused, (n - step) / t_legacy
+    log(f"[ingest] {n - step} pages in batches of {step} (bucket "
+        f"{sorted(seen)}) into capacity {cap}: fused Retriever.ingest "
+        f"{pps:.1f} pages/s, index + add_pages {pps_legacy:.1f} pages/s "
+        f"(host pages -> card included); {n_arrays} segment arrays equal "
+        f"bit for bit; build delta 0 over {len(deltas)} batches after the "
+        f"first; launches {used(counts)}")
+    two = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    ids, sc, dt, nq = run_cascade(fused, bench, two, args.batch)
+    m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+    want = main["results"][2]["metrics"]
+    check(abs(m["ndcg@10"] - want["ndcg@10"]) < 5e-5,
+          f"ingested store: 2-stage ndcg@10 {m['ndcg@10']:.4f} != phase 4's "
+          f"{want['ndcg@10']:.4f}")
+    log(f"[ingest] 2-stage kernels over the ingested store: QPS "
+        f"{nq / dt:.1f}, ndcg@10={m['ndcg@10']:.4f} (phase 4 "
+        f"{want['ndcg@10']:.4f})")
+    del fused
+    # the serve CLI's fused-ingest mode
+    DSP.reset_counts()
+    out = serve.main(["--pages", "512", "--queries", "60", "--stages", "2",
+                      "--use-kernel", "--rerank-kernel", "--ingest-batches",
+                      "8", "--ingest-batch-size", "64", "--ingest-pipeline"])
+    c = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    check(out["builds"] == 0, "serve --ingest-pipeline: steady-state builds "
+          f"{out['builds']}")
+    for k in ("pooling", "maxsim_scan", "maxsim_rerank"):
+        check(c[k] > 0, f"serve --ingest-pipeline never launched {k}")
+    log(f"[ingest] serve.py --ingest-pipeline: {out['pages_per_s']:.1f} "
+        f"pages/s, search-after-ingest QPS {out['qps']:.1f}, builds 0; "
+        f"launches {used(c)}")
+    return dict(pps=pps, pps_legacy=pps_legacy, counts=counts,
+                serve=out, pad=pad)
+
+
+def padding_cost(pipe, bench, dev) -> dict:
+    """What bucket padding costs ``index``: 129 pages (padded to the
+    256-row bucket) against the same pages indexed unpadded (the body on
+    129 rows) and against 128 pages (a bucket size, no padding). Pages
+    are on the card first, so the times are the card's work."""
+    tt = bench.token_types
+    pages = {n: torch.as_tensor(bench.pages[:n]).to(dev) for n in (128, 129)}
+
+    def unpadded(x):
+        return pipe._index_arrays(*pipe._admit(x, tt), None)
+
+    t = {"129 padded to 256": time_ms(lambda: pipe.index(pages[129], tt)),
+         "129 unpadded": time_ms(lambda: unpadded(pages[129])),
+         "128 (a bucket)": time_ms(lambda: pipe.index(pages[128], tt))}
+    log("[ingest] bucket padding's cost to IngestPipeline.index, ms (median "
+        "of 10, pages on the card): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) +
+        f"; padded / unpadded {t['129 padded to 256'] / t['129 unpadded']:.3f}")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the serving frontend
+# ---------------------------------------------------------------------------
+
+def frontend_path(args, dev, main) -> dict:
+    """The 2-stage kernel cascade behind a ``ServingFrontend`` over the
+    phase-4 store: (s) the benchmark queries all due at once, whose served
+    rate is the frontend's capacity, (a) the same queries replayed open
+    loop at half that capacity, (b) the same queries cut to 4-16 token slots,
+    each held bit for bit against a per-request ``Retriever.search``; then
+    the serve CLI's traffic mode over an int8 store with the chunked
+    (double-buffered) scan."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.launch import serve
+    from repro_torch.retrieval import tracing
+    from repro_torch.retrieval.frontend import replay_open_loop
+
+    r, bench = main["retriever"], main["bench"]
+    two = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    fe = r.frontend(two, max_batch=16, max_q=32, flush_ms=2.0)
+    t0 = time.perf_counter()
+    n_warm = fe.warm()
+    log(f"[frontend] warmed {n_warm} buckets (B {fe.b_buckets} x Q "
+        f"{fe.q_buckets}) in {time.perf_counter() - t0:.2f}s")
+    nq = len(bench.queries)
+    want = main["results"][2]["metrics"]["ndcg@10"]
+    DSP.reset_counts()
+    builds0 = tracing.trace_count()
+    res = {}
+    reqs = [(bench.queries[j], bench.query_mask[j]) for j in range(nq)]
+
+    def replay(reqs, rate: float, seed: int, what: str) -> tuple:
+        st0 = dict(fe.stats)
+        served, wall = replay_open_loop(fe, reqs, rate, seed=seed)
+        check(len(served) == nq and all(p.error is None for p in served),
+              f"frontend ({what}): a request failed or was dropped")
+        return served, frontend_stats(
+            served, wall, {k: fe.stats[k] - st0[k] for k in fe.stats}, rate)
+
+    def ndcg(served, what: str) -> dict:
+        ids = np.concatenate([p.ids for p in served])
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        check(abs(m["ndcg@10"] - want) < 5e-5, f"frontend ({what}) ndcg@10 "
+              f"{m['ndcg@10']:.4f} != phase 4's 2-stage {want:.4f}")
+        return dict(ndcg=m["ndcg@10"], ids_equal=int(
+            (ids == main["results"][2]["ids"]).all(axis=1).sum()))
+
+    # (s) saturation: every request due at once; the frontend's capacity
+    served, res["s"] = replay(reqs, 1e9, args.seed, "saturated")
+    res["s"]["rate"] = None
+    res["s"].update(ndcg(served, "saturated"))
+    rate = 0.5 * res["s"]["qps"]
+    # (a) whole benchmark queries, open loop at half that capacity
+    served, res["a"] = replay(reqs, rate, args.seed, "open loop")
+    res["a"].update(ndcg(served, "open loop"))
+    # (b) the same queries cut to 4..16 token slots
+    rng = np.random.default_rng(args.seed)
+    cut = rng.integers(4, 17, size=nq)
+    reqs = [(bench.queries[j, :cut[j]], bench.query_mask[j, :cut[j]])
+            for j in range(nq)]
+    served, res["b"] = replay(reqs, rate, args.seed + 1, "cut queries")
+    builds = tracing.trace_count() - builds0
+    check(res["b"]["padded_share"] > 0,
+          "frontend (cut queries): no dispatched block held a padded row")
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    for k in ("maxsim_scan", "maxsim_rerank"):
+        check(counts[k] > 0, f"frontend: kernel {k} was never launched")
+    check(builds == 0, f"frontend traffic built {builds} libraries or "
+          "search functions after warm()")
+    for (q, qm), pr in zip(reqs, served):
+        s, i = r.search(q[None], qm[None], stages=two)
+        check(np.array_equal(pr.ids, i) and np.array_equal(
+            pr.scores, s.float().cpu().numpy()),
+            "frontend: a micro-batched result differs from the per-request "
+            "Retriever.search of the same cut query")
+    for part, what in (("s", "benchmark queries, all due at once"),
+                       ("a", "benchmark queries, open loop at 0.5x (s)"),
+                       ("b", "cut to 4-16 token slots, open loop at 0.5x "
+                             "(s)")):
+        x = res[part]
+        log(f"[frontend] ({part}) {nq} {what}: offered {offered(x)}, "
+            f"served {x['qps']:.1f} req/s, p50 {x['p50']:.3f} ms, "
+            f"p99 {x['p99']:.3f} ms, {x['dispatches']} dispatches, "
+            f"padded-row share {x['padded_share']:.4f}")
+    log(f"[frontend] (s, a) ndcg@10={res['a']['ndcg']:.4f} == phase 4's "
+        f"2-stage ({res['s']['ids_equal']}, {res['a']['ids_equal']}/{nq} id "
+        f"rows equal); (b) every "
+        f"result == per-request Retriever.search bit for bit; builds over "
+        f"traffic {builds}; launches {used(counts)}")
+    # the serve CLI's traffic mode: int8 store, chunked scan
+    DSP.reset_counts()
+    out = serve.main(["--pages", "512", "--queries", "60", "--stages", "2",
+                      "--use-kernel", "--rerank-kernel", "--int8", "--chunk",
+                      "256", "--traffic", "300"])
+    c = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    check(out["builds"] == 0, f"serve --traffic: builds {out['builds']}")
+    for k in ("maxsim_scan_db", "maxsim_rerank"):
+        check(c[k] > 0, f"serve --traffic --int8 --chunk never launched {k}")
+    log(f"[frontend] serve.py --traffic --int8 --chunk 256: p50 "
+        f"{out['p50']:.3f} ms, p99 {out['p99']:.3f} ms, QPS "
+        f"{out['qps']:.1f}; launches {used(c)}")
+    return dict(res=res, counts=counts, serve=out)
+
+
+def offered(x: dict) -> str:
+    return "all at once" if x["rate"] is None else f"{x['rate']:.1f} req/s"
+
+
+def frontend_stats(served, wall: float, st: dict, rate: float) -> dict:
+    lat = np.asarray([p.latency for p in served]) * 1e3
+    rows = st["rows_real"] + st["rows_padded"]
+    return dict(p50=float(np.percentile(lat, 50)),
+                p99=float(np.percentile(lat, 99)), qps=len(served) / wall,
+                dispatches=st["dispatches"], rate=rate,
+                padded_share=st["rows_padded"] / max(rows, 1))
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: Matryoshka stage and the quickstart
+# ---------------------------------------------------------------------------
+
+def matryoshka_quickstart_path(args, dev, main) -> dict:
+    """``add_truncated_stage(..., "mean_pooling", 32)`` over the phase-4
+    pages and the cascade (mean_pooling_mrl32, 128), (initial, 10) through
+    the kernels against the plain path; then
+    ``examples/quickstart_torch.py`` on the card and on the CPU."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.core import multistage as MST
+    from repro_torch.core.matryoshka import add_truncated_stage
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.kernels.maxsim import ops as KOPS
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.store import VectorStore
+
+    bench = main["bench"]
+    base = base_store(main)
+    r = Retriever(VectorStore(add_truncated_stage(base.vectors,
+                                                  "mean_pooling", 32),
+                              base.n_docs), device=dev)
+    vec = r.store.vectors["mean_pooling_mrl32"]
+    route = KOPS.scan_route(vec.dtype, vec.shape[1], vec.shape[2])
+    check(route == "tensor", f"the d=32 scan takes the {route} route")
+    mrl = (MST.Stage("mean_pooling_mrl32", 128), MST.Stage("initial", 10))
+    kern = MST.with_rerank_policy(MST.with_scan_policy(mrl, use_kernel=True),
+                                  rerank_kernel=True)
+    DSP.reset_counts()
+    ids, sc, dt, nq = run_cascade(r, bench, kern, args.batch)
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    for k in ("maxsim_scan", "maxsim_rerank"):
+        check(counts[k] > 0, f"MRL32 cascade: kernel {k} was never launched")
+    plain = MST.with_scan_policy(mrl, use_kernel=False, chunk=256)
+    ids_p, sc_p, dt_p, _ = run_cascade(r, bench, plain, args.batch)
+    swaps = compare_rankings(ids, sc, ids_p, sc_p, "MRL32 kernel vs plain")
+    m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+    mp = evaluate_ranking(ids_p, bench.qrels, ks=(5, 10))
+    for k in m:
+        check(abs(m[k] - mp[k]) < 5e-4, f"MRL32 {k}: kernel {m[k]:.4f} != "
+              f"plain {mp[k]:.4f} to 3 decimals")
+    log(f"[mrl] {tuple(vec.shape)} {vec.dtype} (scan route {route}): "
+        f"(mean_pooling_mrl32, 128), (initial, 10) kernels QPS "
+        f"{nq / dt:.1f}, plain QPS {nq / dt_p:.1f}; kernel == plain ids "
+        f"({swaps} tie swaps); " + "  ".join(f"{k}={v:.4f}"
+                                             for k, v in m.items())
+        + f" (2-stage mean_pooling ndcg@10 "
+        f"{main['results'][2]['metrics']['ndcg@10']:.4f}); launches "
+        f"{used(counts)}")
+    del r
+    # the quickstart, on the card and on the CPU
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    lines, secs = {}, {}
+    DSP.reset_counts()
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            qs.main(["--device", device])
+        secs[device] = time.perf_counter() - t0
+        lines[device] = buf.getvalue().splitlines()
+        if device == "cuda":
+            qcounts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    for k in ("maxsim_scan", "maxsim_rerank"):
+        check(qcounts[k] > 0, f"quickstart on the card never launched {k}")
+    search = {d: [ln for ln in v if ln.startswith("[search]")]
+              for d, v in lines.items()}
+    check(len(search["cuda"]) == 3 and search["cuda"] == search["cpu"],
+          f"quickstart metric lines differ: {search}")
+    check(any("steady-state retraces: 0" in ln for ln in lines["cuda"]),
+          "quickstart on the card: steady-state builds")
+    for ln in lines["cuda"]:
+        log(f"[quickstart] {ln}")
+    log(f"[quickstart] card run {secs['cuda']:.1f}s, CPU run "
+        f"{secs['cpu']:.1f}s: the [search] lines are equal; card launches "
+        f"{used(qcounts)}")
+    return dict(metrics=m, qps=nq / dt, plain_qps=nq / dt_p, counts=counts,
+                quickstart=search["cuda"], quickstart_counts=qcounts)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -1696,6 +2071,9 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=300)
     ap.add_argument("--batch", type=int, default=32,
                     help="queries per search call")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the frontend phase's arrivals and query "
+                         "cuts")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1747,6 +2125,9 @@ def main() -> None:
     route_res = routed_path(args, dev, main_res)
     dtype_res = dtype_path(args, dev, main_res)
     dup_res = duplicate_routed_path(args, dev, main_res)
+    ingest_res = ingest_path(args, dev, main_res)
+    fe_res = frontend_path(args, dev, main_res)
+    mrl_res = matryoshka_quickstart_path(args, dev, main_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
@@ -1807,6 +2188,22 @@ def main() -> None:
             f"{res['recall_vs_ex']:.4f}, "
             f"ndcg@10={res['metrics']['ndcg@10']:.4f} "
             f"recall@10={res['metrics']['recall@10']:.4f}")
+    log(f"[summary] fused ingest {ingest_res['pps']:.1f} pages/s, "
+        f"index + add_pages {ingest_res['pps_legacy']:.1f} pages/s "
+        "(batches of 64, bit-for-bit equal segments)")
+    for part, x in fe_res["res"].items():
+        log(f"[summary] frontend ({part}) offered {offered(x)}, "
+            f"served {x['qps']:.1f} req/s: p50 "
+            f"{x['p50']:.3f} ms, p99 {x['p99']:.3f} ms, padded-row share "
+            f"{x['padded_share']:.4f}, {x['dispatches']} dispatches")
+    log(f"[summary] MRL32 2-stage: kernel QPS {mrl_res['qps']:.1f}, plain "
+        f"QPS {mrl_res['plain_qps']:.1f}, "
+        f"ndcg@10={mrl_res['metrics']['ndcg@10']:.4f}")
+    new_launches = {name: {k: v for k, v in res["counts"].items() if v}
+                    for name, res in (("ingest", ingest_res),
+                                      ("frontend", fe_res),
+                                      ("mrl", mrl_res))}
+    log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -143,26 +143,28 @@ def smooth_same_length(rows: torch.Tensor, kind: str = "gaussian",
 # §2.3.3 adaptive row-mean pooling for dynamic resolution
 # ---------------------------------------------------------------------------
 
-def adaptive_row_pool(rows: torch.Tensor, h_eff: int, t_max: int) -> tuple:
-    """Down-sample the first ``h_eff`` rows to at most ``t_max`` outputs.
+def adaptive_row_pool(rows: torch.Tensor, h_eff, t_max: int) -> tuple:
+    """Down-sample up to ``h_eff`` valid rows to at most ``t_max`` outputs.
 
-    ``rows`` is [..., H_max, d]; ``h_eff`` is one static row count for the
-    whole batch (a per-page ``h_eff`` is not ported yet). Rows go to
-    evenly spaced bins ``b(j) = floor(j * T / h)`` with
-    ``T = min(h, t_max)``; pages with h_eff < t_max are NOT upsampled:
-    trailing bins are empty and masked.
+    ``rows`` is [..., H_max, d] with the first ``h_eff`` rows of each page
+    valid. ``h_eff`` is one row count for every page (an int) or a per-page
+    int tensor of ``rows``' leading shape (e.g. [B], the height each page's
+    crop gives). Rows go to evenly spaced bins ``b(j) = floor(j * T / h)``
+    with ``T = min(h, t_max)``, rows past ``h`` to an overflow bin that is
+    dropped; pages with h_eff < t_max are NOT upsampled: trailing bins are
+    empty and masked.
 
-    Returns (pooled [..., t_max, d], out_mask [t_max] bool).
+    Returns (pooled [..., t_max, d], out_mask [t_max] bool for an int
+    ``h_eff``, else [..., t_max]).
     """
-    h_max = rows.shape[-2]
-    h = int(h_eff)
-    t = min(h, t_max)
-    j = torch.arange(h_max, device=rows.device)
-    bins = torch.where(j < h, (j * t) // max(h, 1), t_max)   # overflow bin
-    one_hot = (bins[:, None] == torch.arange(t_max, device=rows.device)
-               [None, :]).to(rows.dtype)
-    num = torch.einsum("...jd,jt->...td", rows, one_hot)
-    cnt = one_hot.sum(dim=0)                                  # [t_max]
+    j = torch.arange(rows.shape[-2], device=rows.device)
+    h = torch.as_tensor(h_eff, device=rows.device).long()[..., None]
+    t = h.clamp_max(t_max)
+    bins = torch.where(j < h, (j * t) // h.clamp_min(1), t_max)  # [.., H]
+    one_hot = (bins[..., :, None] == torch.arange(
+        t_max, device=rows.device)).to(rows.dtype)               # [.., H, T]
+    num = torch.einsum("...jd,...jt->...td", rows, one_hot)
+    cnt = one_hot.sum(dim=-2)                                 # [..., t_max]
     pooled = num / cnt.clamp_min(1.0)[..., :, None]
     return pooled, cnt > 0
 
@@ -185,12 +187,14 @@ def global_pool(x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def pool_page(cfg, patches: torch.Tensor,
-              mask: torch.Tensor | None = None) -> tuple:
+              mask: torch.Tensor | None = None, h_eff=None) -> tuple:
     """Apply the model-aware pooling stack for a RetrieverConfig.
 
     ``patches`` holds visual tokens only ([..., n_patches, d]). Returns
-    (pooled [..., n_pooled, d], pooled_mask [..., n_pooled] bool). The
-    dynamic geometry pools at the full static grid height.
+    (pooled [..., n_pooled, d], pooled_mask [..., n_pooled] bool).
+    ``h_eff`` (dynamic geometry only) is the effective grid height: an
+    int, or a per-page int tensor of the leading shape; None pools at the
+    full static grid height.
     """
     lead = patches.shape[:-2]
     if cfg.geometry == "tiles":
@@ -211,8 +215,9 @@ def pool_page(cfg, patches: torch.Tensor,
         rows = row_mean_pool(patches, cfg.grid_h, cfg.grid_w, mask)
         if cfg.smooth in ("gaussian", "triangular"):
             rows = smooth_same_length(rows, cfg.smooth, k=3)
-        pooled, pm = adaptive_row_pool(rows, cfg.grid_h, cfg.max_rows)
-        pmask = pm.expand(lead + pm.shape)
+        h = cfg.grid_h if h_eff is None else h_eff
+        pooled, pm = adaptive_row_pool(rows, h, cfg.max_rows)
+        pmask = pm.expand(lead + pm.shape[-1:])
     else:
         raise ValueError(cfg.geometry)
     # pooled vectors are re-L2-normalised so MaxSim stays cosine-like
@@ -221,7 +226,10 @@ def pool_page(cfg, patches: torch.Tensor,
     return pooled, pmask
 
 
-def pool_pages_batch(cfg, patches: torch.Tensor, mask: torch.Tensor) -> tuple:
-    """``pool_page`` over a batch [B, n_patches, d] + mask [B, n_patches]:
-    the one batch entry point of the index paths' reference mode."""
-    return pool_page(cfg, patches, mask)
+def pool_pages_batch(cfg, patches: torch.Tensor, mask: torch.Tensor,
+                     h_eff: torch.Tensor | None = None) -> tuple:
+    """``pool_page`` over a batch [B, n_patches, d] + mask [B, n_patches]
+    with an optional per-page effective height ``h_eff`` [B] int (None:
+    every page at the full static grid height): the one batch entry point
+    of the index paths' reference mode."""
+    return pool_page(cfg, patches, mask, h_eff)

@@ -73,6 +73,7 @@ SIGNATURES = {
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}          # name -> compiler output of the last build
+LOADED: list = []             # name per cache miss of library(), in order
 
 
 def _nvcc() -> str:
@@ -127,10 +128,13 @@ def build_all() -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (building all libraries first if any is
-    missing), with ``argtypes``/``restype`` set on its entry points."""
+    missing), with ``argtypes``/``restype`` set on its entry points. A
+    cache miss (a build or a load) appends ``name`` to ``LOADED``, which
+    ``retrieval.tracing`` counts."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    LOADED.append(name)
     path = _lib_path(name)
     if not path.exists():
         build_all()

@@ -45,11 +45,12 @@ from repro_torch.core import maxsim as MS
 from repro_torch.core.multistage import DEFAULT_SCAN_TOPK_CHUNK, Stage, top_k
 from repro_torch.kernels.maxsim import ops as KOPS
 from repro_torch.kernels.maxsim.ref import dequantize
-from repro_torch.retrieval.store import (as_filter_arrays,
+from repro_torch.retrieval.store import (VALIDITY_KEY, as_filter_arrays,
                                          effective_validity, filter_words,
                                          rerank_arrays, routing_arrays,
                                          scan_arrays)
 from repro_torch.retrieval.topk import merge_topk
+from repro_torch.retrieval.tracing import record_trace
 
 NEG = -1e30
 INT8_REF_CHUNK = 1024      # plain int8 scan chunk when the stage sets none
@@ -254,8 +255,12 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
     Returns fn(stores: tuple[dict, ...], q [B,Q,d], q_mask [B,Q],
     fspec=None) -> (scores [B,k], global slot ids [B,k]). ``fspec`` is a
     ``store.FilterSpec`` (or a packed triple, or None for the
-    match-everything filter), packed here for the stores' device.
+    match-everything filter), packed here for the stores' device. Each
+    build counts one ``tracing.record_trace`` (``Retriever`` caches the
+    function per stages and store layout, so steady-state serving builds
+    none).
     """
+    record_trace()
     stages = tuple(stages)
     capacities = tuple(capacities)
     if not capacities:
@@ -294,3 +299,31 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
         return scores, cand
 
     return search
+
+
+def make_search_fn(stages: tuple, n_docs: int):
+    """The cascade over ONE raw store dict of ``n_docs`` rows (no
+    segments): fn(store_vectors: dict, q [B,Q,d], q_mask [B,Q],
+    fspec=None) -> (scores [B,k], ids [B,k]), ids being row numbers.
+    ``fspec`` as in ``make_segmented_search_fn``, applied against
+    whichever store companions the dict carries. A store without
+    ``doc_valid`` is all live; one with it (a ragged capacity-padded
+    store) keeps its own.
+
+    This is the single-device body: a store of one device is its own
+    capacity, so there is no shard padding, and the store is served as
+    one segment of ``n_docs`` slots."""
+    body = make_segmented_search_fn(stages, (n_docs,))
+
+    def fn(store, q, q_mask=None, fspec=None):
+        dev = next(iter(store.values())).device
+        if VALIDITY_KEY not in store:
+            store = dict(store)
+            store[VALIDITY_KEY] = torch.ones((n_docs,), dtype=torch.bool,
+                                             device=dev)
+        q = torch.as_tensor(q).to(dev)
+        q_mask = (torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+                  if q_mask is None else torch.as_tensor(q_mask).to(dev))
+        return body((store,), q, q_mask.bool(), fspec)
+
+    return fn

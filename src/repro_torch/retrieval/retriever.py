@@ -2,15 +2,26 @@
 
 ``Retriever`` wraps the engine (``repro_torch.retrieval.engine``) over a
 SEGMENTED, capacity-padded corpus (``repro_torch.retrieval.segments``) on
-one device.
+one device, and caches the cascade function per ``(stages, segment
+layout)`` — not per fill level.
 
     store = build_store(cfg, pages, token_types)         # on cuda
-    r = Retriever(store, capacity=4096)                  # ingest headroom
+    r = Retriever(store, capacity=4096,                  # ingest headroom
+                  ingest=IngestPipeline.for_config(cfg))
     scores, ids = r.search(q, q_mask, stages=MST.two_stage(256, 100))
     r.upsert(build_store(cfg, new_pages, token_types), tenant=2, tags=(5,))
+    r.ingest(raw_pages, token_types)                     # fused write
     r.delete([3, 17])
     scores, ids = r.search(q, q_mask, stages=stages,
                            filter=FilterSpec(tenant=2, require_tags=(5,)))
+
+The no-retrace contract (``retrieval.tracing``): ``upsert``/``ingest``
+into preallocated padding and ``delete`` keep the layout, so steady-state
+mutation and search build nothing; a new segment or ``compact()``
+changes the layout and the next search builds its function once
+(``trace_count()`` deltas show it). Query shapes cost nothing in eager
+PyTorch; ``frontend()`` adds shape buckets and micro-batching for
+traffic.
 
 Scan-dispatch policy (``Stage.use_kernel`` / ``chunk`` / ``scan_topk``)
 and rerank policy
@@ -26,14 +37,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.retrieval import engine
+from repro_torch.retrieval import engine, tracing
 from repro_torch.retrieval.segments import SegmentedStore
 from repro_torch.retrieval.store import VectorStore
 
 
 class Retriever:
     def __init__(self, store, capacity: int | None = None, device="cuda",
-                 filter_words: int = 1, routing=None):
+                 filter_words: int = 1, routing=None, ingest=None):
         """``store`` is a built ``VectorStore`` (wrapped as segment 0 on
         ``device`` — exact fit by default, or preallocated to ``capacity``
         slots for ingestion headroom) or an existing ``SegmentedStore``,
@@ -42,9 +53,13 @@ class Retriever:
         ``VectorStore``; a ``SegmentedStore`` keeps its own width.
         ``routing`` enables IVF centroid routing on the store (an int
         cluster count or a ``routing.RoutingPolicy``): segments are
-        clustered now and maintained through upsert and delete, and scan
-        stages with ``Stage.n_probe > 0`` route through the clusters."""
+        clustered now and maintained through upsert, ingest, delete and
+        compact, and scan stages with ``Stage.n_probe > 0`` route through
+        the clusters. ``ingest`` is an optional ``IngestPipeline`` that
+        enables ``Retriever.ingest`` (raw pages in, stable ids out)."""
         self.device = resolve_device(device)
+        self._ingest = ingest
+        self._fns: dict = {}
         if isinstance(store, VectorStore):
             store = SegmentedStore.from_store(store, capacity=capacity,
                                               device=self.device,
@@ -75,14 +90,64 @@ class Retriever:
         page ids."""
         return self.store.add_pages(batch, tenant=tenant, tags=tags)
 
+    def ingest(self, pages, token_types, tenant: int = 0,
+               tags=()) -> np.ndarray:
+        """Raw encoder output ``[N, S, d]`` in, stable page ids out: the
+        attached ``IngestPipeline`` indexes the bucket-padded batch on the
+        device and writes it straight into segment headroom (no indexed
+        array comes back to the host). ``tenant``/``tags`` stamp the
+        batch's store companions as in ``upsert``."""
+        if self._ingest is None:
+            raise ValueError(
+                "no ingest pipeline attached — construct the retriever as "
+                "Retriever(store, ingest=IngestPipeline.for_config(cfg, "
+                "...)) to ingest raw pages (or use upsert(build_store(...))"
+                " for host-driven batches)")
+        return self._ingest.ingest(self.store, pages, token_types,
+                                   tenant=tenant, tags=tags)
+
     def delete(self, ids) -> int:
         """Invalidate pages by stable id (validity masking; no data moves).
         Returns the number of pages deleted."""
         return self.store.delete(ids)
 
+    def compact(self) -> None:
+        """Reclaim dead slots (amortised; changes the layout, so the next
+        search per stages config builds its function again)."""
+        self.store.compact()
+
+    @staticmethod
+    def trace_count() -> int:
+        """Kernel-library loads and search-function builds so far (see
+        ``retrieval.tracing``)."""
+        return tracing.trace_count()
+
+    def frontend(self, stages: tuple, **kwargs):
+        """A ``ServingFrontend`` over this retriever: shape-bucketed query
+        padding, micro-batching, an optional result cache. See
+        ``repro_torch.retrieval.frontend`` for the knobs."""
+        from repro_torch.retrieval.frontend import ServingFrontend
+        return ServingFrontend(self, stages, **kwargs)
+
     # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
+
+    def search_fn(self, stages: tuple):
+        """The cascade function for ``stages``, built at most once per
+        (stages, segment layout); functions of an older layout are
+        dropped. Signature: fn(stores: tuple[dict, ...], q, q_mask,
+        fspec=None) -> (scores, slot ids)."""
+        stages = tuple(stages)
+        layout = self.store.layout_key()
+        fn = self._fns.get((stages, layout))
+        if fn is None:
+            self._fns = {k: v for k, v in self._fns.items()
+                         if k[1] == layout}
+            fn = engine.make_segmented_search_fn(stages,
+                                                 self.store.capacities)
+            self._fns[(stages, layout)] = fn
+        return fn
 
     def search(self, q, q_mask=None, *, stages: tuple,
                translate_ids: bool = True, filter=None) -> tuple:
@@ -102,8 +167,8 @@ class Retriever:
                                 device=self.device)
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
-        fn = engine.make_segmented_search_fn(stages, self.store.capacities)
-        scores, slots = fn(self.store.stores(), q, q_mask, filter)
+        scores, slots = self.search_fn(stages)(self.store.stores(), q,
+                                               q_mask, filter)
         if not translate_ids:
             return scores, slots
         ids = self.store.translate_slots(slots.cpu().numpy())

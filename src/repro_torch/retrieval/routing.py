@@ -39,9 +39,10 @@ Maintenance:
   least ``MIN_DRIFT``) the segment re-clusters at the same shapes.
 
 The JAX package counts the retraces of these steps (``record_trace``);
-eager PyTorch does not retrace, so the port leaves that counter out. The
-frontend slice of the port brings its torch analogue (no new CUDA-graph
-capture in steady state).
+eager PyTorch does not retrace, and these steps build no kernel library
+and no search function, so they count nothing in the port's
+``retrieval.tracing`` (``enable_routing`` changes the segment layout:
+the next search builds its function once).
 
 Layering: this module sits between ``store`` (whose key schema owns the
 companion names) and ``segments`` (which calls the hooks below). The

@@ -9,6 +9,14 @@
   fit, a NEW segment is allocated at a bucketed power-of-two capacity;
 - ``delete`` only flips ``doc_valid`` bits (validity masking), it never
   moves a byte;
+- ``compact`` is the amortised reclaim: it rebuilds the corpus from the
+  surviving rows into one right-sized segment (a layout change);
+- ``reserve``/``commit`` are the slot bookkeeping that ``add_pages`` and
+  the fused ``IngestPipeline.ingest`` share: ``reserve`` finds (or
+  allocates) tail room without claiming it, the caller writes the
+  segment's tensors, and ``commit`` assigns page ids, advances the fill
+  and bumps ``generation``, the counter every mutation bumps (result
+  caches key on it);
 - ``doc_valid`` has two siblings written by the same writes:
   ``doc_tenant`` [capacity] int32 (``add_pages(tenant=)``, 0 by default)
   and ``doc_filter`` [capacity, filter_words] int32, the packed tag bitset
@@ -42,8 +50,9 @@ import torch
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.retrieval import routing as RT
-from repro_torch.retrieval.store import (FILTER_KEY, TENANT_KEY,
-                                         VALIDITY_KEY, VectorSchema,
+from repro_torch.retrieval.store import (FILTER_KEY, ROUTING_KEYS,
+                                         TENANT_KEY, VALIDITY_KEY,
+                                         VectorSchema,
                                          VectorStore, from_numpy,
                                          is_store_companion, pack_tags,
                                          words_tensor)
@@ -97,6 +106,10 @@ class SegmentedStore:
         # scans only. Set by ``enable_routing``.
         self.router = None
         self._slot_ids: np.ndarray | None = None   # slot->page-id cache
+        # bumped on every content mutation (add_pages/ingest commit,
+        # delete, compact) so result caches keyed on it can never serve
+        # pre-mutation answers
+        self.generation = 0
 
     @classmethod
     def from_store(cls, store: VectorStore, capacity: int | None = None,
@@ -192,6 +205,48 @@ class SegmentedStore:
     # mutation
     # ------------------------------------------------------------------
 
+    def reserve(self, n: int, like: dict | None = None,
+                min_free: int | None = None) -> tuple:
+        """Find (or allocate) room for ``n`` new pages at the tail of the
+        corpus. Returns ``(segment index, start slot)``; the slots are NOT
+        claimed until ``commit`` runs. Batches are never split: when the
+        last segment's free tail is too small, a NEW segment is allocated
+        at a bucketed power-of-two capacity (``like`` supplies the layout
+        when the store is still empty). ``min_free`` asks for tail room
+        beyond ``n``: the fused ingest copies a full bucket-wide block, so
+        the whole block must fit although only ``n`` slots are claimed."""
+        need = max(n, min_free or 0)
+        seg = self.segments[-1] if self.segments else None
+        if seg is None or seg.free < need:
+            if seg is None and like is None:
+                raise ValueError("reserve() on an empty store needs `like` "
+                                 "arrays for the segment layout")
+            dev = (next(iter(like.values())).device if seg is None
+                   else self.device)
+            self._alloc_segment(like if like is not None else seg.vectors,
+                                bucket_capacity(need), dev)
+        return len(self.segments) - 1, self.segments[-1].n_docs
+
+    def commit(self, seg_i: int, new_vectors: dict, n: int) -> np.ndarray:
+        """Adopt the written arrays of segment ``seg_i`` and do the host
+        bookkeeping shared by ``add_pages`` and the fused ingest: assign
+        stable page ids to the ``n`` reserved tail slots, advance the
+        high-water mark, bump the generation and, with routing on, assign
+        the new slots to their clusters. Returns the assigned ids."""
+        seg = self.segments[seg_i]
+        seg.vectors = new_vectors
+        start = seg.n_docs
+        ids = np.arange(self.next_id, self.next_id + n, dtype=np.int64)
+        seg.doc_ids[start:start + n] = ids
+        seg.n_docs = start + n
+        self.next_id += n
+        self._slot_ids = None
+        self.generation += 1
+        if self.router is not None:
+            RT.on_commit(self, seg, np.arange(start, start + n,
+                                              dtype=np.int64))
+        return ids
+
     def add_pages(self, batch: VectorStore, tenant: int = 0,
                   tags=()) -> np.ndarray:
         """Ingest an indexed batch (the output of ``build_store`` or
@@ -207,32 +262,22 @@ class SegmentedStore:
         bitset (queries filter on them with ``store.FilterSpec``). With
         routing on, the new slots join their nearest cluster with room."""
         n = batch.n_docs
-        names = {k for k in self.segments[0].vectors
-                 if not is_store_companion(k)}
-        if set(batch.vectors) != names:
-            raise ValueError(f"batch vectors {sorted(batch.vectors)} != "
-                             f"store vectors {sorted(names)}")
-        seg = self.segments[-1]
-        words = words_tensor(pack_tags(tags, self.filter_words),
-                             self.device)
-        if seg.free < n:
-            seg = self._alloc_segment(seg.vectors, bucket_capacity(n),
-                                      self.device)
-        start = seg.n_docs
+        if self.segments:
+            names = {k for k in self.segments[0].vectors
+                     if not is_store_companion(k)}
+            if set(batch.vectors) != names:
+                raise ValueError(f"batch vectors {sorted(batch.vectors)} != "
+                                 f"store vectors {sorted(names)}")
+        words = pack_tags(tags, self.filter_words)
+        seg_i, start = self.reserve(n, like=batch.vectors)
+        seg = self.segments[seg_i]
         for k, v in batch.vectors.items():
             seg.vectors[k][start:start + n] = v
         seg.vectors[VALIDITY_KEY][start:start + n] = True
         seg.vectors[TENANT_KEY][start:start + n] = int(tenant)
-        seg.vectors[FILTER_KEY][start:start + n] = words[None, :]
-        ids = np.arange(self.next_id, self.next_id + n, dtype=np.int64)
-        seg.doc_ids[start:start + n] = ids
-        seg.n_docs = start + n
-        self.next_id += n
-        self._slot_ids = None
-        if self.router is not None:
-            RT.on_commit(self, seg, np.arange(start, start + n,
-                                              dtype=np.int64))
-        return ids
+        seg.vectors[FILTER_KEY][start:start + n] = words_tensor(
+            words, self.device)[None, :]
+        return self.commit(seg_i, seg.vectors, n)
 
     def delete(self, ids) -> int:
         """Invalidate pages by stable id. Only flips ``doc_valid`` bits —
@@ -254,7 +299,46 @@ class SegmentedStore:
                 RT.on_delete(self, seg, int(slots.size))
         if deleted:
             self._slot_ids = None
+            self.generation += 1
         return deleted
+
+    def compact(self) -> "SegmentedStore":
+        """Rebuild the corpus from surviving rows into one right-sized
+        segment, keeping page ids and their relative order. Survivors are
+        gathered in slot order (ids ascending); ``doc_tenant`` and
+        ``doc_filter`` ride the gather, ``doc_valid`` is rebuilt (every
+        survivor is live) and, with routing on, the segment is clustered
+        afresh. The layout changes, so search functions are rebuilt."""
+        if not self.segments:
+            return self
+        dev = self.device
+        names = [k for k in self.segments[0].vectors
+                 if k != VALIDITY_KEY and k not in ROUTING_KEYS]
+        like = {k: self.segments[0].vectors[k] for k in names}
+        rows = {k: [] for k in names}
+        ids = []
+        for seg in self.segments:
+            slots = np.flatnonzero(seg.doc_ids >= 0)
+            if slots.size == 0:
+                continue
+            idx = torch.from_numpy(slots).to(dev)
+            for k in names:
+                rows[k].append(seg.vectors[k][idx])
+            ids.append(seg.doc_ids[slots])
+        total = int(sum(len(i) for i in ids))
+        self.segments = []
+        seg = self._alloc_segment(like, bucket_capacity(max(total, 1)), dev)
+        if total:
+            for k in names:
+                seg.vectors[k][:total] = torch.cat(rows[k])
+            seg.vectors[VALIDITY_KEY][:total] = True
+            seg.doc_ids[:total] = np.concatenate(ids)
+        seg.n_docs = total
+        if self.router is not None:
+            RT.recluster(self, seg)
+        self._slot_ids = None
+        self.generation += 1
+        return self
 
     # ------------------------------------------------------------------
     # views
@@ -281,6 +365,21 @@ class SegmentedStore:
     @property
     def n_valid(self) -> int:
         return sum(seg.n_valid for seg in self.segments)
+
+    @property
+    def total_capacity(self) -> int:
+        return sum(self.capacities)
+
+    def layout_key(self) -> tuple:
+        """Everything a search function's shapes depend on: capacities and
+        per-array trailing dims and dtypes, NOT the fill level. Upserts
+        into existing padding and deletes leave it unchanged; a new
+        segment, ``compact`` and ``enable_routing`` change it."""
+        return tuple(
+            (seg.capacity,
+             tuple(sorted((k, tuple(v.shape[1:]), str(v.dtype))
+                          for k, v in seg.vectors.items())))
+            for seg in self.segments)
 
     def slot_doc_ids(self) -> np.ndarray:
         """Global slot -> stable page id (-1 = dead slot), concatenated in

@@ -365,6 +365,16 @@ def rerank_arrays(vectors: dict, name: str) -> tuple:
             vectors[scale_key(name)])
 
 
+def companion_entries(vectors: dict, source: str, name: str) -> dict:
+    """Companion arrays a vector DERIVED from ``source`` (same [N, D]
+    geometry, e.g. a Matryoshka dim-truncation) should be indexed with,
+    re-keyed for ``name``."""
+    out = {}
+    if mask_key(source) in vectors:
+        out[mask_key(name)] = vectors[mask_key(source)]
+    return out
+
+
 def quantize_vectors(vectors: dict, names: tuple,
                      stages: tuple | None = None) -> dict:
     """Add int8 codes + scales for ``names``; with ``stages`` given, drop
@@ -448,18 +458,25 @@ def from_numpy(vectors: dict, n_docs: int | None = None,
     return VectorStore(out, int(n_docs), store_dtype)
 
 
-def build_store(cfg, page_embeds, token_types,
-                store_dtype=torch.bfloat16, device="cuda") -> VectorStore:
+def build_store(cfg, page_embeds, token_types, h_eff=None,
+                store_dtype=torch.bfloat16,
+                experimental_smooth: str | None = None,
+                device="cuda") -> VectorStore:
     """Index a batch of encoded pages into named vectors on ``device``.
 
     page_embeds [N, S, d] raw encoder output (special tokens included);
-    token_types [S] or [N, S]. Hygiene strips non-visual tokens; pooling
-    is model-aware per cfg (the functional ``core.pooling`` reference,
-    i.e. ``IngestPipeline(use_kernel=False)``).
+    token_types [S] or [N, S]; ``h_eff`` [N] int, the effective grid
+    height of each page (dynamic geometry; None = the full grid).
+    Hygiene strips non-visual tokens; pooling is model-aware per cfg (the
+    functional ``core.pooling`` reference, i.e. the shared
+    ``IngestPipeline.for_config(use_kernel=False)``).
+    ``experimental_smooth`` adds the ``experimental`` vector: the pooling
+    stack again with that smoothing kind.
     """
     # store -> ingest layering: ingest builds on the store types defined
     # here, so the wrapper imports it at call time (no import cycle)
     from repro_torch.retrieval.ingest import IngestPipeline
-    pipe = IngestPipeline(cfg, store_dtype=store_dtype, use_kernel=False,
-                          device=device)
-    return pipe.index(page_embeds, token_types)
+    pipe = IngestPipeline.for_config(
+        cfg, store_dtype=store_dtype, use_kernel=False,
+        experimental_smooth=experimental_smooth, device=device)
+    return pipe.index(page_embeds, token_types, h_eff=h_eff)

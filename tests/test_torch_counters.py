@@ -178,3 +178,48 @@ def test_centroid_scores_counts_as_ivf_route(fake_card, rc, B, launched):
     assert lib.entries == ["maxsim_scan_launch"] * (launched + (rc > 0))
     assert {k: DSP.launch_count(k) for k in DSP.KERNELS} == {
         k: int(k == "ivf_route") * launched for k in DSP.KERNELS}
+
+
+class _FakeEntry:
+    argtypes = restype = None
+
+
+class _FakeCDLL:
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, entry):
+        return _FakeEntry()
+
+
+def test_library_load_counts_one_build(monkeypatch):
+    """A cache miss of ``build.library`` (a load) counts one build in
+    ``retrieval.tracing``, named after the library; a hit counts none."""
+    from repro_torch.retrieval import tracing
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_lib_path", lambda name: build.CSRC)
+    monkeypatch.setattr(build.ctypes, "CDLL", _FakeCDLL)
+    before = tracing.trace_count()
+    lib = build.library("pool")
+    assert tracing.trace_count() == before + 1
+    assert tracing.traced_names(since=before) == (
+        "repro_torch.kernels.build.library:pool",)
+    with tracing.no_retrace("a loaded library"):
+        assert build.library("pool") is lib
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """The kernels (build, dispatch, ops) never import the retrieval
+    layer; ``retrieval.tracing`` reads ``build.LOADED`` instead."""
+    import ast
+    import pathlib
+    root = pathlib.Path(build.__file__).resolve().parent
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module or ""]
+                    if isinstance(node, ast.ImportFrom) else [])
+            for m in mods:
+                assert not m.startswith(("repro_torch.retrieval",
+                                         "repro_torch.launch")), (path, m)

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch`` or ``chip_smoke.py``, and its entry points refuse to
-run on a missing card instead of carrying on on the CPU."""
+``src/repro_torch``, ``examples/*_torch.py`` or ``chip_smoke.py``, and its
+entry points refuse to run on a missing card instead of carrying on on the
+CPU."""
 import ast
 import os
 import pathlib
@@ -15,8 +16,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 _BANNED = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
 
@@ -88,6 +89,53 @@ def test_entry_points_raise_without_a_card():
         Retriever(store)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--pages", "30", "--queries", "10"])
+
+
+def test_serving_entry_points_raise_without_a_card():
+    """The fused ingest, the frontend, the raw-store search, the serve
+    CLI's traffic and ingest modes and the examples run on the card by
+    default; each raises without one, and runs when given the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import importlib.util
+    from repro_torch.core import multistage as MST
+    from repro_torch.launch import serve
+    from repro_torch.retrieval.engine import make_search_fn
+    from repro_torch.retrieval.frontend import ServingFrontend
+    from repro_torch.retrieval.ingest import IngestPipeline
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.store import build_store
+    cfg, bench = _tiny_store_inputs()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IngestPipeline.for_config(cfg)
+    for argv in (["--traffic", "5"], ["--ingest-batches", "2",
+                                      "--ingest-pipeline"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--pages", "30", "--queries", "10"] + argv)
+    for name in ("quickstart_torch", "serve_multistage_torch",
+                 "scaling_study_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main([])
+    # given the CPU, the same entry points run
+    pipe = IngestPipeline.for_config(cfg, device="cpu")
+    store = pipe.index(bench.pages[:4], bench.token_types)
+    r = Retriever(store, capacity=64, ingest=pipe, device="cpu")
+    assert len(r.ingest(bench.pages[4:9], bench.token_types)) == 5
+    fe = ServingFrontend(r, MST.two_stage(4, 2), max_batch=2, max_q=16)
+    s, i = fe.search(bench.queries[0], bench.query_mask[0])
+    assert i.shape == (1, 2)
+    s, i = make_search_fn(MST.one_stage(3), 4)(store.vectors,
+                                                bench.queries[:2])
+    assert tuple(i.shape) == (2, 3)
+    out = serve.main(["--pages", "30", "--queries", "10", "--traffic", "5",
+                      "--device", "cpu"])
+    assert out["builds"] == 0
+    assert build_store(cfg, bench.pages[:2], bench.token_types,
+                       device="cpu").n_docs == 2
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
