@@ -115,6 +115,28 @@ line) at the first phase that goes wrong:
             near-exact ties and its metrics to 3 decimals; then
             ``examples/quickstart_torch.py`` runs on the card and on the
             CPU, and its ``[search]`` lines must be equal;
+4j. tiered  the phase-4 pages as 8 segments of 512 (139 MB each) behind a
+            ``TieredEngine`` whose budget holds 3 (the other 5 in pinned
+            host memory, promoted on a copy stream): (a) the 2-stage
+            kernel cascade over the whole corpus with prefetch overlap on,
+            then off, (b) a hot scope of 2 segments (0 promotions after
+            warm-up), (c) scopes alternating hot and cold (0 builds),
+            then the whole corpus behind a ~0.1 s sleep on the compute
+            stream (demotions of segments whose scans are still queued),
+            (d)
+            a deadline of half a promotion with ``DegradePolicy()``
+            (degraded results flagged, their scores exact), (e) a
+            ``FaultPlan`` with transfer failures, then one killing the
+            worker (retries and restarts counted); every undegraded result
+            must equal the resident search bit for bit, and the engine's
+            peak device memory stay within the budget plus one segment
+            plus the resident search's working set. (f) snapshots the
+            store (segments on both tiers), restores it bit for bit and
+            finds a bit flipped on disk (``CheckpointCorrupt`` names the
+            leaf); (g) an int8 store (db scan with chunk 256, int8 rerank)
+            through its own engine, bit for bit its resident search.
+            Prints QPS, promotions, bytes and GB/s, and the host->card
+            rates of one segment from pinned and from pageable memory;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -158,6 +180,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 (CUDA cores)
 BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 NEG = -1e30
+LAG_CYCLES = 200_000_000           # ~0.1 s of torch.cuda._sleep at 1.98 GHz
 
 
 def fail(msg: str) -> None:
@@ -1741,6 +1764,387 @@ def matryoshka_quickstart_path(args, dev, main) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: tiered residency, faults and snapshots
+# ---------------------------------------------------------------------------
+
+def copy_rates(nbytes: int, dev) -> dict:
+    """Host-to-card GB/s of one segment's bytes from pinned and from
+    pageable host memory (median of 5 CUDA-event samples each)."""
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = {}
+    for kind, pin in (("pinned", True), ("pageable", False)):
+        src = torch.ones(nbytes, dtype=torch.uint8, pin_memory=pin)
+        ms = time_ms(lambda: dst.copy_(src, non_blocking=True), iters=5)
+        out[kind] = nbytes / ms / 1e6
+    del dst
+    return out
+
+
+def flip_leaf_bit(step_dir: str, index: int) -> None:
+    """Flip one bit in the middle of member ``leaf_<index>.npy`` of the
+    step's ``arrays.npz``, in place on disk."""
+    import struct
+    import zipfile
+    path = Path(step_dir) / "arrays.npz"
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(f"leaf_{index}.npy")
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        n_name, n_extra = struct.unpack("<HH", f.read(4))
+        pos = info.header_offset + 30 + n_name + n_extra \
+            + info.file_size // 2
+        f.seek(pos)
+        b = f.read(1)[0]
+        f.seek(pos)
+        f.write(bytes([b ^ 1]))
+
+
+def same_result(got, want, what: str) -> None:
+    """A tiered result equal to ``want`` (scores tensor, ids) bit for
+    bit."""
+    gs, gi = got
+    ws, wi = want
+    check(bool(torch.equal(gs, ws)) and np.array_equal(gi, wi),
+          f"{what}: tiered result != the resident search bit for bit")
+
+
+def tiered_path(args, dev, main) -> dict:
+    """The phase-4 pages as 8 segments of ``pages/8`` behind a
+    ``TieredEngine`` whose budget holds 3 of them: (a) whole corpus with
+    prefetch overlap on, then off, (b) a hot scope of 2 segments, (c)
+    scopes alternating hot and cold, (d) a deadline below one promotion
+    with ``DegradePolicy()``, (e) injected transfer failures and worker
+    deaths, (f) snapshot and restore, a bit flipped on disk; (g) an int8
+    8-segment store through its own engine. Every undegraded result must
+    equal the resident search bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.core import multistage as MST
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.retrieval import tracing
+    from repro_torch.retrieval.faults import FaultPlan
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.store import (VectorStore, as_filter_arrays,
+                                             quantize_store)
+    from repro_torch.retrieval.tiering import DegradePolicy
+    from repro_torch.training.checkpoint import CheckpointCorrupt
+
+    bench = main["bench"]
+    base = base_store(main)
+    n, n_segs = base.n_docs, 8
+    per = n // n_segs
+    check(per * n_segs == n and per >= 64, f"{n} pages do not split into "
+          f"{n_segs} segments of at least 64 (the minimum capacity)")
+
+    def eight_segments(vectors: dict):
+        r = Retriever(VectorStore({k: v[:per] for k, v in vectors.items()},
+                                  per), device=dev)
+        for lo in range(per, n, per):
+            r.upsert(VectorStore({k: v[lo:lo + per]
+                                  for k, v in vectors.items()}, per))
+        check(r.store.capacities == (per,) * n_segs,
+              f"tiered store: capacities {r.store.capacities}")
+        return r
+
+    two = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    q, qm, B = bench.queries, bench.query_mask, args.batch
+    batches = [(q[i:i + B], qm[i:i + B]) for i in range(0, len(q), B)]
+    counts = {k: 0 for k in DSP.KERNELS}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counters zeroed before and added to
+        this phase's counts after (oracle runs stay uncounted)."""
+        DSP.reset_counts()
+        out = fn()
+        for k in DSP.KERNELS:
+            counts[k] += DSP.launch_count(k)
+        return out
+
+    def timed(fn) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    r8 = eight_segments(base.vectors)
+    seg_bytes = r8.store.segments[0].nbytes
+    total = sum(s.nbytes for s in r8.store.segments)
+    rates = copy_rates(seg_bytes, dev)
+    log(f"[tiered] {n_segs} segments of {per} pages, {seg_bytes / 1e6:.1f} "
+        f"MB each, {total / 1e9:.3f} GB in all; host->card copy of one "
+        f"segment: pinned {rates['pinned']:.2f} GB/s, pageable "
+        f"{rates['pageable']:.2f} GB/s (median of 5)")
+
+    # ---- oracles: the resident 2-stage search per batch, its working
+    # set, and the scoped searches of (b)-(c) through an engine whose
+    # budget holds the whole corpus (the same per-segment code, no copy)
+    r8.search(*batches[0], stages=two)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    oracle, dt_res = timed(lambda: [r8.search(bq, bm, stages=two)
+                                    for bq, bm in batches])
+    ws = torch.cuda.max_memory_allocated() - m0
+    hot = (0, 1)
+    scopes = (hot, (4, 5), hot, (2, 3, 6), hot, (7,))
+    with r8.tiered(2 * total, prefetch=False) as full:
+        check(len(full.resident()) == n_segs, "unbudgeted engine spilled")
+        scoped = {sc: [full.search(bq, bm, stages=two, scope=sc)
+                       for bq, bm in batches] for sc in set(scopes)}
+        check(full.stats["promotions"] == 0, "unbudgeted engine promoted")
+    r_hot = Retriever(VectorStore({k: v[:len(hot) * per] for k, v in
+                                   base.vectors.items()}, len(hot) * per),
+                      device=dev)
+    r_hot.search(*batches[0], stages=two)
+    _, dt_hot_res = timed(lambda: [r_hot.search(bq, bm, stages=two)
+                                   for bq, bm in batches])
+    del r_hot
+    budget = 3 * seg_bytes
+    res = {"segments": n_segs, "batches": len(batches),
+           "seg_mb": seg_bytes / 1e6,
+           "total_gb": total / 1e9, "h2d": rates,
+           "resident_qps": len(q) / dt_res}
+    eng = r8.tiered(budget)
+    try:
+        check(len(eng.resident()) == 3 and eng.resident_bytes <= budget,
+              f"budget of 3 segments: resident {eng.resident()}")
+        log(f"[tiered] budget {budget / 1e6:.1f} MB (3 of {n_segs} "
+            f"segments), {n_segs - 3} on the pinned host tier; resident "
+            f"2-stage search over the 8 segments {len(q) / dt_res:.1f} QPS "
+            f"(batches of {B}), working set {ws / 1e6:.1f} MB")
+
+        # (a) whole corpus, prefetch overlap on, then off
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated() - eng.resident_bytes
+        torch.cuda.reset_peak_memory_stats()
+        for overlap in (True, False):
+            st0 = dict(eng.stats)
+            got, dt = timed(lambda: counted(lambda: [
+                eng.search(bq, bm, stages=two, overlap=overlap)
+                for bq, bm in batches]))
+            for b, (g, o) in enumerate(zip(got, oracle)):
+                check(not g.degraded, "(a) undeadlined result degraded")
+                same_result(g, o, f"(a) overlap={overlap} batch {b}")
+            d = {k: eng.stats[k] - st0[k] for k in
+                 ("promotions", "demotions", "bytes_h2d", "bytes_d2h",
+                  "wait_s")}
+            mode = "overlap" if overlap else "sync"
+            res[mode] = dict(qps=len(q) / dt, **d,
+                             h2d_gbs=d["bytes_h2d"] / dt / 1e9,
+                             promote_gbs=seg_bytes / eng._promote_ema / 1e9)
+            log(f"[tiered] (a) whole corpus, prefetch {mode}: "
+                f"{len(q) / dt:.1f} QPS ({len(batches)} batches, bit for "
+                f"bit the resident search); promotions {d['promotions']}, "
+                f"demotions {d['demotions']}, h2d {d['bytes_h2d'] / 1e9:.3f}"
+                f" GB, d2h {d['bytes_d2h'] / 1e9:.3f} GB, "
+                f"{res[mode]['h2d_gbs']:.2f} GB/s h2d over the run, "
+                f"{res[mode]['promote_gbs']:.2f} GB/s per promotion (EMA "
+                f"{eng._promote_ema * 1e3:.2f} ms), waits "
+                f"{d['wait_s'] * 1e3:.1f} ms")
+        res["overlap_ratio"] = res["overlap"]["qps"] / res["sync"]["qps"]
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        limit = budget + seg_bytes + ws
+        check(peak <= limit, f"(a) peak device memory {peak / 1e6:.1f} MB "
+              f"above budget + one segment + working set "
+              f"{limit / 1e6:.1f} MB")
+        res["peak_mb"] = peak / 1e6
+        log(f"[tiered] (a) overlap / sync QPS {res['overlap_ratio']:.3f}; "
+            f"peak device memory of the engine {peak / 1e6:.1f} MB <= "
+            f"budget + one segment + working set {limit / 1e6:.1f} MB")
+        for k in ("maxsim_scan", "maxsim_rerank"):
+            check(counts[k] > 0, f"(a) the tiered search never launched {k}")
+
+        # (b) a hot scope of 2 segments
+        b0 = tracing.trace_count()
+        for _ in range(2):
+            eng.search(*batches[0], stages=two, scope=hot)
+        st0 = dict(eng.stats)
+        got, dt = timed(lambda: counted(lambda: [
+            eng.search(bq, bm, stages=two, scope=hot)
+            for bq, bm in batches]))
+        for b, (g, o) in enumerate(zip(got, scoped[hot])):
+            same_result(g, o, f"(b) hot scope batch {b}")
+        promos = eng.stats["promotions"] - st0["promotions"]
+        check(promos == 0, f"(b) hot scope promoted {promos} segments "
+              "after warm-up")
+        res["hot"] = dict(qps=len(q) / dt, resident_qps=len(q) / dt_hot_res)
+        log(f"[tiered] (b) hot scope {hot}: {len(q) / dt:.1f} QPS, 0 "
+            f"promotions after warm-up; resident search over the same "
+            f"{len(hot) * per} pages (one segment) {len(q) / dt_hot_res:.1f}"
+            f" QPS (ratio {dt_hot_res / dt:.3f})")
+
+        # (c) scopes alternating hot and cold: churn, no build
+        st0 = dict(eng.stats)
+        for b, (bq, bm) in enumerate(batches):
+            sc = scopes[b % len(scopes)]
+            g = counted(lambda: eng.search(bq, bm, stages=two, scope=sc))
+            same_result(g, scoped[sc][b], f"(c) scope {sc} batch {b}")
+        builds = tracing.trace_count() - b0
+        check(builds == 0, f"(c) {builds} builds after warm-up: "
+              f"{tracing.traced_names(since=b0)}")
+        churn = eng.stats["promotions"] - st0["promotions"]
+        check(churn > 0, "(c) alternating scopes never promoted")
+        # the whole corpus behind a compute stream that lags the host by
+        # ~0.1 s: each search demotes segments whose scans are still
+        # queued, so a freed block reused under a queued kernel (no
+        # record_stream, no demotion waiting for the compute stream)
+        # would show here as a wrong score. The query and the packed
+        # filter are on the card before the sleep: an upload inside the
+        # search would wait for the sleep and end the lag
+        fs = as_filter_arrays(None, r8.store.filter_words, dev)
+        for b, (bq, bm) in enumerate(batches[:3]):
+            qd, md = (torch.as_tensor(x).to(dev) for x in (bq, bm))
+            torch.cuda._sleep(LAG_CYCLES)
+            g = counted(lambda: eng.search(qd, md, stages=two, filter=fs))
+            same_result(g, oracle[b], f"(c) lagging compute stream, "
+                        f"batch {b}")
+        log(f"[tiered] (c) scopes {scopes} over {len(batches)} batches: "
+            f"bit for bit, {churn} promotions, builds 0 since (b); the "
+            f"whole corpus behind a {LAG_CYCLES:.0e}-cycle sleep on the "
+            f"compute stream: {len(batches[:3])} batches bit for bit")
+
+        # (d) a deadline below one promotion: degraded and exact, or exact
+        deadline = 0.5 * eng._promote_ema * 1e3
+        before = eng.resident()
+        scanned = tuple(s for s in range(n_segs) if s in before)
+        n_deg = shared = 0
+        for b, (bq, bm) in enumerate(batches):
+            g = counted(lambda: eng.search(bq, bm, stages=two,
+                                           deadline_ms=deadline,
+                                           degrade=DegradePolicy()))
+            if not g.degraded:
+                same_result(g, oracle[b], f"(d) undegraded batch {b}")
+                continue
+            n_deg += 1
+            check(g.skipped_segments == n_segs - len(scanned),
+                  f"(d) skipped {g.skipped_segments}, resident {before}")
+            same_result(g, eng.search(bq, bm, stages=two, scope=scanned),
+                        f"(d) degraded batch {b} vs the scanned segments")
+            ws_, wi = oracle[b]
+            ws_ = ws_.cpu()
+            gs = g.scores.cpu()
+            for row in range(len(bq)):
+                live = [p for p in g.ids[row] if p >= 0]
+                check(all(p // per in scanned for p in live),
+                      f"(d) degraded id outside the scanned segments")
+                for j, p in enumerate(g.ids[row]):
+                    hit = np.flatnonzero(wi[row] == p)
+                    if p >= 0 and hit.size:
+                        shared += 1
+                        check(gs[row, j].item() == ws_[row, hit[0]].item(),
+                              f"(d) id {p}: degraded score != the oracle's")
+        check(n_deg > 0, "(d) no result degraded under a deadline below "
+              "one promotion")
+        check(shared > 0, "(d) no degraded id in the oracle's top 10")
+        g = eng.search(*batches[0], stages=two, deadline_ms=60_000.0)
+        check(not g.degraded, "(d) a 60 s deadline degraded")
+        same_result(g, oracle[0], "(d) undegraded 60 s deadline")
+        res["degraded"] = dict(deadline_ms=deadline, n=n_deg,
+                               batches=len(batches))
+        log(f"[tiered] (d) deadline {deadline:.3f} ms (half the promotion "
+            f"EMA): {n_deg}/{len(batches)} results degraded, "
+            f"{n_segs - len(scanned)} of {n_segs} segments skipped each, "
+            f"scores exact (bit for bit the resident scanned segments "
+            f"{scanned}, and the oracle's for each of {shared} shared "
+            f"ids); a 60 s deadline is bit for bit the oracle")
+
+        # (e) injected transfer failures, then worker deaths
+        sub = batches[:3]
+        for spec in ("transfer_fail_rate=0.05,seed=7",
+                     "kill_worker_at=0+5+11,seed=7"):
+            eng.arm(FaultPlan.parse(spec))
+            st0 = dict(eng.stats)
+            got = counted(lambda: [eng.search(bq, bm, stages=two)
+                                   for bq, bm in sub])
+            for b, g in enumerate(got):
+                same_result(g, oracle[b], f"(e) {spec} batch {b}")
+            d = {k: eng.stats[k] - st0[k] for k in
+                 ("retries", "worker_restarts", "transfer_errors")}
+            want = "retries" if "fail" in spec else "worker_restarts"
+            check(d[want] >= 1, f"(e) {spec}: {d}")
+            res[f"faults:{spec}"] = d
+            log(f"[tiered] (e) FaultPlan {spec}: {len(sub)} batches bit for "
+                f"bit, {d}")
+        eng.arm(None)
+
+        # (f) snapshot (segments on both tiers) and restore
+        snap_root = Path(__file__).resolve().parent / "build"
+        snap_root.mkdir(exist_ok=True)
+        snap = tempfile.mkdtemp(prefix="tiered_snapshot_", dir=snap_root)
+        try:
+            path, dt_w = timed(lambda: eng.snapshot(snap, keep=1))
+            r2, dt_r = timed(lambda: Retriever.from_snapshot(snap,
+                                                             device=dev))
+            for b, (bq, bm) in enumerate(batches):
+                s2, i2 = r2.search(bq, bm, stages=two)
+                check(bool(torch.equal(s2, oracle[b][0]))
+                      and np.array_equal(i2, oracle[b][1]),
+                      f"(f) restored store: batch {b} != the oracle")
+            del r2
+            res["snapshot"] = dict(write_gbs=total / dt_w / 1e9,
+                                   restore_gbs=total / dt_r / 1e9)
+            from repro_torch.training.checkpoint import load_meta
+            names = load_meta(snap)["leaf_names"]
+            leaf = names.index("seg3/initial")
+            flip_leaf_bit(path, leaf)
+            try:
+                Retriever.from_snapshot(snap, device=dev)
+                fail("(f) a bit flipped on disk restored without error")
+            except CheckpointCorrupt as e:
+                check("'seg3/initial'" in str(e),
+                      f"(f) CheckpointCorrupt does not name the leaf: {e}")
+            log(f"[tiered] (f) snapshot of {total / 1e9:.3f} GB (3 "
+                f"segments on the card, 5 on the host tier) written in "
+                f"{dt_w:.2f} s ({total / dt_w / 1e9:.2f} GB/s), restored "
+                f"in {dt_r:.2f} s ({total / dt_r / 1e9:.2f} GB/s), every "
+                f"batch bit for bit; a bit flipped on disk in leaf "
+                f"seg3/initial: CheckpointCorrupt names it")
+        finally:
+            shutil.rmtree(snap, ignore_errors=True)
+    finally:
+        eng.close()
+    check(not eng._worker.is_alive(), "tiering worker still running")
+    del eng, r8, oracle, scoped
+
+    # (g) an int8 store: int8 mean_pooling (db scan, chunk 256) and int8
+    # initial (int8 rerank), float copies dropped, 8 segments, 3 resident
+    two8 = MST.with_rerank_policy(MST.with_scan_policy(
+        MST.two_stage(256, 10), use_kernel=True, chunk=256),
+        rerank_kernel=True)
+    q8 = quantize_store(base, names=("mean_pooling", "initial"),
+                        stages=(MST.Stage("initial", 10),))
+    check("initial" not in q8.vectors and "mean_pooling" not in q8.vectors,
+          "int8 store kept a float copy")
+    r8 = eight_segments(q8.vectors)
+    del q8
+    seg8 = r8.store.segments[0].nbytes
+    oracle8 = [r8.search(bq, bm, stages=two8) for bq, bm in batches]
+    eng = r8.tiered(3 * seg8)
+    try:
+        c0 = dict(counts)
+        got, dt = timed(lambda: counted(lambda: [
+            eng.search(bq, bm, stages=two8) for bq, bm in batches]))
+        for b, (g, o) in enumerate(zip(got, oracle8)):
+            same_result(g, o, f"(g) int8 batch {b}")
+        for k in ("maxsim_scan_db", "maxsim_rerank_int8"):
+            check(counts[k] > c0[k], f"(g) the int8 tiered search never "
+                  f"launched {k}")
+        res["int8"] = dict(qps=len(q) / dt, seg_mb=seg8 / 1e6,
+                           promotions=eng.stats["promotions"])
+        log(f"[tiered] (g) int8 store ({seg8 / 1e6:.1f} MB a segment, "
+            f"budget 3): {len(q) / dt:.1f} QPS, bit for bit its resident "
+            f"search; {eng.stats['promotions']} promotions")
+    finally:
+        eng.close()
+    del eng, r8
+    res["counts"] = counts
+    log(f"[tiered] launches over the tiered searches {used(counts)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -2128,6 +2532,7 @@ def main() -> None:
     ingest_res = ingest_path(args, dev, main_res)
     fe_res = frontend_path(args, dev, main_res)
     mrl_res = matryoshka_quickstart_path(args, dev, main_res)
+    tier_res = tiered_path(args, dev, main_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
@@ -2199,10 +2604,25 @@ def main() -> None:
     log(f"[summary] MRL32 2-stage: kernel QPS {mrl_res['qps']:.1f}, plain "
         f"QPS {mrl_res['plain_qps']:.1f}, "
         f"ndcg@10={mrl_res['metrics']['ndcg@10']:.4f}")
+    t = tier_res
+    log(f"[summary] tiered, {t['segments']} segments of "
+        f"{t['seg_mb']:.1f} MB ({t['total_gb']:.3f} GB), budget 3: overlap "
+        f"{t['overlap']['qps']:.1f} QPS, sync {t['sync']['qps']:.1f} QPS "
+        f"(ratio {t['overlap_ratio']:.3f}), resident "
+        f"{t['resident_qps']:.1f} QPS; {t['overlap']['promotions']} "
+        f"promotions over {t['batches']} batches; promotion "
+        f"{t['overlap']['promote_gbs']:.2f} GB/s, h2d pinned "
+        f"{t['h2d']['pinned']:.2f} / pageable {t['h2d']['pageable']:.2f} "
+        f"GB/s; hot scope {t['hot']['qps']:.1f} QPS (resident "
+        f"{t['hot']['resident_qps']:.1f}); {t['degraded']['n']} degraded "
+        f"results; snapshot write {t['snapshot']['write_gbs']:.2f} GB/s, "
+        f"restore {t['snapshot']['restore_gbs']:.2f} GB/s; int8 "
+        f"{t['int8']['qps']:.1f} QPS; engine peak {t['peak_mb']:.1f} MB")
     new_launches = {name: {k: v for k, v in res["counts"].items() if v}
                     for name, res in (("ingest", ingest_res),
                                       ("frontend", fe_res),
-                                      ("mrl", mrl_res))}
+                                      ("mrl", mrl_res),
+                                      ("tiered", tier_res))}
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

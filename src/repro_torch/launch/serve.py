@@ -48,14 +48,95 @@ tenant id) and every request is scoped to one tenant with a
 ``FilterSpec``; ``--tenant-quota`` bounds the queued rows per tenant in
 the frontend (excess submits are rejected at admission). Page ids are
 reassigned in ingest order, so ranking metrics do not apply there.
+
+Snapshot and tiered mode (static mode; two runs):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --pages 4096 \
+        --stages 2 --use-kernel --rerank-kernel --snapshot-dir DIR
+    PYTHONPATH=src python -m repro_torch.launch.serve --pages 4096 \
+        --stages 2 --use-kernel --rerank-kernel --snapshot-dir DIR \
+        --hbm-budget 400000000
+
+``--snapshot-dir`` persists the indexed corpus there (``Retriever.snapshot``)
+or, when the directory already holds a snapshot, cold-starts from it
+without indexing (``Retriever.from_snapshot``: bit for bit the saved
+corpus). ``--hbm-budget`` serves through a ``TieredEngine``: device-resident
+segment bytes capped at the budget, cold segments in pinned host memory,
+QPS with async prefetch and with synchronous fetch. ``--fault-plan`` arms
+the deterministic fault injector (a ``FaultPlan.parse`` spec, e.g.
+``transfer_fail_rate=0.05,kill_worker_at=3,seed=7``) on the engine's
+transfer and worker sites; ``--deadline-ms`` gives a tiered search a wall
+budget, under which ``--degrade`` serves from resident segments only
+(results flagged degraded) instead of blocking on cold promotions. On
+SIGTERM/SIGINT the launcher drains the frontend's queued requests, takes
+a final generation-stamped snapshot (with ``--snapshot-dir``), prints the
+shed/degraded/retry counters and exits 0.
 """
 from __future__ import annotations
 
 import argparse
+import signal
+import threading
 import time
 
 import numpy as np
 import torch
+
+
+class _Shutdown(BaseException):
+    """Raised inside the serving loop by the signal handler; unwinds to
+    ``main``'s graceful-exit path. A ``BaseException`` on purpose: the
+    frontend's per-cohort recovery catches ``Exception`` so one bad
+    cohort cannot take the server down, and a kill signal must pass
+    through that net."""
+
+
+def _install_signals() -> dict:
+    """Route SIGTERM/SIGINT into ``_Shutdown``; returns the previous
+    handlers (``main`` puts them back). Signals reach only the main
+    thread, so elsewhere nothing is installed."""
+    if threading.current_thread() is not threading.main_thread():
+        return {}
+
+    def handler(signum, frame):
+        raise _Shutdown(signal.Signals(signum).name)
+
+    return {s: signal.signal(s, handler)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+
+
+def _graceful_exit(args, live: dict, reason: str) -> dict:
+    """Drain, snapshot, report: a SIGTERM'd server finishes the work it
+    admitted and leaves a corpus the next process cold-starts from."""
+    print(f"\n{reason}: graceful shutdown")
+    out = {"shutdown": reason}
+    fe = live.get("frontend")
+    if fe is not None:
+        served = fe.drain()
+        st = fe.stats
+        print(f"  drained {served} queued request(s); stats: "
+              f"shed={st['shed']} degraded={st['degraded']} "
+              f"errors={st['errors']} rejected={st['rejected']}")
+        out["frontend"] = dict(st)
+    eng = live.get("engine")
+    if eng is not None:
+        st = eng.stats
+        print(f"  engine: retries={st['retries']} "
+              f"transfer_errors={st['transfer_errors']} "
+              f"worker_restarts={st['worker_restarts']} "
+              f"degraded={st['degraded']} "
+              f"deadline_skips={st['deadline_skips']}")
+        out["engine"] = dict(st)
+    retriever = live.get("retriever")
+    if retriever is not None and args.snapshot_dir:
+        # generation-stamped: snapshot() defaults its step to the store
+        # generation, so the drained final state lands under its own step
+        path = retriever.snapshot(args.snapshot_dir)
+        print(f"  final snapshot -> {path}")
+        out["snapshot"] = path
+    if eng is not None:
+        eng.close()
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -79,13 +160,18 @@ def _static_qps(retriever, bench, stages, filter=None) -> float:
     return len(q) / ((time.perf_counter() - t0) / 3)
 
 
-def _run_static(args, bench, retriever, stages, int8_on: bool) -> dict:
+def _run_static(args, bench, retriever, stages, int8_on: bool,
+                live: dict) -> dict:
     """Time the cascade over the whole query set and score the ranking;
-    prints and returns QPS and the metrics."""
+    prints and returns QPS and the metrics (through the tiered engine
+    with ``--hbm-budget``)."""
     from repro_torch.data.synthetic import evaluate_ranking
 
     if args.tenants > 1:
         return _run_static_tenants(args, bench, retriever, stages)
+    live["retriever"] = retriever
+    if args.hbm_budget > 0:
+        return _run_tiered(args, bench, retriever, stages, live)
     qps = _static_qps(retriever, bench, stages)
     _, ids = retriever.search(bench.queries, bench.query_mask,
                               stages=stages)
@@ -101,6 +187,65 @@ def _run_static(args, bench, retriever, stages, int8_on: bool) -> dict:
           f"QPS={qps:.1f}  " +
           "  ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
     return dict(qps=qps, **metrics)
+
+
+def _run_tiered(args, bench, retriever, stages, live: dict) -> dict:
+    """Static QPS through the tiered residency engine: device-resident
+    segment bytes capped at ``--hbm-budget``, cold segments in host
+    memory, async-prefetch overlap and synchronous fetch both timed (each
+    warmed once, timed three times, ended by a synchronising copy of the
+    ids). Scores the ranking of the overlap run."""
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.retrieval import tracing
+    from repro_torch.retrieval.faults import FaultPlan
+    from repro_torch.retrieval.tiering import DegradePolicy
+
+    store = retriever.store
+    store_bytes = sum(s.nbytes for s in store.segments)
+    q, qm = bench.queries, bench.query_mask
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    out = {}
+    with retriever.tiered(args.hbm_budget, faults=plan) as eng:
+        live["engine"] = eng
+        for overlap in (True, False):
+            eng.search(q, qm, stages=stages, overlap=overlap)     # warm
+            warm = tracing.trace_count()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                res = eng.search(q, qm, stages=stages, overlap=overlap)
+            qps = 3 * len(q) / (time.perf_counter() - t0)
+            mode = "overlap" if overlap else "sync"
+            out[mode] = qps
+            out[f"builds_{mode}"] = tracing.trace_count() - warm
+            print(f"tiered [{mode}, budget {args.hbm_budget / 1e6:.0f}MB / "
+                  f"corpus {store_bytes / 1e6:.0f}MB] on {retriever.device}:"
+                  f" QPS={qps:.1f}  resident={len(eng.resident())}/"
+                  f"{len(store.segments)} segments")
+            if overlap:
+                out["metrics"] = evaluate_ranking(res.ids, bench.qrels,
+                                                  ks=(5, 10))
+        if args.deadline_ms > 0:
+            res = eng.search(
+                q, qm, stages=stages, deadline_ms=args.deadline_ms,
+                degrade=DegradePolicy() if args.degrade
+                else DegradePolicy(skip_cold=False))
+            out["deadline"] = dict(degraded=res.degraded,
+                                   skipped=res.skipped_segments)
+            print(f"  deadline {args.deadline_ms:.0f}ms: "
+                  f"degraded={res.degraded} "
+                  f"skipped_segments={res.skipped_segments}")
+        st = eng.stats
+        print("  " + "  ".join(f"{k}={v:.3f}" for k, v in
+                               out["metrics"].items()))
+        print(f"  promotions={st['promotions']} demotions="
+              f"{st['demotions']} h2d={st['bytes_h2d'] / 1e6:.0f}MB "
+              f"hit-rate={st['hits'] / max(st['hits'] + st['misses'], 1):.2f}"
+              f" wait={st['wait_s'] * 1e3:.1f}ms retries={st['retries']} "
+              f"transfer_errors={st['transfer_errors']} "
+              f"worker_restarts={st['worker_restarts']}")
+        out["stats"] = dict(st)
+        live.pop("engine")
+    return out
 
 
 def _run_static_tenants(args, bench, retriever, stages) -> dict:
@@ -134,7 +279,7 @@ def _ragged_requests(bench, n_req: int, rng, min_tokens: int = 3) -> list:
     return reqs
 
 
-def _run_traffic(args, bench, retriever, stages) -> dict:
+def _run_traffic(args, bench, retriever, stages, live: dict) -> dict:
     """Open-loop Poisson traffic of ragged single queries through the
     shape-bucketed micro-batching frontend; tail latency and QPS."""
     from repro_torch.retrieval import tracing
@@ -148,6 +293,8 @@ def _run_traffic(args, bench, retriever, stages) -> dict:
                             cache_size=args.result_cache,
                             tenant_quota=args.tenant_quota,
                             deadline_ms=args.deadline_ms)
+    live["frontend"] = fe
+    live["retriever"] = retriever
     n_warm = fe.warm()
     rate = args.arrival_rate or 0.8 * static_qps
     rng = np.random.default_rng(17)
@@ -247,6 +394,24 @@ def _run_ingest(args, cfg, bench, retriever, stages, quantize) -> dict:
 
 
 def main(argv=None) -> dict:
+    """Parse ``argv``, run one mode, return its numbers. A SIGTERM/SIGINT
+    during the run ends in the graceful shutdown (its report returned),
+    and the previous signal handlers are put back either way."""
+    previous = _install_signals()
+    live: dict = {}
+    try:
+        return _main(argv, live)
+    except _Shutdown as e:
+        args = live.get("args")
+        if args is None:
+            raise
+        return _graceful_exit(args, live, str(e))
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def _main(argv, live: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import multistage as MST
     from repro_torch.data.synthetic import make_benchmark
@@ -255,6 +420,7 @@ def main(argv=None) -> dict:
                                               batch_bucket)
     from repro_torch.retrieval.retriever import Retriever
     from repro_torch.retrieval.segments import bucket_capacity
+    from repro_torch.training.checkpoint import latest_step
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="colpali")
@@ -320,13 +486,33 @@ def main(argv=None) -> dict:
                     help="max queued rows per tenant in the traffic "
                          "frontend (0 = unlimited)")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
-                    help="per-request wall budget in the traffic "
-                         "frontend: queued requests past it are shed "
+                    help="per-request wall budget: queued traffic requests "
+                         "past it are shed; a tiered search over it serves "
+                         "resident segments only with --degrade "
                          "(0 = no deadline)")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="persist the indexed corpus here, or cold-start "
+                         "from the snapshot it already holds (no "
+                         "re-ingest; static mode)")
+    ap.add_argument("--hbm-budget", type=int, default=0,
+                    help="tiered mode (static): cap device-resident "
+                         "segment bytes at this budget, spill cold "
+                         "segments to pinned host memory, report QPS with "
+                         "async prefetch and with synchronous fetch")
+    ap.add_argument("--degrade", action="store_true",
+                    help="with --deadline-ms and --hbm-budget: skip cold "
+                         "segments under deadline pressure (results "
+                         "flagged degraded) instead of blocking on them")
+    ap.add_argument("--fault-plan", default="",
+                    help="arm the deterministic fault injector on the "
+                         "tiered engine (FaultPlan.parse spec, e.g. "
+                         "'transfer_fail_rate=0.05,kill_worker_at=3,"
+                         "seed=7')")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    live["args"] = args
 
     cfg = get_config(args.arch)
     per = max(args.pages // 3, 30)
@@ -359,6 +545,19 @@ def main(argv=None) -> dict:
             print(f"--int8: scan stage '{scan_vec}' is single-vector; "
                   "skipping quantisation")
 
+    static = (args.traffic == 0 and args.ingest_batches == 0
+              and args.tenants <= 1)
+    if static and args.snapshot_dir and \
+            latest_step(args.snapshot_dir) is not None:
+        t0 = time.perf_counter()
+        retriever = Retriever.from_snapshot(args.snapshot_dir,
+                                            device=device)
+        _sync(device)
+        print(f"cold-start: restored {retriever.n_docs} pages from "
+              f"{args.snapshot_dir} in {time.perf_counter() - t0:.2f}s "
+              "(bit for bit the saved corpus; no re-ingest)")
+        return _run_static(args, bench, retriever, stages, bool(quantize),
+                           live)
     n = len(bench.pages)
     total = n
     if args.ingest_batches > 0:
@@ -392,10 +591,16 @@ def main(argv=None) -> dict:
           f" (named vectors: {sorted(retriever.store.dims())}, pooling "
           f"{pipe.pool_path})")
     if args.traffic > 0:
-        return _run_traffic(args, bench, retriever, stages)
+        return _run_traffic(args, bench, retriever, stages, live)
     if args.ingest_batches > 0:
         return _run_ingest(args, cfg, bench, retriever, stages, quantize)
-    return _run_static(args, bench, retriever, stages, bool(quantize))
+    if args.snapshot_dir:
+        t0 = time.perf_counter()
+        path = retriever.snapshot(args.snapshot_dir)
+        print(f"snapshot -> {path} ({time.perf_counter() - t0:.2f}s; "
+              "run again with the same --snapshot-dir to cold-start from "
+              "it)")
+    return _run_static(args, bench, retriever, stages, bool(quantize), live)
 
 
 if __name__ == "__main__":

@@ -249,6 +249,21 @@ def _segment_rerank(stage: Stage, store: dict, eff, cap: int, off: int, q,
                              stage.rerank_kernel)
 
 
+def _resolve_stage0(stages: tuple) -> Stage:
+    """The stage-0 dispatch that ``make_segmented_search_fn`` and
+    ``make_segment_scan_fn`` share. The port resolves kernel or plain
+    version per call, from the stage's flags (``use_kernel``: the scan
+    and the routed centroid scores; ``use_kernel or rerank_kernel``: the
+    routed candidate scores) and the tensors' device, inside
+    ``_segment_stage0``; both builders hand that function this same stage,
+    so a per-segment function and the joint cascade route every op alike
+    (what makes tiered results bit for bit the resident ones)."""
+    stages = tuple(stages)
+    if not stages:
+        raise ValueError("search needs at least one stage")
+    return stages[0]
+
+
 def make_segmented_search_fn(stages: tuple, capacities: tuple):
     """The cascade over a tuple of segment store dicts.
 
@@ -263,6 +278,7 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
     record_trace()
     stages = tuple(stages)
     capacities = tuple(capacities)
+    _resolve_stage0(stages)
     if not capacities:
         raise ValueError("search needs at least one segment")
     offsets = _offsets(capacities)
@@ -299,6 +315,50 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
         return scores, cand
 
     return search
+
+
+def make_segment_scan_fn(stages: tuple, capacity: int):
+    """Stage 0 over ONE segment, for the tiered per-segment pipeline
+    (``retrieval.tiering``).
+
+    Returns fn(store: dict, q [B,Q,d], q_mask [B,Q], fspec, offset) ->
+    (vals [B,k0], GLOBAL slot ids [B,k0]). ``offset`` is the segment's
+    first global slot, a plain int argument and never part of a cache
+    key, so one function serves every segment of this layout and a
+    change of residency builds nothing. The body is ``_segment_stage0``,
+    the code the joint cascade runs per segment. Each build counts one
+    ``tracing.record_trace``."""
+    record_trace()
+    stage = _resolve_stage0(stages)
+
+    def seg_scan(store, q, q_mask, fspec, offset):
+        arrays = as_filter_arrays(fspec, filter_words(store), q.device)
+        eff = effective_validity(store, arrays)
+        return _segment_stage0(stage, store, eff, capacity, int(offset), q,
+                               q_mask)
+
+    return seg_scan
+
+
+def make_segment_rerank_fn(stages: tuple, stage_index: int, capacity: int):
+    """Rerank stage ``stage_index`` over ONE segment (the tiered twin of
+    the joint cascade's rerank block: the same ``_segment_rerank``).
+
+    Returns fn(store, q, q_mask, fspec, offset, cand [B,L]) -> [B,L]
+    scores, NEG for candidates this segment does not own; the caller
+    folds segments with an elementwise max (each candidate is real in
+    exactly one segment). ``offset`` as in ``make_segment_scan_fn``. Each
+    build counts one ``tracing.record_trace``."""
+    record_trace()
+    stage = tuple(stages)[stage_index]
+
+    def seg_rerank(store, q, q_mask, fspec, offset, cand):
+        arrays = as_filter_arrays(fspec, filter_words(store), q.device)
+        eff = effective_validity(store, arrays)
+        return _segment_rerank(stage, store, eff, capacity, int(offset), q,
+                               q_mask, cand)
+
+    return seg_rerank
 
 
 def make_search_fn(stages: tuple, n_docs: int):

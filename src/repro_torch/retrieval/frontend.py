@@ -27,6 +27,13 @@ coalesces requests into one cascade launch each:
   (``tenant_quota``) bounds the queued rows one tenant may hold — excess
   submits raise ``AdmissionError``. A request past its deadline
   (``deadline_ms``) is shed instead of queued or dispatched.
+- **tiered dispatch** (optional) — with ``engine=`` a
+  ``tiering.TieredEngine`` serves the blocks instead of the retriever; a
+  micro-batch carries its tightest member's remaining budget into the
+  engine, which degrades (resident segments only, per ``degrade=``)
+  instead of blocking on cold-segment promotions. A degraded answer is
+  flagged (``PendingResult.degraded``), counted in ``stats["degraded"]``
+  and never cached.
 - **result cache** (optional) — an LRU keyed on (stages, store
   generation, FILTER identity, query bytes, mask bytes) short-circuits
   repeated identical queries without touching the device. The generation
@@ -82,10 +89,11 @@ class DeadlineExceeded(RuntimeError):
 class PendingResult:
     """Handle for a submitted request; filled in by the flush that serves
     it (or sheds or fails it — a completed handle always resolves: check
-    ``error``/``shed``, or call ``result()`` to get ``(scores, ids)`` or
-    raise). ``latency`` is seconds from admission to completion."""
+    ``error``/``shed``/``degraded``, or call ``result()`` to get
+    ``(scores, ids)`` or raise). ``latency`` is seconds from admission to
+    completion."""
     __slots__ = ("scores", "ids", "t_submit", "t_done", "cached", "error",
-                 "shed", "deadline")
+                 "shed", "degraded", "deadline")
 
     def __init__(self, t_submit: float, deadline: float | None = None):
         self.scores = None
@@ -95,6 +103,7 @@ class PendingResult:
         self.cached = False
         self.error = None
         self.shed = False
+        self.degraded = False
         self.deadline = deadline
 
     def done(self) -> bool:
@@ -128,7 +137,8 @@ class ServingFrontend:
     def __init__(self, retriever, stages: tuple, *, max_batch: int = 16,
                  max_q: int = 32, min_q: int = 8, flush_ms: float = 2.0,
                  cache_size: int = 0, tenant_quota: int = 0,
-                 deadline_ms: float = 0.0, clock=time.perf_counter):
+                 deadline_ms: float = 0.0, engine=None, degrade=None,
+                 clock=time.perf_counter):
         self.retriever = retriever
         self.stages = tuple(stages)
         # per-request wall budget (0 = none): a request whose deadline is
@@ -136,6 +146,13 @@ class ServingFrontend:
         # with DeadlineExceeded) instead of queued or dispatched;
         # submit(deadline_ms=...) overrides it per request
         self.deadline_ms = float(deadline_ms)
+        # optional tiering.TieredEngine to dispatch through: micro-batches
+        # then carry their tightest member's remaining budget into the
+        # engine, which degrades instead of blocking on cold-segment
+        # promotions; ``degrade`` is the tiering.DegradePolicy (None =
+        # the engine's default)
+        self._engine = engine
+        self._degrade = degrade
         self.b_buckets = bucket_ladder(max_batch)
         self.q_buckets = bucket_ladder(max_q, min_q)
         self.max_batch = self.b_buckets[-1]
@@ -153,7 +170,7 @@ class ServingFrontend:
         self._cache: OrderedDict = OrderedDict()
         self.stats = {"requests": 0, "dispatches": 0, "cache_hits": 0,
                       "rows_real": 0, "rows_padded": 0, "rejected": 0,
-                      "shed": 0, "errors": 0}
+                      "shed": 0, "degraded": 0, "errors": 0}
 
     # ------------------------------------------------------------------
     # buckets
@@ -210,9 +227,14 @@ class ServingFrontend:
         hit = self._cache_get(q, qm, fkey)
         if hit is not None:
             return hit
-        result = self._run_block([(q, qm)], fkey)
-        self._cache_put(q, qm, fkey, result)
-        return result
+        scores, ids, degraded = self._run_block([(q, qm)], fkey)
+        if degraded:
+            self.stats["degraded"] += 1
+        else:
+            # a degraded (partial) answer must never be served again
+            # from cache as if it were the exact one
+            self._cache_put(q, qm, fkey, (scores, ids))
+        return scores, ids
 
     # ------------------------------------------------------------------
     # micro-batching path
@@ -333,9 +355,16 @@ class ServingFrontend:
                 live.append(item)
         if not live:
             return len(take)
+        budget = None
+        deadlines = [pr.deadline for pr, _, _ in live
+                     if pr.deadline is not None]
+        if deadlines:
+            # the cohort shares one dispatch: its tightest member's
+            # remaining budget bounds it
+            budget = max((min(deadlines) - now) * 1e3, 0.0)
         try:
-            scores, ids = self._run_block([(q, qm) for _, q, qm in live],
-                                          fkey)
+            scores, ids, degraded = self._run_block(
+                [(q, qm) for _, q, qm in live], fkey, deadline_ms=budget)
         except BaseException as e:
             # complete every popped request with the error — waiters
             # raise (PendingResult.result) instead of hanging on a handle
@@ -357,7 +386,12 @@ class ServingFrontend:
             b = q.shape[0]
             pr.scores, pr.ids = scores[r0:r0 + b], ids[r0:r0 + b]
             pr.t_done = t_done
-            self._cache_put(q, qm, fkey, (pr.scores, pr.ids))
+            if degraded:
+                pr.degraded = True
+                self.stats["degraded"] += 1
+            else:
+                # degraded (partial) answers are flagged, never cached
+                self._cache_put(q, qm, fkey, (pr.scores, pr.ids))
             r0 += b
         return len(take)
 
@@ -418,10 +452,11 @@ class ServingFrontend:
         unscoped requests, which share one bucket)."""
         return getattr(fkey, "tenant", -1) if fkey is not None else -1
 
-    def _run_block(self, reqs: list, fkey=None) -> tuple:
+    def _run_block(self, reqs: list, fkey=None,
+                   deadline_ms: float | None = None) -> tuple:
         """Pad a list of admitted same-filter requests into one bucket
         block and dispatch it. Returns host (scores [rows, k], page ids
-        [rows, k])."""
+        [rows, k], degraded flag)."""
         rows = sum(q.shape[0] for q, _ in reqs)
         q_len = max(q.shape[1] for q, _ in reqs)
         d = reqs[0][0].shape[2]
@@ -434,18 +469,29 @@ class ServingFrontend:
             qp[r0:r0 + b, :ql] = q
             qmp[r0:r0 + b, :ql] = qm
             r0 += b
-        return self._dispatch(qp, qmp, rows=rows, fkey=fkey)
+        return self._dispatch(qp, qmp, rows=rows, fkey=fkey,
+                              deadline_ms=deadline_ms)
 
     def _dispatch(self, qp: np.ndarray, qmp: np.ndarray, rows: int,
-                  fkey=None) -> tuple:
+                  fkey=None, deadline_ms: float | None = None) -> tuple:
         """One cascade launch on a padded bucket block. Padded batch rows
         are dropped BEFORE id translation (their scores rank zero
         content). The scores and slots come to the host here, which waits
         for the search. ``fkey`` is the block's filter. Returns (scores,
-        ids)."""
+        ids, degraded); ``degraded`` is only ever True on the tiered
+        path under a deadline."""
         self.stats["dispatches"] += 1
         self.stats["rows_real"] += rows
         self.stats["rows_padded"] += qp.shape[0] - rows
+        if self._engine is not None:
+            # tiered path: the engine translates and masks ids itself and
+            # degrades under the cohort's remaining budget
+            res = self._engine.search(
+                torch.from_numpy(qp), torch.from_numpy(qmp),
+                stages=self.stages, filter=fkey, deadline_ms=deadline_ms,
+                degrade=self._degrade)
+            return (res.scores[:rows].float().cpu().numpy(),
+                    res.ids[:rows], bool(res.degraded))
         scores, slots = self.retriever.search(
             torch.from_numpy(qp), torch.from_numpy(qmp), stages=self.stages,
             translate_ids=False, filter=fkey)
@@ -455,11 +501,14 @@ class ServingFrontend:
         # filter-excluded live slots score NEG like dead slots; mask their
         # ids so filler can never expose another tenant's page ids (the
         # contract of Retriever.search with translate_ids=True)
-        return scores, np.where(scores <= NEG / 2, np.int64(-1), ids)
+        return (scores, np.where(scores <= NEG / 2, np.int64(-1), ids),
+                False)
 
     def _cache_key(self, q: np.ndarray, qm: np.ndarray, fkey):
         # the store generation invalidates every entry on corpus mutation
-        # (upsert/ingest/delete/compact); the FILTER identity is part of
+        # (upsert/ingest/delete/compact) and on every tier swap of a
+        # TieredEngine (residency changes no value, so dropping those
+        # entries is only conservative); the FILTER identity is part of
         # the key: the same query bytes under different tenants/filters
         # are different requests
         return (self.stages, self.retriever.store.generation, fkey,

@@ -130,6 +130,36 @@ class Retriever:
         return ServingFrontend(self, stages, **kwargs)
 
     # ------------------------------------------------------------------
+    # tiered residency + persistence (``retrieval.tiering``)
+    # ------------------------------------------------------------------
+
+    def tiered(self, hbm_budget: int, **kwargs):
+        """A ``tiering.TieredEngine`` over this retriever: device-resident
+        segment bytes capped at ``hbm_budget``, cold segments in (pinned)
+        host memory, LRU promotion and demotion, async prefetch on a copy
+        stream. The corpus can then exceed the card's memory."""
+        from repro_torch.retrieval.tiering import TieredEngine
+        return TieredEngine(self, hbm_budget, **kwargs)
+
+    def snapshot(self, directory: str, **kwargs) -> str:
+        """Persist the whole corpus (tensors, slot maps, tenant/filter/IVF
+        companions) so a restart serves without re-ingesting; see
+        ``tiering.snapshot``."""
+        from repro_torch.retrieval import tiering
+        return tiering.snapshot(self.store, directory, **kwargs)
+
+    @classmethod
+    def from_snapshot(cls, directory: str, *, step: int | None = None,
+                      device="cuda", **kwargs) -> "Retriever":
+        """Cold-start a retriever from a ``snapshot`` directory (this
+        package's or ``repro``'s), bit for bit the store that was saved,
+        every segment resident on ``device``. Extra kwargs go to the
+        constructor (``ingest``, ...)."""
+        from repro_torch.retrieval import tiering
+        store = tiering.restore_store(directory, step=step, device=device)
+        return cls(store, device=device, **kwargs)
+
+    # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
 

@@ -80,6 +80,14 @@ class Segment:
     # store's router is enabled. The centroid / member tensors live in
     # ``vectors`` under the reserved routing keys.
     routing: object = None
+    # residency tier (``retrieval.tiering``): "device" = the tensors live
+    # on the store's device; "host" = spilled to host memory (pinned CPU
+    # tensors when the store is on the card) with the SAME keys, shapes
+    # and dtypes. Residency is placement, never shape: ``layout_key()``
+    # ignores it, so search functions survive tier swaps (a host-tier
+    # segment is promoted before it is scanned; the tiering layer owns
+    # that).
+    tier: str = "device"
 
     @property
     def free(self) -> int:
@@ -88,6 +96,13 @@ class Segment:
     @property
     def n_valid(self) -> int:
         return int((self.doc_ids >= 0).sum())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of this segment's tensors in its current tier (the unit
+        of the tiering layer's device-memory budget)."""
+        return sum(v.numel() * v.element_size()
+                   for v in self.vectors.values())
 
 
 class SegmentedStore:
@@ -199,7 +214,11 @@ class SegmentedStore:
 
     @property
     def device(self) -> torch.device:
-        return self.segments[0].vectors[VALIDITY_KEY].device
+        """The device of the store's device-tier segments (segment 0's
+        when every segment is spilled to host memory)."""
+        seg = next((s for s in self.segments if s.tier == "device"),
+                   self.segments[0])
+        return seg.vectors[VALIDITY_KEY].device
 
     # ------------------------------------------------------------------
     # mutation
@@ -339,6 +358,27 @@ class SegmentedStore:
         self._slot_ids = None
         self.generation += 1
         return self
+
+    def tier_swap(self, seg_i: int, vectors: dict, tier: str) -> None:
+        """Adopt a promotion's or demotion's tensors for segment ``seg_i``:
+        the SAME keys, shapes and dtypes in another placement (device
+        tensors on promote, host tensors on demote). The one mutation
+        the tiering layer makes to the store:
+
+        - ``generation`` bumps: no value changed, but result caches keyed
+          on it (the frontend's) drop their entries rather than reason
+          about residency;
+        - ``doc_ids`` and the slot map are untouched, and so is
+          ``layout_key()``: a tier swap builds no search function.
+        """
+        seg = self.segments[seg_i]
+        if set(vectors) != set(seg.vectors):
+            raise ValueError(
+                f"tier swap changed the key set for segment {seg_i}: "
+                f"{sorted(set(vectors) ^ set(seg.vectors))}")
+        seg.vectors = vectors
+        seg.tier = tier
+        self.generation += 1
 
     # ------------------------------------------------------------------
     # views

@@ -365,6 +365,16 @@ def rerank_arrays(vectors: dict, name: str) -> tuple:
             vectors[scale_key(name)])
 
 
+def snapshot_entries(vectors: dict) -> tuple:
+    """Deterministic persistence order for a segment's vectors dict: every
+    tensor (named vectors, their mask/codes/scales companions, the
+    doc-level validity/tenant/filter triple, the IVF routing companions)
+    as ``(key, tensor)`` pairs sorted by key — the enumeration
+    ``retrieval.tiering.snapshot`` flattens a ``SegmentedStore`` with, and
+    ``repro``'s, so snapshots cross packages."""
+    return tuple(sorted(vectors.items()))
+
+
 def companion_entries(vectors: dict, source: str, name: str) -> dict:
     """Companion arrays a vector DERIVED from ``source`` (same [N, D]
     geometry, e.g. a Matryoshka dim-truncation) should be indexed with,

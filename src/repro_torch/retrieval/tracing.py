@@ -16,7 +16,12 @@ pay again once warm:
   (``repro_torch.retrieval.engine.make_segmented_search_fn``, cached per
   stages and layout by ``Retriever.search_fn``). A new segment allocated
   by an upsert or ingest past the headroom, ``compact()`` and
-  ``enable_routing`` change the layout, so the next search counts one.
+  ``enable_routing`` change the layout, so the next search counts one;
+- a per-segment function of the tiered pipeline
+  (``engine.make_segment_scan_fn``/``make_segment_rerank_fn``, cached by
+  ``tiering.TieredEngine`` per kind, stages, stage and the segment's
+  layout). A segment's tier and position are not part of its layout, so
+  promotions and demotions count nothing.
 
 After warm-up, a steady-state upsert/ingest/delete/search/traffic
 sequence must leave the counter unchanged; tests, ``chip_smoke.py`` and
