@@ -137,6 +137,32 @@ line) at the first phase that goes wrong:
             through its own engine, bit for bit its resident search.
             Prints QPS, promotions, bytes and GB/s, and the host->card
             rates of one segment from pinned and from pageable memory;
+4k. train   the ColX encoder (``models/late_interaction.py``) and its
+            training path at ColPali width (d_model 1024, 16 heads, d_ff
+            4096, S=1030, out_dim 128, query_vocab 32768), f32 with TF32
+            off, batches from ``examples/train_retriever_torch.py``'s
+            ``synth_batch``: (a) a 2-layer model, batch 4, on the card
+            against the same seeded model on the CPU: loss within rtol
+            1e-5, every gradient within rtol 1e-3, atol 1e-6; (b) the
+            16-layer config, batch 16, ``OptConfig(lr=3e-4, warmup=20)``:
+            2 warm-up and 10 timed steps (CUDA events) and one step
+            under ``torch.profiler`` (device time of GEMM, softmax and
+            other kernels), every loss and grad_norm finite, the lr
+            sequence the schedule's; prints ms/step, pages/s, FLOPs
+            (formula printed), TFLOP/s and peak memory; (c) the train
+            state checkpointed after step 13 in
+            ``repro``'s ``{"p", "o"}`` format and restored into a fresh
+            model: bit for bit, and the next 2 losses equal the
+            uninterrupted run's within rtol 1e-5; write and restore
+            GB/s; (d) the trained encoder encodes 512 pages (batches of
+            64) and their 8-token queries; ``Retriever.ingest`` indexes
+            them (pooling kernel, bf16 store) and the 2-stage(256, 10)
+            cascade through the scan and rerank kernels must give the
+            plain path's ids apart from near-exact ties and its
+            recall/NDCG@5/10 to 3 decimals (query i's page is page i);
+            pooling, scan and rerank must each launch. 4k runs after
+            phase 5 has timed the kernels, so that neither its training
+            load nor its profiled step comes before those times;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -875,13 +901,97 @@ def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str,
           f"(max {np.abs(sc_k - sc_p).max():.3e})")
     swaps = 0
     for r in range(ids_k.shape[0]):
-        for j in np.flatnonzero(ids_k[r] != ids_p[r]):
-            near = [abs(sc_p[r, j] - sc_p[r, jj]) <= tie
-                    for jj in (j - 1, j + 1) if 0 <= jj < sc_p.shape[1]]
-            check(any(near), f"{what}: query {r} rank {j} id "
-                  f"{ids_k[r, j]} != {ids_p[r, j]} without a tie")
-            swaps += 1
+        n, j = row_swaps(ids_k[r], ids_p[r], sc_p[r], tie)
+        if j is not None:
+            fail(f"{what}: query {r} rank {j} id {ids_k[r, j]} != "
+                 f"{ids_p[r, j]} without a tie")
+        swaps += n
     return swaps
+
+
+def row_swaps(ids_k, ids_p, sc_p, tie: float) -> tuple:
+    """(positions where one query's kernel and plain ids differ, the first
+    such position whose plain score holds no tie within ``tie`` with a
+    neighbour, or None). Only neighbours inside the top k are seen: a tie
+    of the k-th with the (k+1)-th plain score is not."""
+    swaps = 0
+    for j in np.flatnonzero(ids_k != ids_p):
+        near = [abs(sc_p[j] - sc_p[jj]) <= tie
+                for jj in (j - 1, j + 1) if 0 <= jj < len(sc_p)]
+        if not any(near):
+            return swaps, int(j)
+        swaps += 1
+    return swaps, None
+
+
+def compare_two_stage(r, qb, kern, ids_k, sc_k, ids_p, sc_p, what: str,
+                      tie: float = 1e-4) -> tuple:
+    """``compare_rankings`` for a 2-stage cascade over a corpus whose
+    stage-0 scores crowd at the prefetch cutoff, where the scan's own
+    tolerance (rtol 1e-5, atol 1e-4) can put a different document among
+    the candidates. A query whose kernel and plain ids differ beyond
+    final-score ties passes only if (i) its kernel and plain stage-0
+    candidate sets differ only in documents whose plain stage-0 score lies
+    within twice that tolerance of the plain cutoff score, and (ii) its
+    kernel ids and scores are the plain top-k over the kernel's own
+    candidates, apart from final-score ties, a tie of the k-th with the
+    (k+1)-th plain score included. Returns (tie swaps, queries explained
+    by cutoff ties). ``r`` holds one segment."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.retrieval.store import ROUTING_KEYS
+    check(ids_k.shape == ids_p.shape, f"{what}: id shapes differ")
+    check(np.isfinite(sc_k).all() and np.isfinite(sc_p).all(),
+          f"{what}: non-finite scores")
+    swaps, bad = 0, []
+    for i in range(ids_k.shape[0]):
+        n, j = row_swaps(ids_k[i], ids_p[i], sc_p[i], tie)
+        if j is not None:
+            bad.append(i)
+            continue
+        check(np.allclose(sc_k[i], sc_p[i], rtol=1e-5, atol=1e-4),
+              f"{what}: query {i} scores differ beyond rtol=1e-5, atol=1e-4")
+        swaps += n
+    if not bad:
+        return swaps, 0
+    store = r.store.vectors
+    doc_ids = r.store.segments[0].doc_ids
+    n_slots = int(store["doc_valid"].shape[0])
+    q, qm = qb.queries[bad], qb.query_mask[bad]
+    _, c0 = r.search(q, qm, stages=kern[:1], translate_ids=False)
+    fs, fk = r.search(q, qm, stages=kern, translate_ids=False)
+    s_all, c_all = MST.search(store, q, (MST.Stage(kern[0].vector,
+                                                   n_slots),), qm)
+    k0 = kern[0].k
+    for b, i in enumerate(bad):
+        cut = float(s_all[b, k0 - 1])
+        tol = 2 * (1e-4 + 1e-5 * abs(cut))
+        plain0 = dict(zip(c_all[b].tolist(), s_all[b].float().tolist()))
+        diff = set(c_all[b, :k0].tolist()) ^ set(c0[b].tolist())
+        far = [d for d in diff if abs(plain0[d] - cut) > tol]
+        check(not far, f"{what}: query {i}: stage-0 candidates {far} differ "
+              f"from the plain path's {abs(plain0[far[0]] - cut) if far else 0:.3e}"
+              f" from the cutoff score {cut:.6f} (tolerance {tol:.1e})")
+        check(np.array_equal(doc_ids[fk[b].cpu().numpy()], ids_k[i])
+              and np.array_equal(fs[b].float().cpu().numpy(), sc_k[i]),
+              f"{what}: query {i}: a second kernel search gave other ids "
+              "or scores")
+        cand = c0[b]
+        sub = {key: v[cand] for key, v in store.items()
+               if key not in ROUTING_KEYS}
+        # the whole plain ranking of the candidates, so that a tie between
+        # the k-th and the (k+1)-th is seen
+        whole = (dataclasses.replace(kern[1], k=len(cand)),)
+        ps, pi = MST.search(sub, q[b:b + 1], whole, qm[b:b + 1])
+        want_s = ps[0].float().cpu().numpy()
+        k = fk.shape[1]
+        _, j = row_swaps(fk[b].cpu().numpy(), cand[pi[0, :k]].cpu().numpy(),
+                         want_s, tie)
+        check(j is None, f"{what}: query {i} rank {j}: kernel ids are not "
+              "the plain top-k over the kernel's own candidates")
+        check(np.allclose(fs[b].float().cpu().numpy(), want_s[:k],
+                          rtol=1e-5, atol=1e-4), f"{what}: query {i}: "
+              "kernel scores differ from the plain ones over its candidates")
+    return swaps, len(bad)
 
 
 def main_path(args, dev) -> dict:
@@ -2145,6 +2255,326 @@ def tiered_path(args, dev, main) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the encoder and its training path
+# ---------------------------------------------------------------------------
+
+def load_example(name: str):
+    """An ``examples/<name>.py`` module (its ``main`` is not run)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_step_flops(cfg, B: int, Q: int) -> tuple:
+    """(FLOPs of one contrastive train step, the formula): 2 x
+    multiply-adds of the forward pass, the per-block recompute and the
+    backward pass (2 x forward) over B pages of S tokens and B queries of
+    Q tokens."""
+    d, L, S = cfg.d_model, cfg.n_layers, cfg.seq_len
+    T = B * (S + Q)
+    blocks = L * (T * (4 * d * d + 2 * d * cfg.d_ff)
+                  + 2 * B * (S * S + Q * Q) * d)
+    fwd = (blocks + T * d * cfg.out_dim + B * cfg.n_patches * 64 * d
+           + B * B * Q * S * cfg.out_dim)
+    formula = ("2 x (3 x fwd + blocks) multiply-adds; blocks = L x [T x "
+               "(4 d^2 + 2 d d_ff) + 2 B (S^2 + Q^2) d], T = B (S + Q); fwd "
+               "= blocks + T d out + B n_patches 64 d + B^2 Q S out "
+               f"(L={L}, d={d}, d_ff={cfg.d_ff}, S={S}, Q={Q}, B={B})")
+    return 2.0 * (3 * fwd + blocks), formula
+
+
+def profile_device_time(fn) -> tuple:
+    """(``fn()``, device milliseconds of its kernels by kind): one call
+    under ``torch.profiler`` with CUDA activity, each device event counted
+    once, GEMM kernels (cuBLAS, CUTLASS), softmax kernels and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_kind = {"gemm": 0.0, "softmax": 0.0, "other": 0.0}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        name = e.name.lower()
+        kind = ("gemm" if "gemm" in name else
+                "softmax" if "softmax" in name else "other")
+        by_kind[kind] += e.device_time / 1e3
+    check(sum(by_kind.values()) > 0, "torch.profiler recorded no device "
+          "time")
+    return out, by_kind
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def train_path(args, dev) -> dict:
+    """The ColX encoder and its training path at ColPali width: (a) loss
+    and every gradient of a 2-layer model on the card against the CPU,
+    (b) training steps at the full 16-layer config, timed, (c) checkpoint
+    and resume, (d) the trained encoder's pages indexed through the
+    pooling kernel and searched through the scan and rerank kernels
+    against the plain path."""
+    import copy
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.models import late_interaction as LI
+    from repro_torch.retrieval.ingest import IngestPipeline
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_state as TS
+    from repro_torch.training.train_loop import make_train_step
+
+    ex = load_example("train_retriever_torch")
+    full = get_config("colpali")
+    rng = np.random.default_rng(args.seed)
+    DSP.reset_counts()
+    res = {}
+
+    # (a) card against CPU: one seeded 2-layer model, one batch
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    cpu = LI.init_params(cfg2, torch.Generator().manual_seed(0),
+                         device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    batch = ex.synth_batch(rng, cfg2, 4)
+    t0 = time.perf_counter()
+    loss_c = cpu.contrastive_loss(batch)
+    loss_c.backward()
+    t_cpu = time.perf_counter() - t0
+    loss_g = gpu.contrastive_loss(batch)
+    loss_g.backward()
+    torch.cuda.synchronize()
+    lc, lg = loss_c.item(), loss_g.item()
+    gc, gg = grads_of(cpu), grads_of(gpu)
+    check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+          f"(a) card loss {lg!r} != CPU loss {lc!r} (rtol 1e-5)")
+    gn_c = float(OPT.global_norm(gc.values()))
+    gn_g = float(OPT.global_norm(gg.values()))
+    worst, worst_rel, worst_name = 0.0, 0.0, ""
+    for n, g in gc.items():
+        got = gg[n].cpu()
+        check(bool(torch.isfinite(got).all()), f"(a) grad {n} not finite")
+        try:
+            torch.testing.assert_close(got, g, rtol=1e-3, atol=1e-6)
+        except AssertionError as e:
+            fail(f"(a) grad {n}: card != CPU (rtol 1e-3, atol 1e-6): {e}")
+        err = float((got - g).abs().max())
+        scale = float(g.abs().max())
+        rel = err / scale if scale > 0 else 0.0
+        if err > worst:
+            worst = err
+        if rel > worst_rel:
+            worst_rel, worst_name = rel, n
+    log(f"[train] (a) {cfg2.n_layers}-layer ColPali width (d {cfg2.d_model}, "
+        f"S {cfg2.seq_len}), batch 4, card vs CPU: loss "
+        f"{lg:.7f} vs {lc:.7f} (rel err {abs(lg - lc) / abs(lc):.3e}, rtol "
+        f"1e-5); grad_norm {gn_g:.7f} vs {gn_c:.7f}; {len(gc)} grad leaves "
+        f"within rtol 1e-3, atol 1e-6: max abs err {worst:.3e}, largest "
+        f"err / max|grad| of a leaf {worst_rel:.3e} ({worst_name}); CPU "
+        f"fwd+bwd {t_cpu:.1f}s")
+    res["a"] = dict(loss_rel=abs(lg - lc) / abs(lc), grad_abs=worst,
+                    grad_rel_to_max=worst_rel)
+    del cpu, gpu, gc, gg, loss_c, loss_g
+
+    # (b) the full 16-layer config, batch 16
+    B, n_warm, n_timed, n_prof, n_after = 16, 2, 10, 1, 2
+    model = LI.init_params(full, torch.Generator().manual_seed(1), dev)
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    oc = OPT.OptConfig(lr=3e-4, warmup=20)
+    opt = OPT.init_opt_state(params, labels)
+    step_fn = make_train_step(lambda m, b: m.contrastive_loss(b), oc,
+                              labels=labels)
+    batches = [{k: v.to(dev) for k, v in
+                ex.synth_batch(rng, full, B).items()}
+               for _ in range(n_warm + n_timed + n_prof + n_after)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for i in range(n_warm + n_timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step_fn(model, opt, batches[i]))
+        end.record()
+        end.synchronize()
+        if i >= n_warm:
+            times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    m_prof, by_kind = profile_device_time(
+        lambda: step_fn(model, opt, batches[n_warm + n_timed]))
+    metrics.append(m_prof)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    lrs = torch.stack([m["lr"] for m in metrics]).cpu()
+    want_lr = OPT.make_schedule(oc)(torch.arange(
+        1, len(metrics) + 1, dtype=torch.int32, device=dev)).cpu()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"(b) non-finite loss or grad_norm: {losses} {gnorms}")
+    check(bool(torch.equal(lrs, want_lr)), f"(b) lr sequence {lrs.tolist()}"
+          f" != the schedule {want_lr.tolist()}")
+    flops, formula = train_step_flops(full, B, batches[0]["query_tokens"]
+                                      .shape[1])
+    tflops = flops / (ms / 1e3) / 1e12
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] (b) ColPali ({full.n_layers} layers, d {full.d_model}, S "
+        f"{full.seq_len}), "
+        f"{n_params / 1e6:.1f}M params, batch {B}, "
+        f"OptConfig(lr=3e-4, warmup=20): {n_warm} warm-up + {n_timed} "
+        f"timed + {n_prof} profiled steps; median {ms:.1f} ms/step (min {min(times):.1f}, max "
+        f"{max(times):.1f}), {B / (ms / 1e3):.1f} pages/s; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + "; grad_norms "
+        + " ".join(f"{x:.4f}" for x in gnorms) + f"; lr == schedule at "
+        f"steps 1-{len(metrics)} ({float(lrs[-1]):.3e} at the last)")
+    log(f"[train] (b) {flops:.4e} FLOPs per step = {formula}; "
+        f"{tflops:.2f} TFLOP/s, {100 * tflops / (F32_FLOPS_PER_S / 1e12):.1f}"
+        f"% of the f32 rate ({F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, TF32 "
+        f"off); peak device memory {peak / 1e9:.2f} GB "
+        "(max_memory_allocated)")
+    busy = sum(by_kind.values())
+    log(f"[train] (b) one more step under torch.profiler: device kernel "
+        f"time {busy:.1f} ms ({100 * busy / ms:.1f}% of the median "
+        "unprofiled step): " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+            for k, v in by_kind.items()))
+    res["b"] = dict(ms=ms, pages_s=B / (ms / 1e3), flops=flops,
+                    tflops=tflops, peak_gb=peak / 1e9, losses=losses)
+
+    # (c) checkpoint after the last timed step, resume in a fresh model
+    k = len(metrics) - 1
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    try:
+        saved = [x.clone() for x in TS.leaves(model, opt)]
+        nbytes = sum(x.numel() * x.element_size() for x in saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        TS.save(ckpt, k, model, opt, keep=1)
+        t_w = time.perf_counter() - t0
+        cont = [float(step_fn(model, opt, b)["loss"])
+                for b in batches[len(metrics):]]
+        del model, opt, params
+        fresh = LI.init_params(full, torch.Generator().manual_seed(2), dev)
+        fopt = OPT.init_opt_state(dict(fresh.named_parameters()), labels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = TS.restore(ckpt, fresh, fopt)
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        check(meta["step"] == k, f"(c) restored step {meta['step']} != {k}")
+        back = TS.leaves(fresh, fopt)
+        check(len(back) == len(saved) and all(
+            a.device == b.device and a.dtype == b.dtype
+            and torch.equal(a, b) for a, b in zip(back, saved)),
+            "(c) restored train state != the saved one bit for bit")
+        del back, saved
+        resumed = [float(step_fn(fresh, fopt, b)["loss"])
+                   for b in batches[len(metrics):]]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, cont)]
+    check(max(rel) <= 1e-5, f"(c) resumed losses {resumed} != "
+          f"uninterrupted {cont} (rtol 1e-5)")
+    log(f"[train] (c) checkpoint of {nbytes / 1e9:.3f} GB (params + m + v "
+        f"+ step, {len(TS.leaf_names(fresh, fopt))} leaves in repro's "
+        f"order) after step {k + 1}: write {nbytes / 1e9 / t_w:.2f} GB/s "
+        f"({t_w:.1f}s), restore onto the card {nbytes / 1e9 / t_r:.2f} GB/s "
+        f"({t_r:.1f}s), bit for bit; next {len(cont)} losses resumed "
+        + " ".join(f"{x:.6f}" for x in resumed) + " vs uninterrupted "
+        + " ".join(f"{x:.6f}" for x in cont)
+        + f" (max rel err {max(rel):.2e}, rtol 1e-5)")
+    res["c"] = dict(gb=nbytes / 1e9, write_gbs=nbytes / 1e9 / t_w,
+                    restore_gbs=nbytes / 1e9 / t_r, rel=max(rel))
+    del batches
+
+    # (d) encode 512 pages and their queries, index, search
+    n_pages, enc_b = 512, 64
+    fresh.eval()
+    data = ex.synth_batch(rng, full, n_pages)
+    patches = data["patches"].to(dev)
+    with torch.no_grad():
+        fresh.encode_pages(patches[:enc_b])            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pages = [fresh.encode_pages(patches[i:i + enc_b])
+                 for i in range(0, n_pages, enc_b)]
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        qv = fresh.encode_queries(data["query_tokens"], data["query_mask"])
+    del patches
+    types = pages[0][1]
+    check(all(tuple(v.shape) == (enc_b, full.seq_len, full.out_dim)
+              and bool(torch.isfinite(v).all()) for v, _ in pages),
+          "(d) encoded pages: wrong shape or non-finite")
+    check(bool(torch.isfinite(qv).all()), "(d) query vectors not finite")
+    pipe = IngestPipeline.for_config(full, device=dev)
+    r = Retriever(pipe.index(pages[0][0], types), capacity=n_pages,
+                  device=dev, ingest=pipe)
+    ids = list(range(enc_b))
+    for v, t in pages[1:]:
+        ids += list(r.ingest(v, t))
+    del pages
+    check(r.n_docs == n_pages, f"(d) {r.n_docs} pages indexed")
+    qrels = [{int(ids[i]): 1} for i in range(n_pages)]
+    qb = query_set(qv, data["query_mask"].to(dev))
+    two = MST.two_stage(256, 10)
+    kern = MST.with_rerank_policy(MST.with_scan_policy(two, use_kernel=True),
+                                  rerank_kernel=True)
+    ids_k, sc_k, dt, nq = run_cascade(r, qb, kern, args.batch)
+    counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    for name in ("pooling", "maxsim_scan", "maxsim_rerank"):
+        check(counts[name] > 0, f"(d) kernel {name} was never launched")
+    m_k = evaluate_ranking(ids_k, qrels, ks=(5, 10))
+    DSP.reset_counts()
+    plain = MST.with_scan_policy(two, use_kernel=False, chunk=256)
+    ids_p, sc_p, _, _ = run_cascade(r, qb, plain, args.batch)
+    check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
+          "(d) the plain path launched a kernel")
+    m_p = evaluate_ranking(ids_p, qrels, ks=(5, 10))
+    swaps, cut_rows = compare_two_stage(
+        r, qb, kern, ids_k, sc_k, ids_p, sc_p,
+        "(d) encoded corpus, kernel vs plain")
+    gaps = sc_p[:, 0] - sc_p[:, -1]
+    for key in m_k:
+        check(abs(m_k[key] - m_p[key]) < 5e-4, f"(d) {key}: kernel "
+              f"{m_k[key]:.4f} != plain {m_p[key]:.4f} to 3 decimals")
+    log(f"[train] (d) encoded {n_pages} pages in batches of {enc_b} at "
+        f"{n_pages / t_enc:.1f} pages/s and {n_pages} queries of "
+        f"{qv.shape[1]} tokens; Retriever.ingest (hygiene, pooling kernel, "
+        f"bf16 store) of {n_pages} pages; 2-stage(256, 10) kernels QPS "
+        f"{nq / dt:.1f}: " + "  ".join(f"{k}={v:.4f}" for k, v in m_k.items())
+        + f"; kernel == plain top-10 ids ({swaps} tie swaps; {cut_rows} "
+        f"queries with a tie at a cutoff, the 256th stage-0 or the 10th "
+        f"final score, each the plain top-10 over its kernel candidates), "
+        f"metrics equal to 3 "
+        f"decimals; plain score of rank 1 - rank 10: median "
+        f"{float(np.median(gaps)):.3e}, min {float(gaps.min()):.3e}; "
+        f"launches {used(counts)}")
+    res["d"] = dict(pages_s=n_pages / t_enc, metrics=m_k, qps=nq / dt)
+    del r, fresh, fopt
+    torch.cuda.empty_cache()
+    return dict(res=res, counts=counts)
+
+
+def query_set(queries, query_mask):
+    """Queries in the shape ``run_cascade`` reads (``.queries``,
+    ``.query_mask``)."""
+    import types
+    return types.SimpleNamespace(queries=queries, query_mask=query_mask)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -2477,7 +2907,7 @@ def main() -> None:
                     help="queries per search call")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the frontend phase's arrivals and query "
-                         "cuts")
+                         "cuts and of the training phase's batches")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2537,6 +2967,10 @@ def main() -> None:
     # 5. times
     entries = kernel_times(args, dev, main_res)
     entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
+
+    # 4k. training, after the kernel times: its profiled step and its load
+    # on the card stay out of them
+    train_res = train_path(args, dev)
     c8 = int8_res["counts"]
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
@@ -2622,7 +3056,20 @@ def main() -> None:
                     for name, res in (("ingest", ingest_res),
                                       ("frontend", fe_res),
                                       ("mrl", mrl_res),
-                                      ("tiered", tier_res))}
+                                      ("tiered", tier_res),
+                                      ("train", train_res))}
+    tr = train_res["res"]
+    log(f"[summary] train (ColPali, 16 layers, batch 16, f32): "
+        f"{tr['b']['ms']:.1f} ms/step, {tr['b']['pages_s']:.1f} pages/s, "
+        f"{tr['b']['tflops']:.2f} TFLOP/s of {tr['b']['flops']:.4e} FLOPs, "
+        f"peak {tr['b']['peak_gb']:.2f} GB; card vs CPU (2 layers) loss rel "
+        f"err {tr['a']['loss_rel']:.2e}, grad max abs err "
+        f"{tr['a']['grad_abs']:.2e}; checkpoint {tr['c']['gb']:.3f} GB "
+        f"write {tr['c']['write_gbs']:.2f} / restore "
+        f"{tr['c']['restore_gbs']:.2f} GB/s, resumed loss rel err "
+        f"{tr['c']['rel']:.2e}; encode {tr['d']['pages_s']:.1f} pages/s, "
+        f"2-stage recall@10={tr['d']['metrics']['recall@10']:.4f} "
+        f"ndcg@10={tr['d']['metrics']['ndcg@10']:.4f}")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -43,6 +43,22 @@ def test_port_file_imports_no_jax_and_no_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_encoder_and_training_modules_are_checked():
+    """The AST rule above covers the encoder, the training modules and the
+    training example (the glob reaches every new file)."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/models/late_interaction.py",
+                "src/repro_torch/training/optimizer.py",
+                "src/repro_torch/training/train_loop.py",
+                "src/repro_torch/training/compression.py",
+                "src/repro_torch/training/elastic.py",
+                "src/repro_torch/training/train_state.py",
+                "examples/train_retriever_torch.py"):
+        assert rel in checked, rel
+        assert not [m for _, m in _imported_modules(ROOT / rel)
+                    if _BANNED.match(m)], rel
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import importlib, pkgutil, sys\n"
