@@ -49,7 +49,9 @@ line) at the first phase that goes wrong:
             plain path on the card must give the same top-10 ids (apart
             from near-exact ties) and the same NDCG/Recall@5/10 to 3
             decimals, and the plain engine must match the
-            ``multistage.search`` oracle;
+            ``multistage.search`` oracle. Here and in 4b-4e and 4i the
+            plain side ranks one result deeper (k + 1), so that a tie of
+            the 10th with the 11th plain score is seen as a tie;
 4b. int8    indexes the corpus again as ``serve.py --int8`` does:
             ``IngestPipeline`` pools and quantises each 256-page batch
             (the scan vector's float copy dropped when no later stage
@@ -163,6 +165,34 @@ line) at the first phase that goes wrong:
             pooling, scan and rerank must each launch. 4k runs after
             phase 5 has timed the kernels, so that neither its training
             load nor its profiled step comes before those times;
+4l. lm      the decoder-LM family (``models/transformer.py``, after 4k):
+            (a) each of the five LM archs at the launcher's
+            ``reduced_lm`` size, f32: loss, logits and every gradient of
+            one step on the card against the CPU (loss rtol 1e-5, logits
+            rtol 1e-5 atol 1e-5, gradients rtol 1e-3 atol 1e-6); (b)
+            minicpm-2b at full width and depth (40 layers, 2.725e9
+            params, vocabulary padded to 122880), bf16, through
+            ``launch/train.py``'s own build, batches and step at its
+            defaults (batch 8, seq 128, WSD): 2 warm-up + 5 timed steps,
+            a forward + backward alone and one profiled step; every loss
+            and grad_norm finite, the lr sequence the schedule's; prints
+            ms/step, tokens/s, FLOPs (formula printed), TFLOP/s and peak
+            memory; (c) gemma3-4b at full width and depth (34 layers,
+            head_dim 320, 5:1 local:global, 1024 window), f32 with TF32
+            off: prefill B=2, S=1536 (the ring rolls) with
+            decode_budget 16, then 16 greedy decode steps, whose first
+            and last logits must equal a full forward over the prefix
+            (rtol 2e-3, atol 2e-3); then the same in bf16, timed: prefill
+            ms, decode ms per step, cache bytes, peak memory; (d)
+            granite-moe-1b-a400m at full width and depth (24 layers, 32
+            experts top 8), f32, batch 4 x 256: ``moe_dense`` and
+            ``moe_ragged`` losses within rtol 1e-3 and every layer's
+            router ids equal (apart from ties within 1e-4), then one
+            train step timed under each; (e) the launcher at
+            ``--reduced --steps 21 --ckpt-every 11 --ckpt-dir``, run
+            twice: the second run must print ``[resume] from step 10``
+            and repeat the first run's losses of steps 11-20 (rtol
+            1e-5);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -192,6 +222,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -888,32 +919,45 @@ def run_cascade(retriever, bench, stages, batch: int,
             dt, len(q))
 
 
+def plus_one(stages) -> tuple:
+    """``stages`` with the last stage's k one higher: the plain ranking
+    that ``compare_rankings`` holds a kernel's top k against."""
+    last = stages[-1]
+    return tuple(stages[:-1]) + (dataclasses.replace(last, k=last.k + 1),)
+
+
 def compare_rankings(ids_k, sc_k, ids_p, sc_p, what: str,
                      tie: float = 1e-4) -> int:
-    """Kernel vs plain top-k: equal ids except where the plain scores hold
-    a tie within ``tie`` at that position (0: exact ties only); scores
-    allclose. Returns the number of tie-swapped positions."""
-    check(ids_k.shape == ids_p.shape, f"{what}: id shapes differ")
+    """Kernel top-k [n, k] vs the plain ranking one deeper [n, k + 1]
+    (``plus_one``): ids equal except where the plain scores hold a tie
+    within ``tie`` at that position (0: exact ties only), a tie of the
+    k-th with the (k+1)-th plain score included; scores allclose to the
+    plain top k. Returns the number of tie-swapped positions."""
+    n, k = ids_k.shape
+    check(ids_p.shape == (n, k + 1) and sc_p.shape == (n, k + 1),
+          f"{what}: the plain ranking has shape {ids_p.shape}, not one "
+          f"deeper than the kernel's {ids_k.shape}")
     check(np.isfinite(sc_k).all() and np.isfinite(sc_p).all(),
           f"{what}: non-finite scores")
-    check(np.allclose(sc_k, sc_p, rtol=1e-5, atol=1e-4),
+    check(np.allclose(sc_k, sc_p[:, :k], rtol=1e-5, atol=1e-4),
           f"{what}: scores differ beyond rtol=1e-5, atol=1e-4 "
-          f"(max {np.abs(sc_k - sc_p).max():.3e})")
+          f"(max {np.abs(sc_k - sc_p[:, :k]).max():.3e})")
     swaps = 0
-    for r in range(ids_k.shape[0]):
-        n, j = row_swaps(ids_k[r], ids_p[r], sc_p[r], tie)
+    for r in range(n):
+        m, j = row_swaps(ids_k[r], ids_p[r, :k], sc_p[r], tie)
         if j is not None:
             fail(f"{what}: query {r} rank {j} id {ids_k[r, j]} != "
                  f"{ids_p[r, j]} without a tie")
-        swaps += n
+        swaps += m
     return swaps
 
 
 def row_swaps(ids_k, ids_p, sc_p, tie: float) -> tuple:
     """(positions where one query's kernel and plain ids differ, the first
     such position whose plain score holds no tie within ``tie`` with a
-    neighbour, or None). Only neighbours inside the top k are seen: a tie
-    of the k-th with the (k+1)-th plain score is not."""
+    neighbour, or None). The neighbours are those in ``sc_p``: with one
+    plain score more than ids, a tie of the k-th with the (k+1)-th is
+    seen."""
     swaps = 0
     for j in np.flatnonzero(ids_k != ids_p):
         near = [abs(sc_p[j] - sc_p[jj]) <= tie
@@ -1064,7 +1108,8 @@ def main_path(args, dev) -> dict:
     # ---- the same cascades through the plain path on the card
     DSP.reset_counts()
     for n, stages in cascades.items():
-        st = MST.with_scan_policy(stages, use_kernel=False, chunk=256)
+        st = MST.with_scan_policy(plus_one(stages), use_kernel=False,
+                                  chunk=256)
         ids, sc, dt, nq = run_cascade(retriever, bench, st,
                                       args.batch)
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
@@ -1085,8 +1130,12 @@ def main_path(args, dev) -> dict:
         # the plain engine against the cascade oracle, one query batch
         qb = torch.as_tensor(bench.queries[:args.batch]).to(dev)
         mb = torch.as_tensor(bench.query_mask[:args.batch]).to(dev)
-        o_s, o_i = MST.search(retriever.store.vectors, qb, stages, mb)
-        e_s, e_i = retriever.search(qb, mb, stages=st, translate_ids=False)
+        o_s, o_i = MST.search(retriever.store.vectors, qb, plus_one(stages),
+                              mb)
+        e_s, e_i = retriever.search(
+            qb, mb, stages=MST.with_scan_policy(stages, use_kernel=False,
+                                                chunk=256),
+            translate_ids=False)
         compare_rankings(e_i.cpu().numpy(), e_s.cpu().numpy(),
                          o_i.cpu().numpy(), o_s.cpu().numpy(),
                          f"{n}-stage engine vs multistage.search oracle")
@@ -1198,8 +1247,8 @@ def main_path_int8(args, dev, main) -> dict:
     qb = torch.as_tensor(bench.queries[:args.batch]).to(dev)
     mb = torch.as_tensor(bench.query_mask[:args.batch]).to(dev)
     for name, (r, stages, topk) in cascades.items():
-        st = MST.with_scan_policy(stages, use_kernel=False, chunk=256,
-                                  scan_topk=topk)
+        st = MST.with_scan_policy(plus_one(stages), use_kernel=False,
+                                  chunk=256, scan_topk=topk)
         ids, sc, dt, nq = run_cascade(r, bench, st, args.batch)
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
         res = results[name]
@@ -1213,8 +1262,11 @@ def main_path_int8(args, dev, main) -> dict:
         log(f"[int8] {name} plain: QPS={nq / dt:.1f}; kernel == plain "
             f"top-10 ids ({swaps} tie swaps), metrics equal to 3 decimals")
         if len(stages) == 2 and not topk:
-            o_s, o_i = MST.search(r.store.vectors, qb, stages, mb)
-            e_s, e_i = r.search(qb, mb, stages=st, translate_ids=False)
+            o_s, o_i = MST.search(r.store.vectors, qb, plus_one(stages), mb)
+            e_s, e_i = r.search(
+                qb, mb, stages=MST.with_scan_policy(stages, use_kernel=False,
+                                                    chunk=256),
+                translate_ids=False)
             compare_rankings(e_i.cpu().numpy(), e_s.cpu().numpy(),
                              o_i.cpu().numpy(), o_s.cpu().numpy(),
                              f"{name} engine vs multistage.search oracle")
@@ -1281,7 +1333,7 @@ def filtered_path(args, dev, main) -> dict:
     two = MST.two_stage(256, 10)
     kern = MST.with_rerank_policy(MST.with_scan_policy(two, use_kernel=True),
                                   rerank_kernel=True)
-    plain = MST.with_scan_policy(two, use_kernel=False, chunk=256)
+    plain = MST.with_scan_policy(plus_one(two), use_kernel=False, chunk=256)
     q, qm = bench.queries, bench.query_mask
     results = {}
     DSP.reset_counts()
@@ -1303,12 +1355,13 @@ def filtered_path(args, dev, main) -> dict:
         rb = Retriever(VectorStore({k: v.index_select(0, rows) for k, v in
                                     base.vectors.items()}, len(match)),
                        capacity=cap, device=dev)
-        ids_b, sc_b, _, _ = run_cascade(rb, bench, kern, args.batch)
+        ids_b, sc_b, _, _ = run_cascade(rb, bench, plus_one(kern), args.batch)
         ids_b = np.where(ids_b >= 0, match[np.clip(ids_b, 0, None)], -1)
-        bitwise = bool(np.array_equal(sc, sc_b))
+        k = ids.shape[1]
+        bitwise = bool(np.array_equal(sc, sc_b[:, :k]))
         if bitwise:
-            check(np.array_equal(ids, ids_b), f"filter {spec}: scores equal "
-                  "bit for bit but ids differ from the rebuilt corpus")
+            check(np.array_equal(ids, ids_b[:, :k]), f"filter {spec}: scores "
+                  "equal bit for bit but ids differ from the rebuilt corpus")
             swaps_b = 0
         else:
             swaps_b = compare_rankings(ids, sc, ids_b, sc_b,
@@ -1368,6 +1421,9 @@ def routed_path(args, dev, main) -> dict:
         f"{int(np.median(fills))})")
     two = MST.with_rerank_policy(MST.with_scan_policy(
         MST.two_stage(256, 10), use_kernel=True), rerank_kernel=True)
+    # the exhaustive kernel ranking one deeper, for compare_rankings
+    ex_ids, ex_sc, _, _ = run_cascade(main["retriever"], bench,
+                                      plus_one(two), args.batch)
     results = {}
     DSP.reset_counts()
     for n_probe in (n_clusters, 8):
@@ -1383,7 +1439,7 @@ def routed_path(args, dev, main) -> dict:
                 f"the exhaustive ids {recall:.4f}; " + "  ".join(
                     f"{k}={v:.4f}" for k, v in m.items()))
         if n_probe == n_clusters:
-            swaps = compare_rankings(ids, sc, ex["ids"], ex["scores"],
+            swaps = compare_rankings(ids, sc, ex_ids, ex_sc,
                                      "full-probe routed vs exhaustive 2-stage",
                                      tie=0.0)
             for k in m:
@@ -1459,8 +1515,8 @@ def dtype_path(args, dev, main) -> dict:
         counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
         check(counts["maxsim_scan"] > 0, f"dtype {n}-stage: the scan kernel "
               "was never launched")
-        plain = MST.with_scan_policy(stages, use_kernel=False, chunk=256,
-                                     dtype="bfloat16")
+        plain = MST.with_scan_policy(plus_one(stages), use_kernel=False,
+                                     chunk=256, dtype="bfloat16")
         ids_p, sc_p, dt_p, _ = run_cascade(r, bench, plain, args.batch)
         swaps = compare_rankings(ids, sc, ids_p, sc_p,
                                  f"dtype bf16 {n}-stage kernel vs plain")
@@ -1823,7 +1879,7 @@ def matryoshka_quickstart_path(args, dev, main) -> dict:
     counts = {k: DSP.launch_count(k) for k in DSP.KERNELS}
     for k in ("maxsim_scan", "maxsim_rerank"):
         check(counts[k] > 0, f"MRL32 cascade: kernel {k} was never launched")
-    plain = MST.with_scan_policy(mrl, use_kernel=False, chunk=256)
+    plain = MST.with_scan_policy(plus_one(mrl), use_kernel=False, chunk=256)
     ids_p, sc_p, dt_p, _ = run_cascade(r, bench, plain, args.batch)
     swaps = compare_rankings(ids, sc, ids_p, sc_p, "MRL32 kernel vs plain")
     m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
@@ -2289,7 +2345,9 @@ def train_step_flops(cfg, B: int, Q: int) -> tuple:
 def profile_device_time(fn) -> tuple:
     """(``fn()``, device milliseconds of its kernels by kind): one call
     under ``torch.profiler`` with CUDA activity, each device event counted
-    once, GEMM kernels (cuBLAS, CUTLASS), softmax kernels and the rest."""
+    once, GEMM kernels (cuBLAS's ``gemm``/``xmma`` and Hopper ``nvjet``
+    kernels; a CUTLASS kernel counts when its name says ``gemm``),
+    softmax kernels and the rest."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2301,12 +2359,23 @@ def profile_device_time(fn) -> tuple:
         if not str(e.device_type).endswith("CUDA"):
             continue
         name = e.name.lower()
-        kind = ("gemm" if "gemm" in name else
+        kind = ("gemm" if any(t in name for t in GEMM_NAMES) else
                 "softmax" if "softmax" in name else "other")
         by_kind[kind] += e.device_time / 1e3
     check(sum(by_kind.values()) > 0, "torch.profiler recorded no device "
           "time")
     return out, by_kind
+
+
+GEMM_NAMES = ("gemm", "xmma", "nvjet")
+
+
+def busy_line(by_kind: dict, wall_ms: float) -> str:
+    busy = sum(by_kind.values())
+    return (f"device kernel time {busy:.1f} ms ({100 * busy / wall_ms:.1f}% "
+            f"of {wall_ms:.1f} ms): " + ", ".join(
+                f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                for k, v in by_kind.items()))
 
 
 def grads_of(model) -> dict:
@@ -2572,6 +2641,573 @@ def query_set(queries, query_mask):
     ``.query_mask``)."""
     import types
     return types.SimpleNamespace(queries=queries, query_mask=query_mask)
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the decoder-LM family
+# ---------------------------------------------------------------------------
+
+def event_ms(fn) -> tuple:
+    """(``fn()``, its milliseconds on the card by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_step_flops(cfg, B: int, S: int) -> tuple:
+    """(FLOPs of one LM train step, the formula): 6 N T for the forward
+    and backward passes plus 2 N T for the forward that ``remat``
+    recomputes, N = ``n_active_params``, T = B S tokens; the attention
+    scores (4 B S^2 H hd L a forward) are left out and printed beside."""
+    N, T_ = cfg.n_active_params(), B * S
+    attn = 4 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    formula = (f"8 N T = (6 + 2 remat) x N {N} x T {T_} (B {B} x S {S}); "
+               f"attention scores 4 x 4 B S^2 H hd L = {4 * attn:.3e} more, "
+               "left out")
+    return 8.0 * N * T_, formula
+
+
+def lm_card_vs_cpu(args, dev) -> dict:
+    """(a) each LM arch at the launcher's ``reduced_lm`` size, float32:
+    loss, logits and every gradient of one step on the card against the
+    CPU, from the same seeded weights and batch."""
+    import copy
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = TR.reduced_lm(get_config(arch))
+        cpu = T.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                            device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        b = TR.make_batch(cfg, args.seed, 0, 4, 64, "cpu")
+        bg = {k: v.to(dev) for k, v in b.items()}
+        loss_c = T.loss_fn(cpu, b)
+        loss_c.backward()
+        loss_g = T.loss_fn(gpu, bg)
+        loss_g.backward()
+        with torch.no_grad():
+            lg_c = T._logits(cpu, T.forward(cpu, b["tokens"]))
+            lg_g = T._logits(gpu, T.forward(gpu, bg["tokens"])).cpu()
+        lc, lg = loss_c.item(), loss_g.item()
+        check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+              f"(a) {arch}: card loss {lg!r} != CPU loss {lc!r} (rtol 1e-5)")
+        try:
+            torch.testing.assert_close(lg_g, lg_c, rtol=1e-5, atol=1e-5)
+        except AssertionError as e:
+            fail(f"(a) {arch}: card logits != CPU (rtol 1e-5, atol 1e-5): "
+                 f"{e}")
+        gc = dict(cpu.named_parameters())
+        worst, n = 0.0, 0
+        for name, p in gpu.named_parameters():
+            got, want = p.grad.cpu(), gc[name].grad
+            check(bool(torch.isfinite(got).all()),
+                  f"(a) {arch}: grad {name} not finite")
+            try:
+                torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6)
+            except AssertionError as e:
+                fail(f"(a) {arch}: grad {name}: card != CPU (rtol 1e-3, "
+                     f"atol 1e-6): {e}")
+            worst = max(worst, float((got - want).abs().max()))
+            n += 1
+        out[arch] = dict(loss_rel=abs(lg - lc) / abs(lc), grad_abs=worst,
+                         logit_abs=float((lg_g - lg_c).abs().max()))
+        log(f"[lm] (a) {arch} (reduced: {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}"
+            + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k}"
+               if cfg.moe else "") + f"), batch 4 x 64, f32: loss {lg:.7f} "
+            f"vs CPU {lc:.7f} (rel err {out[arch]['loss_rel']:.2e}, rtol "
+            f"1e-5); logits max abs err {out[arch]['logit_abs']:.2e} (rtol "
+            f"1e-5, atol 1e-5); {n} grad tensors within rtol 1e-3, atol "
+            f"1e-6, max abs err {worst:.2e}")
+        del cpu, gpu
+    return out
+
+
+def lm_train_full(args, dev) -> dict:
+    """(b) minicpm-2b at full width and depth, bf16, through the
+    launcher's own build, batches and step at its defaults."""
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+
+    a = TR.parse_args(["--arch", "minicpm-2b", "--device", "cuda",
+                       "--seed", str(args.seed)])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base0 = torch.cuda.memory_allocated()
+    run = TR.build(a.arch, a.steps, a.reduced, a.seed, dev)
+    cfg, model, opt, step_fn = (run["cfg"], run["model"], run["opt"],
+                                run["step_fn"])
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = (torch.cuda.memory_allocated() - base0) / 1e9
+    n_warm, n_timed = 2, 5
+    metrics, times = [], []
+    for i in range(n_warm + n_timed):
+        b = TR.make_batch(cfg, a.seed, i, a.batch, a.seq, dev)
+        m, ms = event_ms(lambda: step_fn(model, opt, b))
+        metrics.append(m)
+        if i >= n_warm:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated() - base0
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    lrs = torch.stack([m["lr"] for m in metrics]).cpu()
+    want_lr = OPT.make_schedule(run["oc"])(torch.arange(
+        1, len(metrics) + 1, dtype=torch.int32, device=dev)).cpu()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"(b) non-finite loss or grad_norm: {losses} {gnorms}")
+    check(bool(torch.equal(lrs, want_lr)), f"(b) lr sequence {lrs.tolist()}"
+          f" != the {run['oc'].schedule} schedule {want_lr.tolist()}")
+    ms = statistics.median(times)
+    tokens = a.batch * a.seq
+    flops, formula = lm_step_flops(cfg, a.batch, a.seq)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"[lm] (b) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"padded to {T.padded_vocab(cfg)}, {n_params / 1e9:.4f}e9 params "
+        f"(n_params {cfg.n_params() / 1e9:.4f}e9), dtype {cfg.dtype}, "
+        f"params/grads/moments f32; the launcher's step at its defaults "
+        f"(batch {a.batch}, seq {a.seq}, {run['oc'].schedule} over "
+        f"{a.steps} steps, warmup {run['oc'].warmup}): {n_warm} warm-up + "
+        f"{n_timed} timed steps; median {ms:.1f} ms/step (min "
+        f"{min(times):.1f}, max {max(times):.1f}), "
+        f"{tokens / (ms / 1e3):.1f} tokens/s; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + "; grad_norms "
+        + " ".join(f"{x:.4f}" for x in gnorms) + f"; lr == schedule at "
+        f"steps 1-{len(metrics)} ({float(lrs[-1]):.3e} at the last)")
+    log(f"[lm] (b) {flops:.4e} FLOPs per step = {formula}; {tflops:.2f} "
+        f"TFLOP/s, {100 * tflops / (BF16_TC_FLOPS_PER_S / 1e12):.2f}% of "
+        f"the bf16 tensor-core rate ({BF16_TC_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s) (the step by phase: (f)); train state "
+        f"(params + m + v) {state_gb:.2f} GB, peak device memory of the "
+        f"phase {peak / 1e9:.2f} GB (max_memory_allocated above the "
+        f"{base0 / 1e9:.2f} GB held before it)")
+    return dict(ms=ms, tokens_s=tokens / (ms / 1e3), flops=flops,
+                tflops=tflops, peak_gb=peak / 1e9, state_gb=state_gb)
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for seg in caches for slot in seg
+               for t in slot.values())
+
+
+def lm_decode_full(args, dev) -> dict:
+    """(c) gemma3-4b at full width and depth: prefill past the 1024-token
+    window, then greedy decode; f32 against full forwards, then bf16
+    timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import full_f32
+    from repro_torch.models import kv_cache as KV
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma3-4b")
+    B, S, n_dec = 2, 1536, 16
+    torch.cuda.empty_cache()
+    base0 = torch.cuda.memory_allocated()
+    model = T.init_params(dataclasses.replace(cfg, dtype="float32"),
+                          torch.Generator(device=dev).manual_seed(args.seed),
+                          dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    param_gb = (torch.cuda.memory_allocated() - base0) / 1e9
+    plan = T.segment_plan(cfg)
+    sc = {w: KV.cache_len(w, S + n_dec) for _, ws in plan for w in ws}
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).to(dev)
+
+    def generate():
+        """Prefill, then n_dec greedy steps: (tokens, each step's logits,
+        caches, ms per decode step by CUDA events)."""
+        logits, caches = T.prefill_step(model, {"tokens": toks},
+                                        decode_budget=n_dec)
+        seq, steps = toks, []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_dec):
+            nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            seq = torch.cat([seq, nxt], 1)
+            logits, caches = T.decode_step(model, caches, nxt, S + i)
+            steps.append(logits)
+        end.record()
+        end.synchronize()
+        return seq, steps, caches, start.elapsed_time(end) / n_dec
+
+    # f32 (TF32 off): decode against the full forward over the prefix
+    full_f32()
+    generate()                                    # warm-up
+    seq, steps, caches, ms_tok32 = generate()
+    errs = {}
+    with torch.no_grad():
+        for i in (0, n_dec - 1):
+            ref = T._logits(model, T.forward(model, seq[:, :S + 1 + i])
+                            [:, -1:])
+            got = steps[i]
+            ok = bool(torch.allclose(got, ref, rtol=2e-3, atol=2e-3))
+            errs[i] = (float((got - ref).abs().max()),
+                       float(ref.abs().max()))
+            check(bool(torch.isfinite(got).all()) and ok,
+                  f"(c) f32 decode step {i + 1} (position {S + i}) logits "
+                  f"!= the full forward over its prefix (rtol 2e-3, atol "
+                  f"2e-3; max abs err {errs[i][0]:.3e})")
+    f32_tokens = seq[:, S:].cpu()
+    f32_cache = cache_bytes(caches)
+    del caches, steps
+    torch.cuda.empty_cache()
+    _, ms_pf32 = event_ms(lambda: T.prefill_step(
+        model, {"tokens": toks}, decode_budget=n_dec))
+
+    # bf16, the config's dtype: timed after one warm-up generation
+    model.cfg = cfg
+    torch.cuda.empty_cache()
+    generate()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, ms_pf = event_ms(lambda: T.prefill_step(
+        model, {"tokens": toks}, decode_budget=n_dec))
+    seq, steps, caches, ms_tok = generate()
+    logits = steps[-1]
+    peak = torch.cuda.max_memory_allocated() - base0
+    check(bool(torch.isfinite(logits.float()).all()),
+          "(c) bf16 decode logits not finite")
+    bf16_cache = cache_bytes(caches)
+    same = float((seq[:, S:].cpu() == f32_tokens).float().mean())
+    log(f"[lm] (c) {cfg.name}: {cfg.n_layers} layers ({sum(r * len(w) for r, w in plan)} "
+        f"= plan {plan}), d {cfg.d_model}, head_dim {cfg.head_dim}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.4f}e9 params (n_params "
+        f"{cfg.n_params() / 1e9:.4f}e9), {param_gb:.2f} GB f32; B {B}, "
+        f"prefill S {S} with decode_budget {n_dec}: cache slots {sc} "
+        f"(the 1024 ring rolled by {S % sc[1024]}, wraps during decode)")
+    log(f"[lm] (c) f32 (TF32 off): {n_dec} greedy decode steps; step 1 "
+        f"logits vs the full forward over {S + 1} tokens max abs err "
+        f"{errs[0][0]:.3e} (max |logit| {errs[0][1]:.2f}), step {n_dec} vs "
+        f"{S + n_dec} tokens {errs[n_dec - 1][0]:.3e} (max |logit| "
+        f"{errs[n_dec - 1][1]:.2f}); rtol 2e-3, atol 2e-3; prefill "
+        f"{ms_pf32:.1f} ms, decode {ms_tok32:.2f} ms per step of {B} tokens;"
+        f" cache {f32_cache / 1e6:.1f} MB")
+    log(f"[lm] (c) bf16: prefill {ms_pf:.1f} ms ({B * S / (ms_pf / 1e3):.0f} "
+        f"tokens/s), decode {ms_tok:.2f} ms per step of {B} tokens "
+        f"({B / (ms_tok / 1e3):.1f} tokens/s); cache {bf16_cache / 1e6:.1f} "
+        f"MB; peak device memory {peak / 1e9:.2f} GB above the "
+        f"{base0 / 1e9:.2f} GB held before the phase; greedy tokens equal "
+        f"to the f32 run's: {100 * same:.1f}%")
+    return dict(decode_ms_f32=ms_tok32, err_first=errs[0][0], err_last=errs[n_dec - 1][0],
+                prefill_ms_f32=ms_pf32, prefill_ms=ms_pf, decode_ms=ms_tok,
+                cache_mb=bf16_cache / 1e6, peak_gb=peak / 1e9)
+
+
+def lm_moe_full(args, dev) -> dict:
+    """(d) granite-moe-1b-a400m at full width and depth, f32: the dense
+    and the ragged MoE on one batch (losses, router ids), then one train
+    step under each."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    base = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                               dtype="float32")
+    cfgs = {impl: dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl=impl)) for impl in ("dense", "ragged")}
+    B, S, tie = 4, 256, 1e-4
+    torch.cuda.empty_cache()
+    model = T.init_params(cfgs["dense"],
+                          torch.Generator(device=dev).manual_seed(args.seed),
+                          dev)
+    b = TR.make_batch(base, args.seed, 0, B, S, dev)
+    k = base.moe.top_k
+    routed = {}
+    router = L.moe_router
+
+    def recording(p, x2d, top_k_):
+        out = router(p, x2d, top_k_)
+        vals, _ = L.top_k(x2d @ p["router"].to(x2d.dtype), top_k_ + 1)
+        routed[impl].append((out[1], vals))
+        return out
+    losses = {}
+    L.moe_router = recording
+    try:
+        with torch.no_grad():
+            for impl, cfg in cfgs.items():
+                routed[impl] = []
+                model.cfg = cfg
+                losses[impl] = float(T.loss_fn(model, b))
+    finally:
+        L.moe_router = router
+    rel = abs(losses["ragged"] - losses["dense"]) / abs(losses["dense"])
+    check(np.isfinite(losses["dense"]) and rel <= 1e-3,
+          f"(d) ragged loss {losses['ragged']!r} != dense {losses['dense']!r}"
+          " (rtol 1e-3)")
+    check(len(routed["dense"]) == len(routed["ragged"]) == base.n_layers,
+          "(d) the router ran a different number of times")
+    flips = 0
+    for layer, ((ids_d, vals_d), (ids_r, _)) in enumerate(
+            zip(routed["dense"], routed["ragged"])):
+        ids_d, ids_r = ids_d.cpu().numpy(), ids_r.cpu().numpy()
+        vals_d = vals_d.float().cpu().numpy()
+        for t in np.flatnonzero((ids_d != ids_r).any(1)):
+            n, j = row_swaps(ids_r[t], ids_d[t], vals_d[t], tie)
+            check(j is None, f"(d) layer {layer} token {t}: ragged router "
+                  f"ids {ids_r[t].tolist()} != dense {ids_d[t].tolist()} "
+                  f"at rank {j} without a tie within {tie}")
+            flips += n
+    n_ids = base.n_layers * B * S * k
+    # one train step under each implementation
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    oc = OPT.OptConfig(lr=3e-4, warmup=10, total_steps=50)
+    opt = OPT.init_opt_state(params, labels)
+    step_fn = make_train_step(T.loss_fn, oc, labels=labels)
+    times = {}
+    for impl, cfg in cfgs.items():
+        model.cfg = cfg
+        step_fn(model, opt, b)                            # warm-up
+        m, times[impl] = event_ms(lambda: step_fn(model, opt, b))
+        check(np.isfinite(float(m["loss"])),
+              f"(d) {impl} train step: non-finite loss")
+    n_active = base.n_active_params()
+    expert = 6 * B * S * base.n_layers * 3 * base.d_model * base.moe.d_ff
+    log(f"[lm] (d) {base.name}: {base.n_layers} layers, d {base.d_model}, "
+        f"{base.moe.n_experts} experts top {k}, expert d_ff "
+        f"{base.moe.d_ff}, {sum(p.numel() for p in params.values()) / 1e9:.4f}"
+        f"e9 params ({n_active / 1e9:.4f}e9 active), f32 (TF32 off), batch "
+        f"{B} x {S}: loss dense {losses['dense']:.7f}, ragged "
+        f"{losses['ragged']:.7f} (rel err {rel:.2e}, rtol 1e-3); router "
+        f"ids of all {base.n_layers} layers equal in both runs "
+        f"({n_ids} ids; {flips} swapped at a tie within {tie} of the "
+        f"dense run's logits)")
+    log(f"[lm] (d) one train step (fwd + bwd with remat + AdamW): dense "
+        f"{times['dense']:.1f} ms, ragged {times['ragged']:.1f} ms "
+        f"(dense / ragged {times['dense'] / times['ragged']:.2f}); expert "
+        f"FLOPs a step (fwd + bwd + remat) ragged {expert * k * 8 / 6:.3e}, "
+        f"dense {expert * base.moe.n_experts * 8 / 6:.3e} "
+        f"(E/k = {base.moe.n_experts // k}x)")
+    return dict(loss_rel=rel, flips=flips, dense_ms=times["dense"],
+                ragged_ms=times["ragged"])
+
+
+def lm_resume(args, dev) -> dict:
+    """(e) the launcher at ``--reduced`` with ``--ckpt-dir``: 21 steps
+    whose one checkpoint falls after step 10 (``--ckpt-every 11``), then
+    the same command again, which must resume from step 10 and repeat
+    the uninterrupted run's losses."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as TR
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="lm_ckpt_", dir=root)
+    argv = ["--arch", "minicpm-2b", "--reduced", "--steps", "21",
+            "--ckpt-every", "11", "--ckpt-dir", ckpt, "--seed",
+            str(args.seed), "--device", "cuda"]
+    try:
+        outs, logs = [], []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                logs.append(TR.main(argv))
+            outs.append(buf.getvalue())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    whole, resumed = logs
+    check("[resume] from step 10" in outs[1], "(e) the relaunch did not "
+          f"print '[resume] from step 10': {outs[1][:200]!r}")
+    check([r["step"] for r in resumed] == list(range(11, 21)),
+          f"(e) the relaunch ran steps {[r['step'] for r in resumed]}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(resumed, whole[11:])]
+    check(max(rel) <= 1e-5, f"(e) resumed losses != the uninterrupted "
+          f"run's (rtol 1e-5): {max(rel):.2e}")
+    log(f"[lm] (e) launcher {' '.join(argv[:5])} --ckpt-every 11: the "
+        f"relaunch printed '[resume] from step 10' and ran steps 11-20; "
+        f"losses " + " ".join(f"{r['loss']:.6f}" for r in resumed)
+        + f" (max rel err {max(rel):.2e} against the uninterrupted run, "
+        "rtol 1e-5)")
+    return dict(rel=max(rel))
+
+
+def lm_step_phases(run, b, timer) -> dict:
+    """One step of the launcher's train step (``make_train_step``'s body:
+    forward, backward, AdamW update) with the card synchronised after
+    each phase, each phase timed by ``timer`` (``event_ms``: wall
+    milliseconds; ``profile_device_time``: device time by kind). Autograd
+    runs the backward on its own thread, so ``record_function`` ranges
+    around the phases of one unsynchronised step would not own its
+    kernels."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+
+    model, opt, oc = run["model"], run["opt"], run["oc"]
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    loss, fwd = timer(lambda: T.loss_fn(model, b))
+    _, bwd = timer(loss.backward)
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    _, upd = timer(lambda: OPT.apply_updates(
+        params, grads, opt, oc, labels=run["labels"],
+        schedule=OPT.make_schedule(oc)))
+    for p in params.values():
+        p.grad = None
+    return {"forward": fwd, "backward": bwd, "update": upd}
+
+
+def phases_line(wall: dict, device: dict) -> str:
+    return "; ".join(
+        f"{name} {wall[name]:.1f} ms wall, device {sum(v.values()):.1f} ms "
+        f"(gemm {v['gemm']:.1f}, softmax {v['softmax']:.1f}, other "
+        f"{v['other']:.1f})" for name, v in device.items())
+
+
+def lm_profiles(args, dev, res) -> dict:
+    """4l (f), after 4k: one train step of (b), one bf16 decode step of
+    (c) and one train step under each MoE implementation of (d) under
+    ``torch.profiler`` (device time by kind against the step times 4l
+    measured unprofiled); (b)'s step split by phase, at the launcher's
+    defaults and at the family's training seq 4096, timed there too. The
+    profiles come after every timed part of 4l: a profiled step can leave
+    later host-bound timings slower."""
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    out = {}
+
+    def part_b():
+        a = TR.parse_args(["--arch", "minicpm-2b", "--seed", str(args.seed)])
+        run = TR.build(a.arch, a.steps, a.reduced, a.seed, dev)
+        cfg, model, opt = run["cfg"], run["model"], run["opt"]
+        step_fn = run["step_fn"]
+        b = TR.make_batch(cfg, a.seed, 0, a.batch, a.seq, dev)
+        step_fn(model, opt, b)                            # warm-up
+        wall = lm_step_phases(run, b, event_ms)
+        # the family's training shape: LM_SHAPES train_4k's seq, the
+        # largest batch of (4, 3, 2, 1) that fits beside the train state
+        seq = next(s.dims["seq_len"] for s in LM_SHAPES
+                   if s.name == "train_4k")
+        torch.cuda.reset_peak_memory_stats()
+        for B in (4, 3, 2, 1):
+            b4k = TR.make_batch(cfg, a.seed, 1, B, seq, dev)
+            try:
+                step_fn(model, opt, b4k)                  # warm-up
+                break
+            except torch.cuda.OutOfMemoryError:
+                log(f"[lm] (f) (b) seq {seq}: batch {B} does not fit")
+            # outside the handler, whose traceback holds the step's tensors
+            for p in model.parameters():
+                p.grad = None
+            b4k = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        check(b4k is not None, f"(f) no batch fits at seq {seq}")
+        times = [event_ms(lambda: step_fn(model, opt, b4k))[1]
+                 for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated()
+        wall_4k = lm_step_phases(run, b4k, event_ms)
+        # profiles last: a profiled step can leave later wall times slower
+        _, out["b"] = profile_device_time(lambda: step_fn(model, opt, b))
+        log("[lm] (f) (b) minicpm-2b: one train step under torch.profiler: "
+            + busy_line(out["b"], res["b"]["ms"])
+            + " (of (b)'s median unprofiled step)")
+        out["b_phases"] = lm_step_phases(run, b, profile_device_time)
+        log(f"[lm] (f) (b) at the launcher's defaults (batch {a.batch}, seq "
+            f"{a.seq}), by phase: " + phases_line(wall, out["b_phases"]))
+        torch.cuda.empty_cache()
+        out["b_4k_phases"] = lm_step_phases(run, b4k, profile_device_time)
+        ms = statistics.median(times)
+        flops, formula = lm_step_flops(cfg, B, seq)
+        tflops = flops / (ms / 1e3) / 1e12
+        busy = sum(sum(v.values()) for v in out["b_4k_phases"].values())
+        out["b_4k"] = dict(batch=B, seq=seq, ms=ms, tflops=tflops,
+                           peak_gb=peak / 1e9)
+        log(f"[lm] (f) (b) minicpm-2b at seq {seq} (LM_SHAPES train_4k), "
+            f"batch {B}, the largest of (4, 3, 2, 1) that fits: 2 steps "
+            f"after a warm-up, {' '.join(f'{t:.1f}' for t in times)} ms, "
+            f"{B * seq / (ms / 1e3):.1f} tokens/s, {flops:.4e} FLOPs = "
+            f"{formula}; {tflops:.2f} TFLOP/s; peak device memory "
+            f"{peak / 1e9:.2f} GB; by phase (device {busy:.1f} ms in all, "
+            f"{100 * busy / ms:.1f}% of the median step): "
+            + phases_line(wall_4k, out["b_4k_phases"]))
+
+    def part_c():
+        cfg = get_config("gemma3-4b")
+        B, S = 2, 1536
+        model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
+        toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+        logits, caches = T.prefill_step(model, {"tokens": toks},
+                                        decode_budget=2)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, caches = T.decode_step(model, caches, nxt, S)  # warm-up
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        _, out["c"] = profile_device_time(
+            lambda: T.decode_step(model, caches, nxt, S + 1))
+        log("[lm] (f) (c) gemma3-4b bf16: one decode step under "
+            "torch.profiler: " + busy_line(out["c"], res["c"]["decode_ms"])
+            + " (of (c)'s mean unprofiled step)")
+
+    def part_d():
+        base = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                                   dtype="float32")
+        model = T.init_params(base, torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
+        params = dict(model.named_parameters())
+        labels = OPT.default_labels(params)
+        opt = OPT.init_opt_state(params, labels)
+        step_fn = make_train_step(T.loss_fn, OPT.OptConfig(
+            lr=3e-4, warmup=10, total_steps=50), labels=labels)
+        b = TR.make_batch(base, args.seed, 0, 4, 256, dev)
+        for impl in ("dense", "ragged"):
+            model.cfg = dataclasses.replace(base, moe=dataclasses.replace(
+                base.moe, impl=impl))
+            step_fn(model, opt, b)                        # warm-up
+            _, out[f"d_{impl}"] = profile_device_time(
+                lambda: step_fn(model, opt, b))
+            log(f"[lm] (f) (d) granite-moe {impl}: one train step under "
+                "torch.profiler: " + busy_line(out[f"d_{impl}"],
+                                               res["d"][f"{impl}_ms"])
+                + " (of (d)'s unprofiled step)")
+
+    for part in (part_b, part_c, part_d):
+        torch.cuda.empty_cache()
+        part()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_path(args, dev) -> dict:
+    """Phase 4l: the decoder-LM family on the card, (a)-(e); its
+    profiles (f) run later (``lm_profiles``)."""
+    torch.cuda.empty_cache()
+    log(f"[lm] device memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    res = {}
+    for part, fn in (("a", lm_card_vs_cpu), ("b", lm_train_full),
+                     ("c", lm_decode_full), ("d", lm_moe_full),
+                     ("e", lm_resume)):
+        res[part] = fn(args, dev)
+        torch.cuda.empty_cache()           # the part's model is gone
+    log(f"[lm] phase 4l took {time.perf_counter() - t0:.1f}s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2968,9 +3604,12 @@ def main() -> None:
     entries = kernel_times(args, dev, main_res)
     entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
 
-    # 4k. training, after the kernel times: its profiled step and its load
-    # on the card stay out of them
+    # 4l and 4k after the kernel times: their training loads and profiled
+    # steps stay out of them. 4l's timed parts come first, its profiles
+    # (f) last, so that no profiled step comes before a 4l timing
+    lm_res = lm_path(args, dev)
     train_res = train_path(args, dev)
+    lm_res["f"] = lm_profiles(args, dev, lm_res)
     c8 = int8_res["counts"]
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
@@ -3070,6 +3709,24 @@ def main() -> None:
         f"{tr['c']['rel']:.2e}; encode {tr['d']['pages_s']:.1f} pages/s, "
         f"2-stage recall@10={tr['d']['metrics']['recall@10']:.4f} "
         f"ndcg@10={tr['d']['metrics']['ndcg@10']:.4f}")
+    lm = lm_res
+    log(f"[summary] lm (a) card vs CPU, 5 archs reduced: loss rel err <= "
+        f"{max(x['loss_rel'] for x in lm['a'].values()):.2e}, grad max abs "
+        f"err {max(x['grad_abs'] for x in lm['a'].values()):.2e}; (b) "
+        f"minicpm-2b bf16 batch 8 x 128: {lm['b']['ms']:.1f} ms/step, "
+        f"{lm['b']['tokens_s']:.1f} tokens/s, {lm['b']['tflops']:.2f} "
+        f"TFLOP/s, peak {lm['b']['peak_gb']:.2f} GB; at seq 4096 batch "
+        f"{lm['f']['b_4k']['batch']}: {lm['f']['b_4k']['ms']:.1f} ms/step, "
+        f"{lm['f']['b_4k']['tflops']:.2f} TFLOP/s, peak "
+        f"{lm['f']['b_4k']['peak_gb']:.2f} GB; (c) gemma3-4b f32 decode vs "
+        f"forward "
+        f"max abs err {lm['c']['err_first']:.2e} / {lm['c']['err_last']:.2e}"
+        f", bf16 prefill {lm['c']['prefill_ms']:.1f} ms, decode "
+        f"{lm['c']['decode_ms']:.2f} ms/step, cache {lm['c']['cache_mb']:.1f}"
+        f" MB; (d) granite-moe step dense {lm['d']['dense_ms']:.1f} / ragged "
+        f"{lm['d']['ragged_ms']:.1f} ms, loss rel err "
+        f"{lm['d']['loss_rel']:.2e}; (e) resumed loss rel err "
+        f"{lm['e']['rel']:.2e}")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,10 +1,119 @@
-"""The retriever config dataclass (the paper's late-interaction models).
+"""Config dataclasses: the paper's late-interaction retrievers
+(``RetrieverConfig``) and the decoder-only LM family (``LMConfig``, dense
+and MoE), copies of ``repro.configs.base``'s.
 
 Pure data: importing a config touches no device state.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell assigned to an architecture."""
+
+    name: str            # e.g. "train_4k"
+    kind: str            # train | prefill | decode | serve | retrieval |
+                         # full_graph | minibatch | batched_graphs
+    dims: dict = field(default_factory=dict)
+
+    def __getattr__(self, item):
+        try:
+            return self.dims[item]
+        except KeyError as e:  # pragma: no cover - attribute protocol
+            raise AttributeError(item) from e
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden size
+    # "dense" (all-expert masked) | "ragged" (sorted dispatch); on one
+    # device "ragged_ep" runs "ragged" (``models.layers.ffn``)
+    impl: str = "dense"
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                      # 0 -> d_model // n_heads
+    # attention pattern: length-P list cycled over layers; entries are
+    # 0 (global/full) or a window size (sliding-window local attention).
+    attn_pattern: tuple = (0,)
+    attn_softcap: float = 0.0              # gemma-2 style tanh soft capping
+    final_softcap: float = 0.0
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    act: str = "gelu"                      # mlp activation (gated)
+    tie_embeddings: bool = True
+    moe: Optional[MoESpec] = None
+    # runtime knobs
+    remat: bool = True                     # each block under checkpoint
+    loss_chunks: int = 8                   # chunked cross-entropy
+    dtype: str = "bfloat16"                # compute dtype; params stay f32
+    # Megatron-SP residual stream: a sharding constraint in ``repro``,
+    # the identity on one device (kept so configs compare field by field)
+    sp_activations: bool = True
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        assert self.n_heads % self.n_kv_heads == 0
+
+    @property
+    def family(self) -> str:
+        return "lm"
+
+    def window_for_layer(self, layer: int) -> int:
+        return self.attn_pattern[layer % len(self.attn_pattern)]
+
+    def n_params(self) -> int:
+        """Approximate parameter count (dense-equivalent; MoE counts all experts)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe is not None:
+            ff = self.moe.n_experts * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = attn + ff + 2 * d
+        return self.n_layers * per_layer + self.vocab_size * d + d
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (for 6·N_active·D model FLOPs)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe is not None:
+            ff = self.moe.top_k * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = attn + ff + 2 * d
+        return self.n_layers * per_layer + self.vocab_size * d + d
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+
+# ---------------------------------------------------------------------------
+# Retriever family (the paper's own models)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -241,6 +241,10 @@ class ColXEncoder(nn.Module):
         return names + ["out", "patch_proj", "pos_embed", "special_embed",
                         "text_embed"]
 
+    def jax_stacked(self, name: str) -> bool:
+        """True for a leaf stacked along a leading [n_layers] axis."""
+        return name.startswith("blocks/")
+
     def jax_leaf_params(self, name: str) -> list:
         """The parameters behind one ``repro`` leaf: the per-layer tensors
         of a ``blocks/`` stack, else the one parameter."""
@@ -258,7 +262,7 @@ class ColXEncoder(nn.Module):
         out = []
         for name in self.jax_leaf_names():
             ps = self.jax_leaf_params(name)
-            out.append(torch.stack(ps) if name.startswith("blocks/")
+            out.append(torch.stack(ps) if self.jax_stacked(name)
                        else ps[0].detach().clone())
         return out
 
@@ -273,7 +277,7 @@ class ColXEncoder(nn.Module):
         for name, x in zip(names, leaves):
             x = torch.as_tensor(x)
             ps = self.jax_leaf_params(name)
-            parts = list(x) if name.startswith("blocks/") else [x]
+            parts = list(x) if self.jax_stacked(name) else [x]
             if len(parts) != len(ps):
                 raise ValueError(f"{name}: {len(parts)} layers, the model "
                                  f"has {len(ps)}")

@@ -1,0 +1,367 @@
+"""Decoder-only LM family: gemma2/gemma3/minicpm/granite-moe/olmoe (the port
+of ``repro.models.transformer``).
+
+``DecoderLM`` is an ``nn.Module`` holding one ``Block`` per layer in an
+``nn.ModuleList`` (``layers.<i>``), so autograd gives every layer its own
+gradient. ``repro`` scans over layers with parameters stacked per segment:
+a segment is ``reps`` repetitions of the arch's attention pattern of P
+slots, and runs rep 0 slot 0, rep 0 slot 1, ..., so layer
+``offset + r*P + k`` is ``segments[s][k][r]`` in ``repro``'s tree.
+``params_from_jax`` unstacks that tree and ``to_jax_leaves`` stacks it
+again, in ``jax.tree.leaves`` order (dict keys sorted at every level).
+
+Kept from ``repro``: each block runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` (``repro`` checkpoints its scan body), as does each chunk of
+the cross-entropy; the embedding rows are taken, cast to ``cfg.dtype`` and
+scaled by ``d_model ** 0.5`` rounded to that dtype; the logits are the
+hidden states times the tied embedding, soft-capped, with the padded
+vocabulary masked to -1e30; the loss takes its chunks' logits to float32
+before the logsumexp. With ``dtype="float32"`` the products run in full
+float32 (``full_f32``: TF32 off). ``repro``'s ``param_specs``,
+``param_shardings`` and ``_layer_specs`` are sharding and wait for the
+sharded engine; the port runs on one device and has no ``shard``
+argument.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.dispatch import full_f32, resolve_device
+from repro_torch.models import kv_cache as KV
+from repro_torch.models import layers as L
+
+LAYER_KEYS = {
+    "attn": ("wk", "wo", "wq", "wv"),
+    "mlp": ("w1", "w2", "w3"),
+    "moe": ("router", "w1", "w2", "w3"),
+}
+
+
+# ---------------------------------------------------------------------------
+# segment plan: n_layers -> [(reps, windows_tuple), ...]
+# ---------------------------------------------------------------------------
+
+def segment_plan(cfg) -> list[tuple[int, tuple]]:
+    p = len(cfg.attn_pattern)
+    full, rem = divmod(cfg.n_layers, p)
+    plan = []
+    if full:
+        plan.append((full, tuple(cfg.attn_pattern)))
+    if rem:
+        plan.append((1, tuple(cfg.attn_pattern[:rem])))
+    return plan
+
+
+def layer_order(cfg) -> list[tuple[int, int, int, int]]:
+    """(segment, slot, rep, window) of every layer in execution order."""
+    return [(s, k, r, w) for s, (reps, windows) in enumerate(segment_plan(cfg))
+            for r in range(reps) for k, w in enumerate(windows)]
+
+
+def padded_vocab(cfg, mult: int = 256) -> int:
+    """Vocab rounded up to a multiple of ``mult`` (``repro`` pads so the
+    embedding shards evenly; padded logits are masked in the loss)."""
+    return -(-cfg.vocab_size // mult) * mult
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: ``ln1``, ``attn`` (wq, wk, wv, wo),
+    ``ln2``, ``ffn`` (w1, w3, w2 and, for MoE, the router); its sliding
+    window (0 = global) is ``window``."""
+
+    def __init__(self, cfg, window: int, gen=None, device="cpu"):
+        super().__init__()
+        self.window = window
+        D = cfg.d_model
+        self.ln1 = nn.Parameter(torch.zeros(D, dtype=torch.float32))
+        self.attn = nn.ParameterDict(L.attention_params(cfg, gen, device))
+        self.ln2 = nn.Parameter(torch.zeros(D, dtype=torch.float32))
+        self.ffn = nn.ParameterDict(L.ffn_params(cfg, gen, device))
+
+
+class DecoderLM(nn.Module):
+    """The decoder-only LM of ``cfg`` (an ``LMConfig``).
+
+    Weights are drawn from ``generator`` on its device (a CUDA generator
+    draws on the card; a CPU one on the host, then the model moves to
+    ``device``) with ``repro``'s scales: normal * ``d_model ** -0.5`` for
+    wq/wk/wv, w1/w3 and the router, ``(H * hd) ** -0.5`` for wo,
+    ``d_ff ** -0.5`` for w2, norms zero. ``device`` defaults to the card
+    and raises without one. ``cfg`` may be replaced by one of the same
+    shapes (another ``dtype`` or ``moe.impl``)."""
+
+    def __init__(self, cfg, generator: torch.Generator | None = None,
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.layers = nn.ModuleList(Block(cfg, w, generator, dev)
+                                    for _, _, _, w in layer_order(cfg))
+        self.embed = nn.Parameter(L._normal(
+            generator, (padded_vocab(cfg), cfg.d_model), cfg.d_model ** -0.5,
+            dev))
+        self.final_norm = nn.Parameter(torch.zeros(cfg.d_model,
+                                                   dtype=torch.float32))
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor, caches: list | None = None):
+        return forward(self, tokens, caches)
+
+    # ------------------------------------------------------------------
+    # ``repro``'s parameter tree
+    # ------------------------------------------------------------------
+
+    def _layer_keys(self) -> list:
+        ffn = LAYER_KEYS["moe" if self.cfg.moe is not None else "mlp"]
+        return ([f"attn/{k}" for k in LAYER_KEYS["attn"]]
+                + [f"ffn/{k}" for k in ffn] + ["ln1", "ln2"])
+
+    def jax_leaf_names(self) -> list:
+        """Paths of ``repro``'s params tree in ``jax.tree.leaves`` order,
+        '/'-joined (``segments/<s>/<slot>/attn/wq`` is the [reps, D, H, hd]
+        stack of that slot's layers)."""
+        names = ["embed", "final_norm"]
+        for s, (_, windows) in enumerate(segment_plan(self.cfg)):
+            for k in range(len(windows)):
+                names += [f"segments/{s}/{k}/{key}"
+                          for key in self._layer_keys()]
+        return names
+
+    def jax_stacked(self, name: str) -> bool:
+        """True for a leaf stacked along a leading [reps] axis."""
+        return name.startswith("segments/")
+
+    def jax_leaf_params(self, name: str) -> list:
+        """The parameters behind one ``repro`` leaf: one per rep of a
+        ``segments/`` stack, else the one parameter."""
+        if not self.jax_stacked(name):
+            return [getattr(self, name)]
+        _, s, k, *key = name.split("/")
+        out = []
+        for i, (ls, lk, _, _) in enumerate(layer_order(self.cfg)):
+            if (ls, lk) == (int(s), int(k)):
+                p = self.layers[i]
+                for part in key:
+                    p = p[part] if isinstance(p, nn.ParameterDict) \
+                        else getattr(p, part)
+                out.append(p)
+        return out
+
+    @torch.no_grad()
+    def to_jax_leaves(self) -> list:
+        """The parameters as ``repro``'s leaves (segment slots stacked
+        [reps, ...]), in ``jax.tree.leaves`` order."""
+        out = []
+        for name in self.jax_leaf_names():
+            ps = self.jax_leaf_params(name)
+            out.append(torch.stack(ps) if self.jax_stacked(name)
+                       else ps[0].detach().clone())
+        return out
+
+    @torch.no_grad()
+    def load_jax_leaves(self, leaves) -> None:
+        """Copy ``repro``-ordered leaves (numpy arrays or tensors, segment
+        slots stacked) into the parameters, bit for bit; shapes must
+        match."""
+        names = self.jax_leaf_names()
+        if len(leaves) != len(names):
+            raise ValueError(f"{len(leaves)} leaves, the model has "
+                             f"{len(names)}")
+        for name, x in zip(names, leaves):
+            x = torch.as_tensor(x)
+            ps = self.jax_leaf_params(name)
+            parts = list(x) if self.jax_stacked(name) else [x]
+            if len(parts) != len(ps):
+                raise ValueError(f"{name}: {len(parts)} layers, the model "
+                                 f"has {len(ps)}")
+            for p, v in zip(ps, parts):
+                if tuple(v.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(v.shape)}, the "
+                                     f"model has {tuple(p.shape)}")
+                p.copy_(v)
+
+
+def init_params(cfg, generator: torch.Generator | None = None,
+                device="cuda") -> DecoderLM:
+    """A randomly initialised model (``repro``'s ``init_params``; the draws
+    come from ``generator``, not from a JAX key)."""
+    return DecoderLM(cfg, generator, device)
+
+
+def _tree_get(tree, name: str):
+    for k in name.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def params_from_jax(cfg, tree: dict, device="cuda") -> DecoderLM:
+    """A model holding ``repro``'s params ``tree`` (nested dicts and lists
+    of numpy arrays, segment slots stacked [reps, ...]) bit for bit."""
+    model = DecoderLM(cfg, torch.Generator().manual_seed(0), device)
+    model.load_jax_leaves([_tree_get(tree, n)
+                           for n in model.jax_leaf_names()])
+    return model
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _block(cfg, p: Block, x, positions, cache=None, pos=None):
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    y, new_cache = L.attention(cfg, p.attn, h, positions, p.window,
+                               kv_cache=cache, decode_pos=pos)
+    x = x + y
+    h = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    return x + L.ffn(cfg, p.ffn, h), new_cache
+
+
+def _block_train(cfg, p: Block, x, positions):
+    return _block(cfg, p, x, positions)[0]
+
+
+def _embed(model, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        full_f32()
+    tokens = torch.as_tensor(tokens).to(model.device, torch.long)
+    x = F.embedding(tokens, model.embed).to(dtype)
+    return x * L._round(cfg.d_model ** 0.5, x.dtype)
+
+
+def _layer_cache(caches, s: int, k: int, r: int) -> dict:
+    slot = caches[s][k]
+    return {"k": slot["k"][r], "v": slot["v"][r]}
+
+
+def forward(model: DecoderLM, tokens: torch.Tensor,
+            caches: list | None = None):
+    """Train/prefill forward. tokens [B,S] -> hidden [B,S,D].
+
+    When ``caches`` is given (prefill), each layer persists its K/V into
+    its cache (in place); returns (hidden, caches), else hidden only.
+    """
+    cfg = model.cfg
+    x = _embed(model, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk, (s, k, r, _) in zip(model.layers, layer_order(cfg)):
+        if caches is not None:
+            x, _ = _block(cfg, blk, x, positions,
+                          cache=_layer_cache(caches, s, k, r))
+        elif remat:
+            x = checkpoint(_block_train, cfg, blk, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, blk, x, positions)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if caches is not None:
+        return x, caches
+    return x
+
+
+def _logits_of(cfg, emb: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``h @ emb.T``, soft-capped, padded vocabulary masked; ``emb`` is the
+    embedding already in ``h``'s dtype."""
+    logits = torch.einsum("...d,vd->...v", h, emb)
+    logits = L.softcap(logits, cfg.final_softcap)
+    vp = emb.shape[0]
+    if vp != cfg.vocab_size:                      # mask vocab padding
+        pad_mask = torch.arange(vp, device=h.device) < cfg.vocab_size
+        logits = torch.where(pad_mask, logits, -1e30)
+    return logits
+
+
+def _logits(model: DecoderLM, h: torch.Tensor) -> torch.Tensor:
+    return _logits_of(model.cfg, model.embed.to(h.dtype), h)
+
+
+def _chunk_loss(cfg, emb, h, y):
+    logits = _logits_of(cfg, emb, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, y[:, None])[:, 0]
+    return (logz - gold).sum()
+
+
+def lm_loss(model: DecoderLM, hidden: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Chunked cross-entropy over token chunks, so [tokens, V] never
+    materialises at once. hidden [B,S,D], labels [B,S] -> scalar mean CE
+    (float32)."""
+    cfg = model.cfg
+    B, S, D = hidden.shape
+    T = B * S
+    h2 = hidden.reshape(T, D)
+    y2 = torch.as_tensor(labels).to(hidden.device, torch.long).reshape(T)
+    n_chunks = cfg.loss_chunks
+    while T % n_chunks:
+        n_chunks -= 1
+    c = T // n_chunks
+    emb = model.embed.to(hidden.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, c):
+        h, y = h2[i:i + c], y2[i:i + c]
+        part = (checkpoint(_chunk_loss, cfg, emb, h, y, use_reentrant=False)
+                if remat else _chunk_loss(cfg, emb, h, y))
+        total = total + part
+    return total / T
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def loss_fn(model: DecoderLM, batch: dict) -> torch.Tensor:
+    h = forward(model, batch["tokens"])
+    return lm_loss(model, h, batch["labels"])
+
+
+@torch.no_grad()
+def prefill_step(model: DecoderLM, batch: dict,
+                 decode_budget: int = 0) -> tuple:
+    """Prefill: build KV caches + last-position logits. batch: tokens [B,S].
+
+    ``decode_budget`` reserves extra cache capacity for subsequent decode
+    steps (global-attention slots grow by it; ring windows don't need to).
+    Returns (logits [B,1,Vp], caches).
+    """
+    cfg = model.cfg
+    tokens = torch.as_tensor(batch["tokens"])
+    B, S = tokens.shape
+    caches = KV.init_cache(cfg, segment_plan(cfg), B, S + decode_budget,
+                           compute_dtype(cfg), device=model.device)
+    h, caches = forward(model, tokens, caches=caches)
+    return _logits(model, h[:, -1:]), caches
+
+
+@torch.no_grad()
+def decode_step(model: DecoderLM, caches: list, token: torch.Tensor,
+                pos: int) -> tuple:
+    """One decode step. token [B,1] int; ``pos`` its position; caches from
+    ``prefill_step`` (written in place). Returns (logits [B,1,Vp],
+    caches)."""
+    cfg = model.cfg
+    x = _embed(model, token)
+    positions = torch.full((1,), int(pos), dtype=torch.long, device=x.device)
+    for blk, (s, k, r, _) in zip(model.layers, layer_order(cfg)):
+        x, _ = _block(cfg, blk, x, positions,
+                      cache=_layer_cache(caches, s, k, r), pos=pos)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _logits(model, x), caches

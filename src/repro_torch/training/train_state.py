@@ -1,25 +1,43 @@
-"""A train state (encoder + optimizer state) as ``repro``'s checkpoint tree.
+"""A train state (a model + optimizer state) as ``repro``'s checkpoint tree.
 
-``repro``'s train loop checkpoints ``{"p": params, "o": opt_state}``
-(``examples/train_retriever.py``); ``training.checkpoint`` already writes
-its on-disk format. This module flattens a ``ColXEncoder`` and its
+``repro`` checkpoints ``{"p": params, "o": opt_state}`` from its retriever
+train loop (``examples/train_retriever.py``) and ``{"params": params,
+"opt": opt_state}`` from its LM launcher (``launch/train.py``);
+``training.checkpoint`` already writes the on-disk format. This module
+flattens a model (``ColXEncoder`` or ``DecoderLM``) and its
 ``init_opt_state`` dict into that tree's leaves in ``jax.tree.leaves``
 order, and loads them back, so a checkpoint written by either package
-resumes in the other:
+resumes in the other. With ``keys=(params, opt)`` naming the two
+top-level keys (``RETRIEVER_KEYS`` or ``LM_KEYS``):
 
-    o/per_leaf/<param path>/m, .../v   (adamw; rowwise: .../acc)
-    o/step                             int32 scalar
-    p/<param path>                     e.g. p/blocks/wq [n_layers, d, d]
+    <opt>/per_leaf/<param path>/m, .../v   (adamw; rowwise: .../acc)
+    <opt>/step                             int32 scalar
+    <params>/<param path>                  e.g. p/blocks/wq [n_layers, d, d]
 
-Keys sort at every level ("o" before "p"), and ``blocks`` leaves, moments
-included, are stacked along a leading [n_layers] axis as ``jax.vmap``
-stacks them. Names are the '/'-joined dict keys of each leaf's path.
+Keys sort at every level (the optimizer state before the parameters in
+both trees), and a model's stacked leaves (``blocks/`` of the encoder,
+``segments/`` of the LM), moments included, carry a leading layer axis as
+``jax.vmap`` stacks them. Names are the '/'-joined keys of each leaf's
+path.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.training import checkpoint as CKPT
+
+RETRIEVER_KEYS = ("p", "o")       # examples/train_retriever.py
+LM_KEYS = ("params", "opt")       # launch/train.py
+
+
+def _keys(keys: tuple) -> tuple:
+    """(params key, opt key); the opt key sorts first, so its leaves come
+    first in ``jax.tree.leaves`` order."""
+    params_key, opt_key = keys
+    if not opt_key < params_key:
+        raise ValueError(f"keys {keys}: the optimizer key must sort before "
+                         "the parameters key")
+    return params_key, opt_key
 
 
 def _layout(model) -> list:
@@ -29,23 +47,24 @@ def _layout(model) -> list:
             for path in model.jax_leaf_names()]
 
 
-def leaf_names(model, opt_state) -> list:
+def leaf_names(model, opt_state, keys: tuple = RETRIEVER_KEYS) -> list:
     """The names of ``leaves``' entries, in the same order."""
+    params_key, opt_key = _keys(keys)
     names = []
     for path, ports in _layout(model):
         for key in sorted(opt_state["per_leaf"][ports[0]]):
-            names.append(f"o/per_leaf/{path}/{key}")
-    names.append("o/step")
-    return names + [f"p/{path}" for path, _ in _layout(model)]
+            names.append(f"{opt_key}/per_leaf/{path}/{key}")
+    names.append(f"{opt_key}/step")
+    return names + [f"{params_key}/{path}" for path, _ in _layout(model)]
 
 
 def leaves(model, opt_state) -> list:
-    """The train state's leaves in ``jax.tree.leaves`` order of
-    ``{"p": params, "o": opt_state}`` (``leaf_names`` names them)."""
+    """The train state's leaves in ``jax.tree.leaves`` order, the same for
+    both trees (``leaf_names`` names them)."""
     per_leaf = opt_state["per_leaf"]
     out = []
     for path, ports in _layout(model):
-        stacked = path.startswith("blocks/")
+        stacked = model.jax_stacked(path)
         for key in sorted(per_leaf[ports[0]]):
             if stacked and key == "acc":
                 raise ValueError(f"{path}: a row-wise accumulator of a "
@@ -57,10 +76,11 @@ def leaves(model, opt_state) -> list:
 
 
 @torch.no_grad()
-def load(model, opt_state, tensors: list) -> None:
+def load(model, opt_state, tensors: list,
+         keys: tuple = RETRIEVER_KEYS) -> None:
     """Copy ``leaves``-ordered tensors into the model and the optimizer
     state, bit for bit, on the model's device."""
-    names = leaf_names(model, opt_state)
+    names = leaf_names(model, opt_state, keys)
     if len(tensors) != len(names):
         raise ValueError(f"{len(tensors)} leaves, the train state has "
                          f"{len(names)}")
@@ -70,7 +90,7 @@ def load(model, opt_state, tensors: list) -> None:
     for path, ports in _layout(model):
         for key in sorted(per_leaf[ports[0]]):
             x = torch.as_tensor(tensors[i]).to(dev)
-            parts = list(x) if path.startswith("blocks/") else [x]
+            parts = list(x) if model.jax_stacked(path) else [x]
             for n, v in zip(ports, parts, strict=True):
                 if v.shape != per_leaf[n][key].shape:
                     raise ValueError(f"{names[i]}: shape {tuple(v.shape)}, "
@@ -83,17 +103,20 @@ def load(model, opt_state, tensors: list) -> None:
     model.load_jax_leaves(tensors[i + 1:])
 
 
-def save(ckpt_dir: str, step: int, model, opt_state, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, model, opt_state, keep: int = 3,
+         keys: tuple = RETRIEVER_KEYS, meta: dict | None = None) -> str:
     """Write the train state as checkpoint ``step`` (``repro``'s format,
-    leaf names recorded). Returns the step's directory."""
-    return CKPT.save(ckpt_dir, step, leaves(model, opt_state), keep=keep,
-                     leaf_names=leaf_names(model, opt_state))
+    leaf names and ``meta`` recorded). Returns the step's directory."""
+    return CKPT.save(ckpt_dir, step, leaves(model, opt_state),
+                     meta=meta, keep=keep,
+                     leaf_names=leaf_names(model, opt_state, keys))
 
 
-def restore(ckpt_dir: str, model, opt_state) -> dict:
+def restore(ckpt_dir: str, model, opt_state,
+            keys: tuple = RETRIEVER_KEYS) -> dict:
     """Load the LATEST checkpoint, written by this package or by
     ``repro``, into ``model`` and ``opt_state`` on the model's device.
     Returns the checkpoint's meta (``meta["step"]``)."""
     tensors, meta = CKPT.restore(ckpt_dir, device=model.device)
-    load(model, opt_state, tensors)
+    load(model, opt_state, tensors, keys)
     return meta

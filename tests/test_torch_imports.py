@@ -105,6 +105,9 @@ def test_entry_points_raise_without_a_card():
         Retriever(store)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--pages", "30", "--queries", "10"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
 
 
 def test_serving_entry_points_raise_without_a_card():

@@ -23,8 +23,9 @@ def test_retriever_configs_identical(arch):
     for prop in ("family", "n_patches", "seq_len", "n_pooled"):
         assert getattr(a, prop) == getattr(b, prop), prop
     assert set(PAPER_ARCHS) == set(ARCHS)
+    assert get_config("gemma2-9b").family == "lm"
     with pytest.raises(KeyError):
-        get_config("gemma2-9b")        # the LM families are not ported
+        get_config("dcn-v2")           # the recsys family is not ported
 
 
 def _small(get, arch):
