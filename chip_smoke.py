@@ -193,6 +193,31 @@ line) at the first phase that goes wrong:
             twice: the second run must print ``[resume] from step 10``
             and repeat the first run's losses of steps 11-20 (rtol
             1e-5);
+4m. recsys  the recsys family (``models/recsys/``, after 4l): (a) dcn-v2,
+            autoint, dlrm-mlperf and bert4rec at the CPU tests' sizes,
+            one seeded model on the host copied to the card: loss rtol
+            1e-5, every gradient rtol 1e-3 atol 1e-6, ``serve_step`` rtol
+            1e-5 atol 1e-6, 1- and 2-stage ``retrieval_step`` over 300
+            candidates (ids equal apart from scores tied within 1e-5,
+            scores rtol 1e-5 atol 1e-6), 5 train steps (losses rtol 1e-4,
+            the last below the first); then each arch at its full config
+            (dlrm-mlperf's fields capped at 4194304 rows, 12.82 GB; the
+            cap printed as a reduction): (b) serve_p99, batch 512, 200
+            synchronised calls (p50, p99, rows/s); (c) serve_bulk, 262144
+            rows in 8 chunks of 32768 (ms, rows/s, peak memory; the first
+            chunk bit for bit a direct call); (d) retrieval_cand, one query
+            against 10^6 candidates: exact 1-stage, 2-stage (prefetch 256,
+            top 100, d_proxy 16) and 2-stage over a ``cand_proxy`` [N, 16]
+            table (ms, QPS, recall@100 against the exact ids, 2-stage /
+            1-stage QPS; every final score the full model's, rtol 1e-5
+            atol 1e-6; at N 65536 with prefetch N the 2-stage ids equal
+            the 1-stage ids); (e) train_batch, batch 65536 (bert4rec the
+            largest of 65536, 32768, 16384, 8192 that fits, printed), 2
+            warm-up + 10 timed steps (ms/step, examples/s, TFLOP/s by 3 x
+            ``cells.py``'s dense FLOPs, peak memory; losses and grad_norms
+            finite, lr the schedule's); after 4l's and 4k's profiles, one
+            step of each arch under ``torch.profiler`` (busy and GEMM
+            shares) and split by phase (forward, backward, update);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -3039,14 +3064,14 @@ def lm_resume(args, dev) -> dict:
     return dict(rel=max(rel))
 
 
-def lm_step_phases(run, b, timer) -> dict:
+def lm_step_phases(run, b, timer, loss_fn=None) -> dict:
     """One step of the launcher's train step (``make_train_step``'s body:
-    forward, backward, AdamW update) with the card synchronised after
+    forward, backward, optimizer update) with the card synchronised after
     each phase, each phase timed by ``timer`` (``event_ms``: wall
     milliseconds; ``profile_device_time``: device time by kind). Autograd
     runs the backward on its own thread, so ``record_function`` ranges
     around the phases of one unsynchronised step would not own its
-    kernels."""
+    kernels. ``loss_fn(model, batch)`` defaults to the LM's."""
     from repro_torch.models import transformer as T
     from repro_torch.training import optimizer as OPT
 
@@ -3054,7 +3079,7 @@ def lm_step_phases(run, b, timer) -> dict:
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    loss, fwd = timer(lambda: T.loss_fn(model, b))
+    loss, fwd = timer(lambda: (loss_fn or T.loss_fn)(model, b))
     _, bwd = timer(loss.backward)
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in params.items()}
@@ -3208,6 +3233,491 @@ def lm_path(args, dev) -> dict:
         torch.cuda.empty_cache()           # the part's model is gone
     log(f"[lm] phase 4l took {time.perf_counter() - t0:.1f}s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: the recsys family
+# ---------------------------------------------------------------------------
+
+RECSYS_ROW_CAP = 4_194_304    # dlrm-mlperf's rows per field on one card
+# the cells' shapes (configs RECSYS_SHAPES; cells.py's bert4rec MLM batch)
+RECSYS_SIZES = dict(p99=512, p99_calls=200, bulk=262144, chunk=32768,
+                    n_cand=1_000_000, parity_n=65536, train=65536,
+                    mlm=40, negs=256, slate=64)
+
+
+def recsys_config(arch: str):
+    """The arch's full config; dlrm-mlperf with each of its 26 Criteo-1TB
+    fields capped at ``RECSYS_ROW_CAP`` rows (its full 96.1 GB table waits
+    for four cards), every width unchanged."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "dlrm-mlperf":
+        cfg = dataclasses.replace(cfg, vocab_sizes=tuple(
+            min(v, RECSYS_ROW_CAP) for v in cfg.vocab_sizes))
+    return cfg
+
+
+def recsys_reduced(arch: str):
+    """The CPU tests' sizes (``tests/test_archs.py``'s ``reduced_recsys``:
+    every field 50 rows; bert4rec 300 items, seq 12, d 16)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "bert4rec":
+        return dataclasses.replace(cfg, n_items=300, seq_len=12,
+                                   embed_dim=16)
+    over = dict(vocab_sizes=tuple([50] * len(cfg.vocab_sizes)))
+    if arch == "dcn-v2":
+        over["mlp"] = (64, 32)
+    if arch == "dlrm-mlperf":
+        over.update(bot_mlp=(32, 16, 8), top_mlp=(64, 32, 1), embed_dim=8)
+    return dataclasses.replace(cfg, **over)
+
+
+def recsys_dense_flops(cfg, batch: int) -> tuple:
+    """(FLOPs of one forward over ``batch`` rows, the formula):
+    ``launch/cells.py``'s ``_recsys_dense_flops``, 2 x the multiply-adds
+    of the dense products (table lookups and elementwise work left
+    out)."""
+    def mlp_f(dims):
+        return sum(2.0 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    f = 0.0
+    if cfg.name == "dcn-v2":
+        d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+        f = cfg.n_cross_layers * 2.0 * d0 * d0 + mlp_f((d0,) + tuple(cfg.mlp))
+        formula = f"3 cross 2 d0^2 + MLP {(d0,) + tuple(cfg.mlp)}, d0 {d0}"
+    elif cfg.name == "autoint":
+        F, d, H, da = cfg.n_sparse, cfg.embed_dim, cfg.n_heads, cfg.d_attn
+        din = d
+        for _ in range(cfg.n_attn_layers):
+            f += 2.0 * F * din * H * da * 3 + 2.0 * F * F * H * da * 2 \
+                + 2.0 * F * din * H * da
+            din = H * da
+        f += 2.0 * F * H * da
+        formula = (f"per layer 8 F din H da + 4 F^2 H da, F {F}, H {H}, "
+                   f"da {da}")
+    elif cfg.name == "dlrm-mlperf":
+        f = mlp_f((cfg.n_dense,) + tuple(cfg.bot_mlp))
+        n_vec = cfg.n_sparse + 1
+        f += 2.0 * n_vec * n_vec * cfg.embed_dim
+        n_int = n_vec * (n_vec - 1) // 2
+        f += mlp_f((n_int + cfg.embed_dim,) + tuple(cfg.top_mlp))
+        formula = (f"bottom MLP + 2 27^2 d + top MLP "
+                   f"{(n_int + cfg.embed_dim,) + tuple(cfg.top_mlp)}")
+    else:
+        d, S_ = cfg.embed_dim, cfg.seq_len
+        f = cfg.n_blocks * (2.0 * S_ * d * d * 4 + 2.0 * S_ * S_ * d * 2
+                            + 2.0 * S_ * d * 8 * d)
+        formula = f"blocks x (8 S d^2 + 4 S^2 d + 16 S d^2), S {S_}, d {d}"
+    return f * batch, f"{formula}, {f:.4e} a row"
+
+
+def recsys_batch(cfg, B: int, dev, gen, kind: str) -> dict:
+    """A synthetic batch on ``dev`` from ``gen``. CTR: ids uniform in each
+    field's vocabulary, 13 dense features normal, labels 0/1 (``train``).
+    bert4rec: item ids, a valid prefix of 1-S items per row, and for
+    ``train`` ``RECSYS_SIZES["mlm"]`` MLM positions inside it with their
+    labels and ``negs`` shared negatives; ``serve`` adds a slate of
+    ``slate`` items a row. ``query`` is one row without labels."""
+    def ints(hi, shape):
+        return torch.randint(0, 2 ** 62, shape, generator=gen,
+                             device=dev) % hi
+    if cfg.name == "bert4rec":
+        S, M = cfg.seq_len, RECSYS_SIZES["mlm"]
+        lens = ints(S, (B,)) + 1
+        b = {"seq": ints(cfg.n_items, (B, S)),
+             "seq_mask": torch.arange(S, device=dev)[None] < lens[:, None]}
+        if kind == "train":
+            b.update(mlm_positions=(torch.rand(
+                (B, M), generator=gen, device=dev) * lens[:, None]).long(),
+                mlm_labels=ints(cfg.n_items, (B, M)),
+                mlm_mask=torch.ones((B, M), dtype=torch.bool, device=dev),
+                neg_samples=ints(cfg.n_items, (RECSYS_SIZES["negs"],)))
+        if kind == "serve":
+            b["slate"] = ints(cfg.n_items, (B, RECSYS_SIZES["slate"]))
+        return b
+    vocab = torch.tensor(cfg.vocab_sizes, device=dev)
+    b = {"sparse": ints(vocab, (B, cfg.n_sparse))}
+    if cfg.n_dense:
+        b["dense"] = torch.randn((B, cfg.n_dense), generator=gen, device=dev)
+    if kind == "train":
+        b["labels"] = ints(2, (B,)).float()
+    return b
+
+
+def recsys_card_vs_cpu(args, dev) -> dict:
+    """(a) each arch at the CPU tests' sizes from one seeded model on the
+    host, copied to the card: loss, every gradient, ``serve_step``, 1- and
+    2-stage ``retrieval_step`` over 300 candidates and 5 train steps on
+    the card against the CPU."""
+    import copy
+    from repro_torch.configs import RECSYS_ARCHS
+    from repro_torch.models.recsys import nets as R
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    out = {}
+    for arch in RECSYS_ARCHS:
+        cfg = recsys_reduced(arch)
+        cpu = R.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                            device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        B = 4 if arch == "bert4rec" else 16
+        b = recsys_batch(cfg, B, "cpu", gen, "train")
+        to = lambda x: {k: v.to(dev) for k, v in x.items()}  # noqa: E731
+        loss_c = R.loss_fn(cfg, cpu, b)
+        loss_c.backward()
+        loss_g = R.loss_fn(cfg, gpu, to(b))
+        loss_g.backward()
+        lc, lg = loss_c.item(), loss_g.item()
+        check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+              f"(a) {arch}: card loss {lg!r} != CPU loss {lc!r} (rtol 1e-5)")
+        gcpu = dict(cpu.named_parameters())
+        g_err = 0.0
+        for name, p in gpu.named_parameters():
+            got, want = p.grad.cpu(), gcpu[name].grad
+            try:
+                torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-6)
+            except AssertionError as e:
+                fail(f"(a) {arch}: grad {name}: card != CPU (rtol 1e-3, "
+                     f"atol 1e-6): {e}")
+            g_err = max(g_err, float((got - want).abs().max()))
+        sb = recsys_batch(cfg, B, "cpu", gen, "serve")
+        s_c = R.serve_step(cfg, cpu, sb)
+        s_g = R.serve_step(cfg, gpu, to(sb)).cpu()
+        try:
+            torch.testing.assert_close(s_g, s_c, rtol=1e-5, atol=1e-6)
+        except AssertionError as e:
+            fail(f"(a) {arch}: serve_step card != CPU (rtol 1e-5, atol "
+                 f"1e-6): {e}")
+        rb = recsys_batch(cfg, 1, "cpu", gen, "query")
+        rb["candidates"] = torch.arange(300)
+        r_err, swaps = 0.0, 0
+        for stages in (1, 2):
+            kw = dict(stages=stages, prefetch_k=64)
+            sg, ig = R.retrieval_step(cfg, gpu, to(rb), top_k=20, **kw)
+            sc, ic = R.retrieval_step(cfg, cpu, rb, top_k=21, **kw)
+            sg, ig = sg.cpu(), ig.cpu()
+            swaps += compare_rankings(
+                ig[None].numpy(), sg[None].numpy(), ic[None].numpy(),
+                sc[None].numpy(), f"(a) {arch} {stages}-stage", tie=1e-5)
+            try:
+                torch.testing.assert_close(sg, sc[:20], rtol=1e-5, atol=1e-6)
+            except AssertionError as e:
+                fail(f"(a) {arch} {stages}-stage scores card != CPU (rtol "
+                     f"1e-5, atol 1e-6): {e}")
+            r_err = max(r_err, float((sg - sc[:20]).abs().max()))
+        losses = {}
+        for side, model, d in (("cpu", copy.deepcopy(cpu), "cpu"),
+                               ("card", copy.deepcopy(cpu).to(dev), dev)):
+            params = dict(model.named_parameters())
+            labels = OPT.default_labels(params)
+            opt = OPT.init_opt_state(params, labels)
+            step = make_train_step(lambda m, x: R.loss_fn(cfg, m, x),
+                                   OPT.OptConfig(lr=1e-2, warmup=1,
+                                                 total_steps=20),
+                                   labels=labels)
+            bb = {k: v.to(d) for k, v in b.items()}
+            losses[side] = [float(step(model, opt, bb)["loss"])
+                            for _ in range(5)]
+        lcpu, lcard = np.array(losses["cpu"]), np.array(losses["card"])
+        check(np.allclose(lcard, lcpu, rtol=1e-4, atol=0) and
+              lcard[-1] < lcard[0], f"(a) {arch}: 5 train steps card "
+              f"{lcard.tolist()} vs CPU {lcpu.tolist()} (rtol 1e-4, the "
+              "last below the first)")
+        out[arch] = dict(loss_rel=abs(lg - lc) / abs(lc), grad_abs=g_err,
+                         serve_abs=float((s_g - s_c).abs().max()),
+                         ret_abs=r_err, swaps=swaps,
+                         train_rel=float(np.max(np.abs(lcard - lcpu)
+                                                / np.abs(lcpu))))
+        o = out[arch]
+        log(f"[recsys] (a) {arch} (CPU tests' size), card vs CPU: loss "
+            f"{lg:.7f} vs {lc:.7f} (rel err {o['loss_rel']:.2e}, rtol "
+            f"1e-5); grads max abs err {g_err:.2e} (rtol 1e-3, atol 1e-6); "
+            f"serve_step {o['serve_abs']:.2e} (rtol 1e-5, atol 1e-6); 1- and "
+            f"2-stage retrieval over 300 candidates: ids equal ({swaps} "
+            f"swaps at ties within 1e-5), scores {r_err:.2e} (rtol 1e-5, "
+            f"atol 1e-6); 5 train steps, losses "
+            + " ".join(f"{x:.5f}" for x in lcard)
+            + f" (rel err {o['train_rel']:.2e}, rtol 1e-4)")
+    return out
+
+
+def recsys_serve(cfg, model, dev, gen) -> dict:
+    """(b) serve_p99 and (c) serve_bulk through ``serve_step``."""
+    from repro_torch.models.recsys import nets as R
+    z = RECSYS_SIZES
+    b = recsys_batch(cfg, z["p99"], dev, gen, "serve")
+    for _ in range(3):
+        out = R.serve_step(cfg, model, b)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(z["p99_calls"]):
+        t0 = time.perf_counter()
+        out = R.serve_step(cfg, model, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(out).all()), f"(b) {cfg.name}: non-finite "
+          "serve output")
+    p50, p99 = np.percentile(times, [50, 99])
+    res = dict(p50=p50, p99=p99, rows_s=z["p99"] / (p50 / 1e3))
+    del b, out
+    b = recsys_batch(cfg, z["bulk"], dev, gen, "serve")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = R.serve_step(cfg, model, b, chunk=z["chunk"])      # warm-up
+    bulk = [event_ms(lambda: R.serve_step(cfg, model, b,
+                                          chunk=z["chunk"]))[1]
+            for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() - base
+    first = R.serve_step(cfg, model, {k: v[:z["chunk"]] for k, v in
+                                      b.items()}, chunk=z["chunk"])
+    check(bool(torch.equal(out[:z["chunk"]], first)),
+          f"(c) {cfg.name}: the first chunk of the bulk call != a direct "
+          f"call on its {z['chunk']} rows")
+    check(bool(torch.isfinite(out).all()), f"(c) {cfg.name}: non-finite "
+          "bulk output")
+    ms = statistics.median(bulk)
+    res.update(bulk_ms=ms, bulk_rows_s=z["bulk"] / (ms / 1e3),
+               bulk_peak_gb=peak / 1e9)
+    log(f"[recsys] (b) {cfg.name} serve_p99: batch {z['p99']}, "
+        f"{z['p99_calls']} synchronised calls: p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms, {res['rows_s']:.1f} rows/s at p50; (c) serve_bulk: "
+        f"{z['bulk']} rows in {z['bulk'] // z['chunk']} chunks of "
+        f"{z['chunk']}: {ms:.1f} ms (3 calls: "
+        + " ".join(f"{t:.1f}" for t in bulk) + f"), "
+        f"{res['bulk_rows_s']:.1f} rows/s, peak {peak / 1e9:.2f} GB above "
+        "the model; first chunk bit for bit a direct call")
+    return res
+
+
+def recsys_retrieval(cfg, model, dev, gen) -> dict:
+    """(d) retrieval_cand: one query against ``n_cand`` candidates, exact
+    1-stage and 2-stage(256 -> 100, d_proxy 16), with and without a
+    ``cand_proxy`` table; then 2-stage with prefetch = N against 1-stage
+    at ``parity_n``."""
+    from repro_torch.models.recsys import nets as R
+    N = RECSYS_SIZES["n_cand"]
+    q = recsys_batch(cfg, 1, dev, gen, "query")
+    cand = torch.arange(N, device=dev)
+    proxy = torch.randn((N, 16), generator=gen, device=dev)
+    runs = {"1-stage": (dict(stages=1), {}),
+            "2-stage": (dict(stages=2), {}),
+            "2-stage cand_proxy": (dict(stages=2), {"cand_proxy": proxy})}
+    res = {}
+    for name, (kw, extra) in runs.items():
+        batch = dict(q, candidates=cand, **extra)
+        R.retrieval_step(cfg, model, batch, **kw)           # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, i = R.retrieval_step(cfg, model, batch, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(s).all()) and i.shape == (100,),
+              f"(d) {cfg.name} {name}: non-finite scores or shape "
+              f"{tuple(i.shape)}")
+        ms = statistics.median(times)
+        res[name] = dict(ms=ms, qps=1e3 / ms, ids=i, scores=s)
+    exact = set(res["1-stage"]["ids"].tolist())
+    for name in ("2-stage", "2-stage cand_proxy"):
+        r = res[name]
+        r["recall"] = len(exact & set(r["ids"].tolist())) / 100
+        # every final score is the full model's score of that candidate
+        s_re, _ = R.retrieval_step(cfg, model, dict(
+            q, candidates=cand[r["ids"]]), stages=1, top_k=100)
+        try:
+            torch.testing.assert_close(r["scores"], s_re, rtol=1e-5,
+                                       atol=1e-6)
+        except AssertionError as e:
+            fail(f"(d) {cfg.name} {name}: final scores != the full model's "
+                 f"(rtol 1e-5, atol 1e-6): {e}")
+    n = RECSYS_SIZES["parity_n"]
+    small = dict(q, candidates=cand[:n])
+    _, i1 = R.retrieval_step(cfg, model, small, stages=1)
+    _, i2 = R.retrieval_step(cfg, model, small, stages=2, prefetch_k=n)
+    check(bool(torch.equal(i1, i2)), f"(d) {cfg.name}: at N={n} the 2-stage "
+          "ids with prefetch_k = N != the 1-stage ids")
+    one = res["1-stage"]
+    item = R._item_field(cfg) if cfg.name != "bert4rec" else "items"
+    log(f"[recsys] (d) {cfg.name} retrieval_cand, N {N} (item field "
+        f"{item}): "
+        + "; ".join(f"{k} {v['ms']:.2f} ms/query, {v['qps']:.1f} QPS"
+                    + (f", recall@100 {v['recall']:.2f}" if "recall" in v
+                       else "") for k, v in res.items())
+        + f"; 2-stage/1-stage QPS {res['2-stage']['qps'] / one['qps']:.2f}"
+        f" ({res['2-stage cand_proxy']['qps'] / one['qps']:.2f} with "
+        f"cand_proxy); final scores == the full model's (rtol 1e-5, atol "
+        f"1e-6); at N "
+        f"{n} 2-stage with prefetch N == 1-stage ids")
+    return {k: {kk: vv for kk, vv in v.items() if kk not in ("ids",
+                                                             "scores")}
+            for k, v in res.items()}
+
+
+def recsys_train_setup(cfg, model, dev):
+    """(oc, labels, opt, step_fn, run) of ``cells.py``'s recsys train cell
+    (``OptConfig(lr=1e-3)``, row-wise Adagrad on the tables)."""
+    from repro_torch.models.recsys import nets as R
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+    oc = OPT.OptConfig(lr=1e-3)
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    opt = OPT.init_opt_state(params, labels)
+    loss = lambda m, b: R.loss_fn(cfg, m, b)                 # noqa: E731
+    step_fn = make_train_step(loss, oc, labels=labels)
+    return step_fn, dict(model=model, opt=opt, oc=oc, labels=labels,
+                         loss_fn=loss)
+
+
+def recsys_train_batch(cfg, model, dev, gen, step_fn, run) -> tuple:
+    """(batch, B): ``train`` rows; bert4rec the largest of train, /2, /4,
+    /8 whose warm-up step fits beside the model."""
+    B = RECSYS_SIZES["train"]
+    sizes = (B, B // 2, B // 4, B // 8) if cfg.name == "bert4rec" else (B,)
+    for B in sizes:
+        b = recsys_batch(cfg, B, dev, gen, "train")
+        try:
+            step_fn(model, run["opt"], b)                    # warm-up
+            return b, B
+        except torch.cuda.OutOfMemoryError:
+            log(f"[recsys] (e) {cfg.name}: batch {B} does not fit")
+        # outside the handler, whose traceback holds the step's tensors
+        for p in model.parameters():
+            p.grad = None
+        b = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    fail(f"(e) {cfg.name}: no batch of {sizes} fits")
+
+
+def recsys_train(cfg, model, dev, gen) -> dict:
+    """(e) train_batch: 2 warm-up and 10 timed steps."""
+    from repro_torch.training import optimizer as OPT
+    base = torch.cuda.memory_allocated()
+    step_fn, run = recsys_train_setup(cfg, model, dev)
+    b, B = recsys_train_batch(cfg, model, dev, gen, step_fn, run)
+    torch.cuda.reset_peak_memory_stats()      # not the batches that failed
+    metrics, times = [], []
+    for i in range(11):
+        m, ms = event_ms(lambda: step_fn(model, run["opt"], b))
+        metrics.append(m)
+        if i >= 1:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    lrs = torch.stack([m["lr"] for m in metrics]).cpu()
+    want_lr = OPT.make_schedule(run["oc"])(torch.arange(
+        2, len(metrics) + 2, dtype=torch.int32, device=dev)).cpu()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"(e) {cfg.name}: non-finite loss or grad_norm: {losses} {gnorms}")
+    check(bool(torch.equal(lrs, want_lr)), f"(e) {cfg.name}: lr sequence "
+          f"{lrs.tolist()} != the schedule {want_lr.tolist()}")
+    ms = statistics.median(times)
+    fwd, formula = recsys_dense_flops(cfg, B)
+    tflops = 3 * fwd / (ms / 1e3) / 1e12
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[recsys] (e) {cfg.name} train_batch: batch {B}"
+        + (f" (of {RECSYS_SIZES['train']})" if B != RECSYS_SIZES["train"]
+           else "") + f", {n_params / 1e6:.2f}M params, OptConfig(lr=1e-3) "
+        f"(row-wise Adagrad on the tables, AdamW elsewhere): 2 warm-up + "
+        f"{len(times)} timed steps, median {ms:.1f} ms/step (min "
+        f"{min(times):.1f}, max {max(times):.1f}), "
+        f"{B / (ms / 1e3):.1f} examples/s; 3 x {fwd:.4e} dense FLOPs "
+        f"({formula}) = {tflops:.2f} TFLOP/s; peak device memory "
+        f"{peak / 1e9:.2f} GB above the model; losses "
+        + " ".join(f"{x:.4f}" for x in losses[1:]) + "; grad_norms "
+        + " ".join(f"{x:.3f}" for x in gnorms[1:]) + " finite; lr == "
+        "schedule")
+    return dict(batch=B, ms=ms, ex_s=B / (ms / 1e3), tflops=tflops,
+                peak_gb=peak / 1e9)
+
+
+def recsys_path(args, dev) -> dict:
+    """Phase 4m: the recsys family, (a) card vs CPU at the tests' sizes,
+    then each arch at its full config (dlrm-mlperf capped): (b) serve_p99,
+    (c) serve_bulk, (d) retrieval_cand, (e) train_batch. Its profiles run
+    last (``recsys_profiles``)."""
+    from repro_torch.configs import RECSYS_ARCHS, get_config
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.models.recsys import nets as R
+
+    torch.cuda.empty_cache()
+    log(f"[recsys] device memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    DSP.reset_counts()
+    res = {"a": recsys_card_vs_cpu(args, dev)}
+    capped, full = recsys_config("dlrm-mlperf"), get_config("dlrm-mlperf")
+    gb = lambda c: sum(c.vocab_sizes) * c.embed_dim * 4 / 1e9  # noqa: E731
+    log(f"[recsys] reductions: dlrm-mlperf's 26 fields capped at "
+        f"{RECSYS_ROW_CAP} rows, {sum(capped.vocab_sizes)} rows "
+        f"({gb(capped):.2f} GB) of {sum(full.vocab_sizes)} ({gb(full):.1f} "
+        "GB, four cards), widths unchanged; weights random from --seed, "
+        "data synthetic")
+    for arch in RECSYS_ARCHS:
+        cfg = recsys_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        t1 = time.perf_counter()
+        model = R.init_params(cfg, gen, dev)
+        torch.cuda.synchronize()
+        tables = sum(p.numel() * 4 for n, p in model.named_parameters()
+                     if n in ("emb.big", "emb.small", "items"))
+        n_params = sum(p.numel() for p in model.parameters())
+        item = R._item_field(cfg) if arch != "bert4rec" else "items"
+        log(f"[recsys] {arch}: {n_params / 1e6:.2f}M params, tables "
+            f"{tables / 1e9:.3f} GB f32, item field {item}, made on the card "
+            f"in {time.perf_counter() - t1:.2f}s")
+        r = recsys_serve(cfg, model, dev, gen)
+        r["ret"] = recsys_retrieval(cfg, model, dev, gen)
+        r["train"] = recsys_train(cfg, model, dev, gen)
+        res[arch] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["counts"] = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[recsys] phase 4m took {res['seconds']:.1f}s")
+    return res
+
+
+def recsys_profiles(args, dev, res) -> dict:
+    """4m's profiles, last in the run: for each arch at its (e) batch, one
+    train step split by phase (forward, backward, update; wall by CUDA
+    events, then device time by kind under ``torch.profiler``) and one
+    whole step under ``torch.profiler`` (busy share and GEMM share of
+    (e)'s median step)."""
+    from repro_torch.configs import RECSYS_ARCHS
+    from repro_torch.models.recsys import nets as R
+    out = {}
+    for arch in RECSYS_ARCHS:
+        cfg = recsys_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        model = R.init_params(cfg, gen, dev)
+        step_fn, run = recsys_train_setup(cfg, model, dev)
+        b = recsys_batch(cfg, res[arch]["train"]["batch"], dev, gen, "train")
+        step_fn(model, run["opt"], b)                        # warm-up
+        wall = lm_step_phases(run, b, event_ms, run["loss_fn"])
+        _, whole = profile_device_time(lambda: step_fn(model, run["opt"], b))
+        phases = lm_step_phases(run, b, profile_device_time, run["loss_fn"])
+        busy = sum(whole.values())
+        ms = res[arch]["train"]["ms"]
+        out[arch] = dict(busy=busy / ms, gemm=whole["gemm"] / busy,
+                         phases={k: sum(v.values())
+                                 for k, v in phases.items()})
+        log(f"[recsys] (e) {arch} batch {res[arch]['train']['batch']}: one "
+            f"train step under torch.profiler: " + busy_line(whole, ms)
+            + " (of (e)'s median unprofiled step); by phase: "
+            + phases_line(wall, phases))
+        del model, run, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3604,12 +4114,15 @@ def main() -> None:
     entries = kernel_times(args, dev, main_res)
     entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
 
-    # 4l and 4k after the kernel times: their training loads and profiled
-    # steps stay out of them. 4l's timed parts come first, its profiles
-    # (f) last, so that no profiled step comes before a 4l timing
+    # 4l, 4m and 4k after the kernel times: their training loads and
+    # profiled steps stay out of them. 4l's and 4m's timed parts come
+    # first, their profiles last, so that no profiled step comes before a
+    # 4l or 4m timing
     lm_res = lm_path(args, dev)
+    recsys_res = recsys_path(args, dev)
     train_res = train_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
+    recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     c8 = int8_res["counts"]
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
@@ -3696,7 +4209,8 @@ def main() -> None:
                                       ("frontend", fe_res),
                                       ("mrl", mrl_res),
                                       ("tiered", tier_res),
-                                      ("train", train_res))}
+                                      ("train", train_res),
+                                      ("recsys", recsys_res))}
     tr = train_res["res"]
     log(f"[summary] train (ColPali, 16 layers, batch 16, f32): "
         f"{tr['b']['ms']:.1f} ms/step, {tr['b']['pages_s']:.1f} pages/s, "
@@ -3727,6 +4241,22 @@ def main() -> None:
         f"{lm['d']['ragged_ms']:.1f} ms, loss rel err "
         f"{lm['d']['loss_rel']:.2e}; (e) resumed loss rel err "
         f"{lm['e']['rel']:.2e}")
+    rs = recsys_res
+    log(f"[summary] recsys (a) card vs CPU, 4 archs at the tests' size: loss "
+        f"rel err <= {max(x['loss_rel'] for x in rs['a'].values()):.2e}, "
+        f"grad max abs err {max(x['grad_abs'] for x in rs['a'].values()):.2e}"
+        "; " + "; ".join(
+            f"{a}: serve p50/p99 {r['p50']:.3f}/{r['p99']:.3f} ms, bulk "
+            f"{r['bulk_rows_s']:.0f} rows/s, retrieval 1-stage "
+            f"{r['ret']['1-stage']['qps']:.1f} / 2-stage "
+            f"{r['ret']['2-stage']['qps']:.1f} QPS (recall@100 "
+            f"{r['ret']['2-stage']['recall']:.2f}), train batch "
+            f"{r['train']['batch']} {r['train']['ms']:.1f} ms/step "
+            f"{r['train']['tflops']:.2f} TFLOP/s peak "
+            f"{r['train']['peak_gb']:.2f} GB, busy "
+            f"{100 * rs['f'][a]['busy']:.1f}%"
+            for a, r in rs.items() if a not in ("a", "f", "counts", "seconds"))
+        + f"; phase 4m {rs['seconds']:.1f}s")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,7 @@
 """Config dataclasses: the paper's late-interaction retrievers
-(``RetrieverConfig``) and the decoder-only LM family (``LMConfig``, dense
-and MoE), copies of ``repro.configs.base``'s.
+(``RetrieverConfig``), the decoder-only LM family (``LMConfig``, dense
+and MoE) and the recsys family (``RecsysConfig``), copies of
+``repro.configs.base``'s.
 
 Pure data: importing a config touches no device state.
 """
@@ -172,11 +173,61 @@ class RetrieverConfig:
         return self.grid_h
 
 
-# Criteo-1TB MLPerf categorical cardinalities (26 fields), the EmbeddingBag
-# table sizes of the DLRM seed family; ``chip_smoke.py`` sizes its largest
-# ``embed_bag`` table from the largest field.
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+# Criteo-Kaggle categorical cardinalities (26 fields) — used by dcn-v2/autoint.
+CRITEO_KAGGLE_VOCABS = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572,
+)
+# Criteo-1TB MLPerf cardinalities (26 fields) — used by dlrm-mlperf;
+# ``chip_smoke.py`` also sizes its largest ``embed_bag`` table from the
+# largest field.
 CRITEO_TB_VOCABS = (
     39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
     2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295,
     39664984, 585935, 12972, 108, 36,
+)
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    interaction: str              # cross | self_attn | bidir_seq | dot
+    n_dense: int = 0
+    n_sparse: int = 0
+    embed_dim: int = 16
+    vocab_sizes: tuple = ()
+    # interaction-specific
+    n_cross_layers: int = 0
+    n_attn_layers: int = 0
+    n_heads: int = 0
+    d_attn: int = 0
+    seq_len: int = 0              # bert4rec history length
+    n_items: int = 0              # bert4rec item vocab
+    n_blocks: int = 0
+    bot_mlp: tuple = ()
+    top_mlp: tuple = ()
+    mlp: tuple = ()
+    table_optimizer: str = "rowwise_adagrad"
+    dtype: str = "float32"
+
+    @property
+    def family(self) -> str:
+        return "recsys"
+
+    def n_params(self) -> int:
+        n = sum(self.vocab_sizes) * self.embed_dim
+        n += self.n_items * self.embed_dim
+        return n  # embedding-dominated; dense params counted at runtime
+
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    ShapeSpec("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)),
 )

@@ -1,5 +1,5 @@
-"""``--arch <id>`` resolution: the paper's three retrievers and the
-decoder-LM family."""
+"""``--arch <id>`` resolution: the paper's three retrievers, the
+decoder-LM family and the recsys family."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,11 @@ _ARCH_MODULES = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    # recsys family
+    "dcn-v2": "repro_torch.configs.dcn_v2",
+    "autoint": "repro_torch.configs.autoint",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
     # the paper's late-interaction retrievers
     "colsmol": "repro_torch.configs.colsmol",
     "colpali": "repro_torch.configs.colpali",
@@ -18,7 +23,8 @@ _ARCH_MODULES = {
 }
 
 LM_ARCHS = tuple(list(_ARCH_MODULES)[:5])
-PAPER_ARCHS = tuple(list(_ARCH_MODULES)[5:])
+RECSYS_ARCHS = tuple(list(_ARCH_MODULES)[5:9])
+PAPER_ARCHS = tuple(list(_ARCH_MODULES)[9:])
 
 
 def get_config(arch: str):

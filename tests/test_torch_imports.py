@@ -44,8 +44,9 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 
 def test_encoder_and_training_modules_are_checked():
-    """The AST rule above covers the encoder, the training modules and the
-    training example (the glob reaches every new file)."""
+    """The AST rule above covers the encoder, the training modules, the
+    recsys family and the training example (the glob reaches every new
+    file)."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("src/repro_torch/models/late_interaction.py",
                 "src/repro_torch/training/optimizer.py",
@@ -53,6 +54,8 @@ def test_encoder_and_training_modules_are_checked():
                 "src/repro_torch/training/compression.py",
                 "src/repro_torch/training/elastic.py",
                 "src/repro_torch/training/train_state.py",
+                "src/repro_torch/models/recsys/embedding.py",
+                "src/repro_torch/models/recsys/nets.py",
                 "examples/train_retriever_torch.py"):
         assert rel in checked, rel
         assert not [m for _, m in _imported_modules(ROOT / rel)
@@ -108,6 +111,10 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys import nets
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nets.init_params(get_config("dcn-v2"))
 
 
 def test_serving_entry_points_raise_without_a_card():

@@ -25,7 +25,27 @@ def test_retriever_configs_identical(arch):
     assert set(PAPER_ARCHS) == set(ARCHS)
     assert get_config("gemma2-9b").family == "lm"
     with pytest.raises(KeyError):
-        get_config("dcn-v2")           # the recsys family is not ported
+        get_config("equiformer-v2")    # the GNN family is not ported
+
+
+@pytest.mark.parametrize("arch", ("dcn-v2", "autoint", "bert4rec",
+                                  "dlrm-mlperf"))
+def test_recsys_configs_identical(arch):
+    from repro.configs import base as JB
+    from repro_torch.configs import RECSYS_ARCHS
+    from repro_torch.configs import base as TB
+    a, b = jax_config(arch), get_config(arch)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert a.family == b.family == "recsys"
+    assert a.n_params() == b.n_params()
+    assert arch in RECSYS_ARCHS
+    assert TB.CRITEO_KAGGLE_VOCABS == JB.CRITEO_KAGGLE_VOCABS
+    assert TB.CRITEO_TB_VOCABS == JB.CRITEO_TB_VOCABS
+    assert [(s.name, s.kind, s.dims) for s in TB.RECSYS_SHAPES] == [
+        (s.name, s.kind, s.dims) for s in JB.RECSYS_SHAPES]
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        TB.RecsysConfig)] == [(f.name, f.default) for f in
+                              dataclasses.fields(JB.RecsysConfig)]
 
 
 def _small(get, arch):
