@@ -218,6 +218,32 @@ line) at the first phase that goes wrong:
             finite, lr the schedule's); after 4l's and 4k's profiles, one
             step of each arch under ``torch.profiler`` (busy and GEMM
             shares) and split by phase (forward, backward, update);
+4n. gnn     the GNN family (``models/gnn/``, after 4m's timed parts,
+            before 4k): (a) EquiformerV2 at the CPU tests' size, f32,
+            fused rotation off and on, one seeded model on the host
+            copied to the card: forward rtol 1e-5 atol 1e-5, loss rtol
+            1e-5, every gradient rtol 1e-3 atol 1e-6, a 4-graph molecule
+            loss rtol 1e-5, fused against unfused forward rtol 1e-5 atol
+            1e-5, the l=0 outputs under a random global rotation rtol
+            1e-3 atol 1e-4; then equiformer-v2 at full width (12 layers,
+            128 channels, l_max 6, m_max 2, 8 heads), bf16 messages,
+            ``OptConfig()``, base and opt (fused rotation), 2 warm-up +
+            5 timed steps each (ms/step, edges/s, TFLOP/s by
+            ``cells.py``'s ``_gnn_flops``, printed, peak memory; losses
+            and grad_norms finite, lr the schedule's): (b) ``molecule``
+            (128 graphs x 30 nodes x 64 edges as one disjoint union) and
+            ``full_graph_sm`` (2708 nodes, 10556 edges); (c)
+            ``minibatch_lg``: a fanout-(15, 10) subgraph of 1024 seeds
+            (512 or 256 where 1024 does not fit, printed as a reduction)
+            from ``random_graph(232965, 492)``, whose generation, CSR
+            build and sampling times on the host are printed apart;
+            ``ogb_products`` is printed as not run; (b) also shows, not
+            timed, the reference model's gradients on the molecule
+            batch with positions normal x 2 (edges past the 8.0
+            cutoff): the timed steps keep every edge inside it; after
+            4m's profiles, one ``full_graph_sm`` step (base) under
+            ``torch.profiler`` (busy, GEMM, scatter, gather and
+            elementwise shares);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -3721,6 +3747,548 @@ def recsys_profiles(args, dev, res) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4n: the GNN family
+# ---------------------------------------------------------------------------
+
+# the cells' shapes (configs GNN_SHAPES) and the timed steps of (b), (c)
+GNN_SIZES = dict(warmup=2, timed=5, batch_nodes=(1024, 512, 256),
+                 mol_classes=1, sm_classes=47, lg_classes=41)
+GNN_SCATTER = ("scatter", "index_add", "indexfunc", "index_put", "atomic")
+GNN_GATHER = ("index_select", "indexselect", "gather", "index_kernel")
+GNN_ELEMENTWISE = ("elementwise", "vectorized", "unrolled", "reduce",
+                   "cat", "copy")
+
+
+def gnn_config(variant: str):
+    """``launch/cells.py``'s GNN cell config: equiformer-v2 at full width,
+    bf16 messages, the fused rotation off ("base") or on ("opt")."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("equiformer-v2"),
+                               msg_dtype="bfloat16",
+                               fused_rotation=(variant == "opt"))
+
+
+def gnn_reduced(**over):
+    """The CPU tests' size (``tests/test_archs.py``'s ``reduced_gnn``: 2
+    layers, d 16, l_max 3, m_max 2, 4 heads, rbf 8), float32."""
+    from repro_torch.configs import get_config
+    kw = dict(n_layers=2, d_hidden=16, l_max=3, m_max=2, n_heads=4,
+              d_edge_rbf=8, remat=False)
+    kw.update(over)
+    return dataclasses.replace(get_config("equiformer-v2"), **kw)
+
+
+def gnn_flops(cfg, n_edges: int) -> tuple:
+    """(FLOPs of one train step, the formula): ``launch/cells.py``'s
+    ``_gnn_flops(cfg, n_edges, train=True)``, per layer and edge 3 SO(2)
+    convolutions and 2 rotation applies, times 3 for the backward."""
+    C, n0 = cfg.d_hidden, cfg.l_max + 1
+    conv = (n0 * C) ** 2 * 2
+    for m in range(1, cfg.m_max + 1):
+        conv += 4 * ((n0 - m) * C) ** 2 * 2
+    rot = sum((2 * l + 1) ** 2 for l in range(n0)) * C * 2 * 2
+    per_edge = cfg.n_layers * (3 * conv + rot) * 3.0
+    formula = (f"3 x L x E x (3 conv + rot), conv = 2 (n0 C)^2 + sum_m 8 "
+               f"((n0 - m) C)^2 = {conv}, rot = 4 C sum_l (2l+1)^2 = {rot} "
+               f"(L {cfg.n_layers}, C {C}, n0 {n0}, m_max {cfg.m_max}): "
+               f"{per_edge / 1e9:.4f} GFLOP per edge")
+    return per_edge * n_edges, formula
+
+
+def gnn_pos(gen, shape: tuple, dev) -> torch.Tensor:
+    """Positions uniform in [-2, 2]^3: every pair lies within 6.93 of each
+    other, inside the model's 8.0 radial cutoff, as the edges of a radius
+    graph do (``gnn_cutoff_demo`` shows what edges past it do)."""
+    return torch.rand(shape + (3,), generator=gen, device=dev) * 4 - 2
+
+
+def gnn_graph(gen, n: int, e: int, f: int, dev) -> dict:
+    """A random graph on ``dev``: features, positions (``gnn_pos``), COO
+    edges, all edges live."""
+    return {"feat": torch.randn((n, f), generator=gen, device=dev),
+            "pos": gnn_pos(gen, (n,), dev),
+            "src": torch.randint(0, n, (e,), generator=gen, device=dev),
+            "dst": torch.randint(0, n, (e,), generator=gen, device=dev),
+            "emask": torch.ones(e, dtype=torch.bool, device=dev)}
+
+
+def gnn_node_loss(cfg, b: dict):
+    """``node_ce_loss`` over ``b``'s graph (``LocalEdges``)."""
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.models.gnn.graph import LocalEdges
+    plan = LocalEdges(b["src"], b["dst"], b["emask"], b["feat"].shape[0])
+    return lambda m, _: E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"],
+                                       b["labels"], b["lmask"])
+
+
+def gnn_card_vs_cpu(args, dev) -> dict:
+    """(a) the CPU tests' size, float32: one seeded model on the host
+    copied to the card; forward, ``node_ce_loss`` and every gradient, the
+    molecule loss over 4 graphs, the fused against the unfused forward,
+    and the l=0 outputs under a random global rotation, on the card."""
+    import copy
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.models.gnn.graph import LocalEdges
+
+    n, e, f, n_out = 24, 80, 10, 5
+    gen = torch.Generator().manual_seed(args.seed)
+    b = gnn_graph(gen, n, e, f, "cpu")
+    b["src"][:2] = b["dst"][:2]                    # zero-length edges
+    b["labels"] = torch.randint(0, n_out, (n,), generator=gen)
+    b["lmask"] = torch.rand(n, generator=gen) > 0.25
+    mol = {"feat": torch.randn((4, 6, f), generator=gen),
+           "pos": torch.randn((4, 6, 3), generator=gen) * 2,
+           "src": torch.randint(0, 6, (4, 10), generator=gen),
+           "dst": torch.randint(0, 6, (4, 10), generator=gen),
+           "emask": torch.rand((4, 10), generator=gen) > 0.2,
+           "target": torch.randn(4, generator=gen)}
+    to = lambda x: {k: v.to(dev) for k, v in x.items()}  # noqa: E731
+    out, outs = {}, {}
+    for fused in (False, True):
+        cfg = gnn_reduced(fused_rotation=fused)
+        cpu = E.init_params(cfg, f, n_out,
+                            torch.Generator().manual_seed(args.seed),
+                            device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        res = {}
+        for side, model, bb in (("cpu", cpu, b), ("card", gpu, to(b))):
+            plan = LocalEdges(bb["src"], bb["dst"], bb["emask"], n)
+            with torch.no_grad():
+                fwd = E.forward(cfg, model, plan, bb["feat"], bb["pos"])
+            loss = E.node_ce_loss(cfg, model, plan, bb["feat"], bb["pos"],
+                                  bb["labels"], bb["lmask"])
+            loss.backward()
+            res[side] = (fwd.cpu(), loss.item(), {
+                k: p.grad.cpu() for k, p in model.named_parameters()})
+        (fc, lc, g_cpu), (fg, lg, g_card) = res["cpu"], res["card"]
+        try:
+            torch.testing.assert_close(fg, fc, rtol=1e-5, atol=1e-5)
+        except AssertionError as err:
+            fail(f"(a) fused={fused}: card forward != CPU (rtol 1e-5, atol "
+                 f"1e-5): {err}")
+        check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+              f"(a) fused={fused}: card loss {lg!r} != CPU loss {lc!r} "
+              "(rtol 1e-5)")
+        g_err = 0.0
+        for name, want in g_cpu.items():
+            try:
+                torch.testing.assert_close(g_card[name], want, rtol=1e-3,
+                                           atol=1e-6)
+            except AssertionError as err:
+                fail(f"(a) fused={fused}: grad {name}: card != CPU (rtol "
+                     f"1e-3, atol 1e-6): {err}")
+            g_err = max(g_err, float((g_card[name] - want).abs().max()))
+        ml = [E.batched_graph_energy_loss(cfg, m, **bb).item() for m, bb in
+              ((cpu, mol), (gpu, to(mol)))]
+        check(abs(ml[1] - ml[0]) <= 1e-5 * abs(ml[0]),
+              f"(a) fused={fused}: molecule loss card {ml[1]!r} != CPU "
+              f"{ml[0]!r} (rtol 1e-5)")
+        q, _ = torch.linalg.qr(torch.randn((3, 3), generator=gen,
+                                           dtype=torch.float64))
+        q = (q * torch.sign(torch.linalg.det(q))).float().to(dev)
+        bg = to(b)
+        plan = LocalEdges(bg["src"], bg["dst"], bg["emask"], n)
+        with torch.no_grad():
+            rot = E.forward(cfg, gpu, plan, bg["feat"], bg["pos"] @ q.T)
+        try:
+            torch.testing.assert_close(rot.cpu(), fg, rtol=1e-3, atol=1e-4)
+        except AssertionError as err:
+            fail(f"(a) fused={fused}: l=0 outputs moved under a global "
+                 f"rotation (rtol 1e-3, atol 1e-4): {err}")
+        outs[fused] = fg
+        out[fused] = dict(fwd_abs=float((fg - fc).abs().max()),
+                          loss_rel=abs(lg - lc) / abs(lc), grad_abs=g_err,
+                          mol_rel=abs(ml[1] - ml[0]) / abs(ml[0]),
+                          rot_abs=float((rot.cpu() - fg).abs().max()))
+    try:
+        torch.testing.assert_close(outs[True], outs[False], rtol=1e-5,
+                                   atol=1e-5)
+    except AssertionError as err:
+        fail(f"(a) fused forward != unfused on the card (rtol 1e-5, atol "
+             f"1e-5): {err}")
+    fu = float((outs[True] - outs[False]).abs().max())
+    for fused, o in out.items():
+        log(f"[gnn] (a) fused={fused} (CPU tests' size, f32), card vs CPU: "
+            f"forward max abs err {o['fwd_abs']:.2e} (rtol 1e-5, atol "
+            f"1e-5); node_ce loss rel err {o['loss_rel']:.2e} (rtol 1e-5); "
+            f"grads max abs err {o['grad_abs']:.2e} (rtol 1e-3, atol 1e-6); "
+            f"molecule loss (4 graphs) rel err {o['mol_rel']:.2e} (rtol "
+            f"1e-5); l=0 outputs under a global rotation max abs err "
+            f"{o['rot_abs']:.2e} (rtol 1e-3, atol 1e-4)")
+    log(f"[gnn] (a) fused vs unfused forward on the card: max abs err "
+        f"{fu:.2e} (rtol 1e-5, atol 1e-5)")
+    return dict(out, fused_abs=fu)
+
+
+def gnn_molecule_batch(gen, dev) -> dict:
+    """``molecule``: 128 graphs x 30 nodes x 64 edges, 16 features, one
+    energy target a graph."""
+    G, NN, EE, F = 128, 30, 64, 16
+    return {"feat": torch.randn((G, NN, F), generator=gen, device=dev),
+            "pos": gnn_pos(gen, (G, NN), dev),
+            "src": torch.randint(0, NN, (G, EE), generator=gen, device=dev),
+            "dst": torch.randint(0, NN, (G, EE), generator=gen, device=dev),
+            "emask": torch.ones((G, EE), dtype=torch.bool, device=dev),
+            "target": torch.randn(G, generator=gen, device=dev)}
+
+
+def gnn_sm_batch(gen, dev) -> dict:
+    """``full_graph_sm``: 2708 nodes, 10556 edges, 1433 features, 47
+    classes, every node labelled."""
+    b = gnn_graph(gen, 2708, 10556, 1433, dev)
+    b["labels"] = torch.randint(0, GNN_SIZES["sm_classes"], (2708,),
+                                generator=gen, device=dev)
+    b["lmask"] = torch.ones(2708, dtype=torch.bool, device=dev)
+    return b
+
+
+def gnn_big_graph(args) -> tuple:
+    """``minibatch_lg``'s graph: ``random_graph(232965, 492)`` (114.6M
+    edges) and ``CSRGraph.from_coo``, on the host, with the seconds of
+    each."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.models.gnn import sampler as SMP
+    shape = {s.name: s for s in GNN_SHAPES}["minibatch_lg"]
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    src, dst = SMP.random_graph(shape.n_nodes,
+                                round(shape.n_edges / shape.n_nodes), rng)
+    t1 = time.perf_counter()
+    g = SMP.CSRGraph.from_coo(src, dst, shape.n_nodes)
+    t2 = time.perf_counter()
+    n_edges = len(src)
+    del src, dst
+    return g, rng, shape, dict(n_edges=n_edges, gen_s=t1 - t0,
+                               csr_s=t2 - t1)
+
+
+def gnn_lg_batch(g, rng, shape, batch_nodes: int, gen, dev) -> tuple:
+    """(batch, sample seconds, live nodes, live edges): seeds drawn from
+    ``rng``, a fanout-(15, 10) subgraph padded to ``max_subgraph_shape``,
+    602 features, 41 classes, the loss over the seeds (positions [0,
+    batch_nodes))."""
+    from repro_torch.models.gnn import sampler as SMP
+    t0 = time.perf_counter()
+    seeds = rng.choice(g.n_nodes, batch_nodes, replace=False)
+    sub = SMP.sample_subgraph(g, seeds, tuple(shape.fanout), rng)
+    secs = time.perf_counter() - t0
+    n_max = len(sub["nodes"])
+    b = {"feat": torch.randn((n_max, shape.d_feat), generator=gen,
+                             device=dev),
+         "pos": gnn_pos(gen, (n_max,), dev),
+         "labels": torch.randint(0, GNN_SIZES["lg_classes"], (n_max,),
+                                 generator=gen, device=dev),
+         "lmask": torch.arange(n_max, device=dev) < sub["n_seeds"]}
+    for k, v in (("src", "src"), ("dst", "dst"), ("emask", "edge_mask")):
+        b[k] = torch.from_numpy(sub[v]).to(dev)
+    return (b, secs, int(sub["node_mask"].sum()),
+            int(sub["edge_mask"].sum()))
+
+
+def gnn_train(cfg, model, loss_fn, batch, n_edges: int, what: str) -> dict:
+    """2 warm-up and 5 timed steps (CUDA events) of ``make_train_step``
+    with ``OptConfig()`` (``cells.py``'s settings, AdamW on every leaf):
+    every loss and grad_norm finite, the lr the schedule's."""
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+    oc = OPT.OptConfig()
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    check(set(labels.values()) == {"adamw"}, f"{what}: a GNN parameter is "
+          "not AdamW")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = OPT.init_opt_state(params, labels)
+    step_fn = make_train_step(loss_fn, oc, labels=labels)
+    metrics, times = [], []
+    n_steps = GNN_SIZES["warmup"] + GNN_SIZES["timed"]
+    for i in range(n_steps):
+        m, ms = event_ms(lambda: step_fn(model, opt, batch))
+        metrics.append(m)
+        if i >= GNN_SIZES["warmup"]:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    lrs = torch.stack([m["lr"] for m in metrics])
+    want_lr = OPT.make_schedule(oc)(torch.arange(
+        1, n_steps + 1, dtype=torch.int32, device=lrs.device)).cpu()
+    lrs = lrs.cpu()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{what}: non-finite loss or grad_norm: {losses} {gnorms}")
+    check(bool(torch.equal(lrs, want_lr)), f"{what}: lr sequence "
+          f"{lrs.tolist()} != the schedule {want_lr.tolist()}")
+    ms = statistics.median(times)
+    flops, formula = gnn_flops(cfg, n_edges)
+    del opt
+    return dict(ms=ms, min=min(times), max=max(times),
+                edges_s=n_edges / (ms / 1e3), tflops=flops / (ms / 1e3) / 1e12,
+                flops=flops, formula=formula, peak_gb=peak / 1e9,
+                above_gb=(peak - base) / 1e9, losses=losses, gnorms=gnorms)
+
+
+def gnn_line(r: dict) -> str:
+    return (f"2 warm-up + {GNN_SIZES['timed']} timed steps, median "
+            f"{r['ms']:.1f} ms/step (min {r['min']:.1f}, max {r['max']:.1f}),"
+            f" {r['edges_s']:.4e} edges/s, {r['flops']:.4e} FLOPs "
+            f"= {r['tflops']:.2f} TFLOP/s; peak device memory "
+            f"{r['peak_gb']:.2f} GB ({r['above_gb']:.2f} GB above the model "
+            f"and batch); losses " + " ".join(f"{x:.4f}" for x in r["losses"])
+            + "; grad_norms " + " ".join(f"{x:.3f}" for x in r["gnorms"])
+            + " finite; lr == schedule")
+
+
+def gnn_fresh(cfg, d_feat: int, n_out: int, args, dev):
+    from repro_torch.models.gnn import equiformer_v2 as E
+    gc.collect()
+    torch.cuda.empty_cache()
+    return E.init_params(cfg, d_feat, n_out, torch.Generator(
+        device=dev).manual_seed(args.seed), dev)
+
+
+def gnn_cutoff_demo(cfg, args, dev, gen) -> dict:
+    """The reference model's behaviour on edges past its radial cutoff,
+    shown and not timed: the ``molecule`` batch with positions normal x 2
+    (pairs up to ~14 apart), one forward and backward at full width. A
+    node whose incoming edges all lie past the cutoff gets l>0 features
+    of ~0 that are not 0 (the Gaussian RBF of a distance past 8.0 is
+    ~exp(-64)); the per-l RMS norm then divides by ~sqrt(eps) at each
+    layer, and the gradients grow by that factor layer after layer. The
+    port follows ``repro``'s arithmetic op for op (the CPU tests hold
+    both at the reduced size)."""
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.training import optimizer as OPT
+    model = gnn_fresh(cfg, 16, GNN_SIZES["mol_classes"], args, dev)
+    b = gnn_molecule_batch(gen, dev)
+    b["pos"] = torch.randn(b["pos"].shape, generator=gen, device=dev) * 2
+    loss = E.batched_graph_energy_loss(cfg, model, **b)
+    loss.backward()
+    gn = float(OPT.global_norm(p.grad for p in model.parameters()))
+    top = max(model.named_parameters(),
+              key=lambda kv: float(kv[1].grad.float().abs().max()))
+    d = (b["pos"].gather(1, b["dst"][..., None].expand(-1, -1, 3))
+         - b["pos"].gather(1, b["src"][..., None].expand(-1, -1, 3)))
+    far = (d.norm(dim=-1) > 8.0).sum().item()
+    out = dict(loss=loss.item(), grad_norm=gn, top=top[0],
+               top_abs=float(top[1].grad.float().abs().max()), far=far)
+    del model, b, loss
+    return out
+
+
+def gnn_lg_run(cfg, variant, args, dev, graph, gen, batches) -> dict:
+    """(c) ``minibatch_lg`` at the largest of ``batch_nodes`` whose
+    warm-up step fits, on the subgraph ``batches`` holds for that size
+    (sampled at first use), so base and opt train on the same one."""
+    from repro_torch.models.gnn import sampler as SMP
+    g, rng, shape, _ = graph
+    for bn in GNN_SIZES["batch_nodes"]:
+        if bn not in batches:
+            continue
+        if batches[bn] is None:
+            batches[bn] = gnn_lg_batch(g, rng, shape, bn, gen, dev)
+        b, secs, n_live, e_live = batches[bn]
+        model = gnn_fresh(cfg, shape.d_feat, GNN_SIZES["lg_classes"], args,
+                          dev)
+        n_max, e_max = SMP.max_subgraph_shape(bn, tuple(shape.fanout))
+        try:
+            r = gnn_train(cfg, model, gnn_node_loss(cfg, b), b, e_max,
+                          f"(c) minibatch_lg {variant}")
+        except torch.cuda.OutOfMemoryError:
+            log(f"[gnn] (c) minibatch_lg {variant}: batch_nodes {bn} "
+                f"(padded {n_max} nodes, {e_max} edges) does not fit")
+            r = None
+        del model, b
+        if r is not None:
+            r.update(batch_nodes=bn, n_max=n_max, e_max=e_max, n_live=n_live,
+                     e_live=e_live, sample_s=secs)
+            return r
+        # outside the handler, whose traceback holds the step's tensors
+        del batches[bn]
+        gc.collect()
+        torch.cuda.empty_cache()
+    fail(f"(c) minibatch_lg {variant}: no batch_nodes of "
+         f"{GNN_SIZES['batch_nodes']} fits")
+
+
+def gnn_path(args, dev) -> dict:
+    """Phase 4n: the GNN family, (a) card vs CPU at the tests' size, then
+    equiformer-v2 at full width, bf16 messages, base and opt: (b)
+    ``molecule`` and ``full_graph_sm``, (c) ``minibatch_lg``. Its profile
+    runs last (``gnn_profiles``)."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.models.gnn import equiformer_v2 as E
+
+    torch.cuda.empty_cache()
+    log(f"[gnn] device memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    DSP.reset_counts()
+    res = {"a": gnn_card_vs_cpu(args, dev)}
+    base_cfg = gnn_config("base")
+    model = gnn_fresh(base_cfg, 16, 1, args, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    res["n_params"] = n_params
+    _, formula = gnn_flops(base_cfg, 1)
+    log(f"[gnn] equiformer-v2: {base_cfg.n_layers} layers, "
+        f"{base_cfg.d_hidden} sphere channels, l_max {base_cfg.l_max}, "
+        f"m_max {base_cfg.m_max}, {base_cfg.n_heads} heads, "
+        f"{n_params / 1e6:.2f}M params (molecule head); bf16 messages, "
+        f"remat per layer; FLOPs by cells.py's _gnn_flops: {formula}; "
+        "weights random from --seed, data synthetic")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for variant in ("base", "opt"):
+        cfg = gnn_config(variant)
+        model = gnn_fresh(cfg, 16, GNN_SIZES["mol_classes"], args, dev)
+        mb = gnn_molecule_batch(gen, dev)
+        r = gnn_train(cfg, model, lambda m, b: E.batched_graph_energy_loss(
+            cfg, m, **b), mb, 128 * 64, f"(b) molecule {variant}")
+        res[f"mol_{variant}"] = r
+        log(f"[gnn] (b) molecule {variant} (128 graphs x 30 nodes x 64 "
+            "edges as one disjoint union, graph_energy_loss): "
+            + gnn_line(r))
+        del model, mb
+        model = gnn_fresh(cfg, 1433, GNN_SIZES["sm_classes"], args, dev)
+        sb = gnn_sm_batch(gen, dev)
+        r = gnn_train(cfg, model, gnn_node_loss(cfg, sb), sb, 10556,
+                      f"(b) full_graph_sm {variant}")
+        res[f"sm_{variant}"] = r
+        log(f"[gnn] (b) full_graph_sm {variant} (2708 nodes, 10556 edges, "
+            "1433 features, 47 classes, node_ce_loss): " + gnn_line(r))
+        del model, sb
+    demo = gnn_cutoff_demo(gnn_config("base"), args, dev, gen)
+    res["demo"] = demo
+    log(f"[gnn] (b) molecule base with positions normal x 2 instead "
+        f"({demo['far']} of 8192 edges past the 8.0 cutoff), one forward "
+        f"and backward, not timed: loss {demo['loss']:.4f}, grad_norm "
+        f"{demo['grad_norm']:.4e} (largest gradient {demo['top_abs']:.4e}, "
+        f"{demo['top']}): the reference model's gradients grow by ~1/sqrt("
+        "eps) a layer at nodes whose l>0 features are ~0 but not 0; the "
+        "timed steps keep every edge inside the cutoff")
+    graph = gnn_big_graph(args)
+    gi = graph[3]
+    res["graph"] = gi
+    log(f"[gnn] (c) minibatch_lg graph on the host: random_graph(232965, "
+        f"492): {gi['n_edges']} edges in {gi['gen_s']:.1f}s; "
+        f"CSRGraph.from_coo in {gi['csr_s']:.1f}s (numpy, outside the "
+        "steps)")
+    batches = dict.fromkeys(GNN_SIZES["batch_nodes"])
+    for variant in ("base", "opt"):
+        cfg = gnn_config(variant)
+        r = gnn_lg_run(cfg, variant, args, dev, graph, gen, batches)
+        res[f"c_{variant}"] = r
+        red = ("" if r["batch_nodes"] == GNN_SIZES["batch_nodes"][0] else
+               f" (reduced from {GNN_SIZES['batch_nodes'][0]}: the larger "
+               "batches do not fit one card)")
+        log(f"[gnn] (c) minibatch_lg {variant}: batch_nodes "
+            f"{r['batch_nodes']}{red}, fanout (15, 10), padded "
+            f"{r['n_max']} nodes / {r['e_max']} edges ({r['n_live']} / "
+            f"{r['e_live']} live), sampled in {r['sample_s']:.2f}s on the "
+            "host; " + gnn_line(r))
+    del graph, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape_p = {s.name: s for s in GNN_SHAPES}["ogb_products"]
+    cfgb = base_cfg
+    edge_gb = shape_p.n_edges * cfgb.n_sph * cfgb.d_hidden * 2 / 1e9
+    node_gb = shape_p.n_nodes * cfgb.n_sph * cfgb.d_hidden * 4 / 1e9
+    log(f"[gnn] ogb_products ({shape_p.n_nodes} nodes, {shape_p.n_edges} "
+        f"edges, d_feat {shape_p.d_feat}): not run: one bf16 edge tensor "
+        f"[E, {cfgb.n_sph}, {cfgb.d_hidden}] is {edge_gb:.1f} GB and the f32 "
+        f"node features {node_gb:.1f} GB a layer, against 80 GB on one "
+        "card; it needs the vertex-cut over several cards "
+        "(ShardedEdges.exchange's all_to_all), which waits for the "
+        "sharded mesh code")
+    res["counts"] = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    check(not any(res["counts"].values()), "phase 4n launched a kernel of "
+          f"the port: {res['counts']} (the GNN family has none)")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[gnn] phase 4n took {res['seconds']:.1f}s")
+    return res
+
+
+def gnn_profile_kinds(fn) -> tuple:
+    """(``fn()``, device ms by kind: gemm, scatter, gather, elementwise,
+    other) of one call under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by = {"gemm": 0.0, "scatter": 0.0, "gather": 0.0, "elementwise": 0.0,
+          "other": 0.0}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        name = e.name.lower()
+        kind = ("gemm" if any(t in name for t in GEMM_NAMES) else
+                "scatter" if any(t in name for t in GNN_SCATTER) else
+                "gather" if any(t in name for t in GNN_GATHER) else
+                "elementwise" if any(t in name for t in GNN_ELEMENTWISE)
+                else "other")
+        by[kind] += e.device_time / 1e3
+    check(sum(by.values()) > 0, "torch.profiler recorded no device time")
+    return out, by
+
+
+def gnn_profiles(args, dev, res) -> dict:
+    """4n's profile, last in the run: one ``full_graph_sm`` train step
+    (base) under ``torch.profiler``: busy share of (b)'s median step,
+    GEMM, scatter, gather and elementwise shares."""
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+    cfg = gnn_config("base")
+    model = gnn_fresh(cfg, 1433, GNN_SIZES["sm_classes"], args, dev)
+    sb = gnn_sm_batch(torch.Generator(device=dev).manual_seed(args.seed),
+                      dev)
+    opt = OPT.init_opt_state(dict(model.named_parameters()))
+    step_fn = make_train_step(gnn_node_loss(cfg, sb), OPT.OptConfig())
+    step_fn(model, opt, sb)                            # warm-up
+    _, by = gnn_profile_kinds(lambda: step_fn(model, opt, sb))
+    busy = sum(by.values())
+    ms = res["sm_base"]["ms"]
+    log(f"[gnn] (b) full_graph_sm base: one train step under "
+        f"torch.profiler: device kernel time {busy:.1f} ms "
+        f"({100 * busy / ms:.1f}% of (b)'s median {ms:.1f} ms): "
+        + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                    for k, v in by.items()))
+    del model, opt, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(busy=busy / ms, **{k: v / busy for k, v in by.items()})
+
+
+def gnn_summary(gn: dict) -> str:
+    """Phase 4n's ``[summary]`` line."""
+    a = gn["a"]
+    cells = "; ".join(
+        f"{name} {v} {gn[f'{k}_{v}']['ms']:.1f} ms/step "
+        f"{gn[f'{k}_{v}']['edges_s']:.4e} edges/s "
+        f"{gn[f'{k}_{v}']['tflops']:.2f} TFLOP/s peak "
+        f"{gn[f'{k}_{v}']['peak_gb']:.2f} GB"
+        for k, name in (("mol", "molecule"), ("sm", "full_graph_sm"),
+                        ("c", "minibatch_lg")) for v in ("base", "opt"))
+    return (f"[summary] gnn (a) card vs CPU, reduced f32: forward max abs "
+            f"err {max(a[f]['fwd_abs'] for f in (False, True)):.2e}, loss "
+            f"rel err {max(a[f]['loss_rel'] for f in (False, True)):.2e}, "
+            f"grad max abs err "
+            f"{max(a[f]['grad_abs'] for f in (False, True)):.2e}; "
+            f"equiformer-v2 {gn['n_params'] / 1e6:.2f}M params, bf16 "
+            f"messages: {cells}; minibatch_lg batch_nodes "
+            f"{gn['c_base']['batch_nodes']}/{gn['c_opt']['batch_nodes']}, "
+            f"graph {gn['graph']['gen_s']:.1f}s + CSR "
+            f"{gn['graph']['csr_s']:.1f}s on the host; full_graph_sm busy "
+            f"{100 * gn['f']['busy']:.1f}% (gemm "
+            f"{100 * gn['f']['gemm']:.1f}%, scatter "
+            f"{100 * gn['f']['scatter']:.1f}%, elementwise "
+            f"{100 * gn['f']['elementwise']:.1f}%); ogb_products not run; "
+            f"phase 4n {gn['seconds']:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -4114,15 +4682,17 @@ def main() -> None:
     entries = kernel_times(args, dev, main_res)
     entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
 
-    # 4l, 4m and 4k after the kernel times: their training loads and
-    # profiled steps stay out of them. 4l's and 4m's timed parts come
-    # first, their profiles last, so that no profiled step comes before a
-    # 4l or 4m timing
+    # 4l, 4m, 4n and 4k after the kernel times: their training loads and
+    # profiled steps stay out of them. 4l's, 4m's and 4n's timed parts
+    # come first, their profiles last, so that no profiled step comes
+    # before a 4l, 4m or 4n timing
     lm_res = lm_path(args, dev)
     recsys_res = recsys_path(args, dev)
+    gnn_res = gnn_path(args, dev)
     train_res = train_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
+    gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
     c8 = int8_res["counts"]
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
@@ -4210,7 +4780,8 @@ def main() -> None:
                                       ("mrl", mrl_res),
                                       ("tiered", tier_res),
                                       ("train", train_res),
-                                      ("recsys", recsys_res))}
+                                      ("recsys", recsys_res),
+                                      ("gnn", gnn_res))}
     tr = train_res["res"]
     log(f"[summary] train (ColPali, 16 layers, batch 16, f32): "
         f"{tr['b']['ms']:.1f} ms/step, {tr['b']['pages_s']:.1f} pages/s, "
@@ -4257,6 +4828,7 @@ def main() -> None:
             f"{100 * rs['f'][a]['busy']:.1f}%"
             for a, r in rs.items() if a not in ("a", "f", "counts", "seconds"))
         + f"; phase 4m {rs['seconds']:.1f}s")
+    log(gnn_summary(gnn_res))
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,11 +1,12 @@
 from repro_torch.configs.base import (CRITEO_KAGGLE_VOCABS, CRITEO_TB_VOCABS,
-                                      LM_SHAPES, RECSYS_SHAPES, LMConfig,
-                                      MoESpec, RecsysConfig, RetrieverConfig,
+                                      GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                      GNNConfig, LMConfig, MoESpec,
+                                      RecsysConfig, RetrieverConfig,
                                       ShapeSpec)
-from repro_torch.configs.registry import (LM_ARCHS, PAPER_ARCHS,
+from repro_torch.configs.registry import (GNN_ARCHS, LM_ARCHS, PAPER_ARCHS,
                                           RECSYS_ARCHS, get_config)
 
-__all__ = ["CRITEO_KAGGLE_VOCABS", "CRITEO_TB_VOCABS", "LM_SHAPES",
-           "RECSYS_SHAPES", "LMConfig", "MoESpec", "RecsysConfig",
-           "RetrieverConfig", "ShapeSpec", "LM_ARCHS", "PAPER_ARCHS",
-           "RECSYS_ARCHS", "get_config"]
+__all__ = ["CRITEO_KAGGLE_VOCABS", "CRITEO_TB_VOCABS", "GNN_SHAPES",
+           "LM_SHAPES", "RECSYS_SHAPES", "GNNConfig", "LMConfig", "MoESpec",
+           "RecsysConfig", "RetrieverConfig", "ShapeSpec", "GNN_ARCHS",
+           "LM_ARCHS", "PAPER_ARCHS", "RECSYS_ARCHS", "get_config"]

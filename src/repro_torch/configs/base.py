@@ -1,7 +1,7 @@
 """Config dataclasses: the paper's late-interaction retrievers
 (``RetrieverConfig``), the decoder-only LM family (``LMConfig``, dense
-and MoE) and the recsys family (``RecsysConfig``), copies of
-``repro.configs.base``'s.
+and MoE), the GNN family (``GNNConfig``) and the recsys family
+(``RecsysConfig``), copies of ``repro.configs.base``'s.
 
 Pure data: importing a config touches no device state.
 """
@@ -171,6 +171,55 @@ class RetrieverConfig:
         if self.smooth == "conv1d":
             return self.grid_h + 2
         return self.grid_h
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int                 # sphere channels
+    l_max: int
+    m_max: int
+    n_heads: int
+    d_feat_default: int = 128
+    d_edge_rbf: int = 32          # radial basis size
+    d_attn_hidden: int = 64
+    norm_eps: float = 1e-5
+    remat: bool = True
+    dtype: str = "bfloat16"
+    msg_dtype: str = "float32"    # per-edge pipeline dtype (bf16 at pod scale)
+    fused_rotation: bool = False  # fuse rotate+truncate / expand+rotate-back
+
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+    @property
+    def n_sph(self) -> int:
+        """Number of real spherical-harmonic coefficients, (l_max+1)^2."""
+        return (self.l_max + 1) ** 2
+
+    @property
+    def n_sph_m(self) -> int:
+        """Coefficients retained under the eSCN m<=m_max truncation."""
+        return sum(min(2 * self.m_max + 1, 2 * l + 1) for l in range(self.l_max + 1))
+
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "full_graph",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    ShapeSpec("minibatch_lg", "minibatch",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout=(15, 10), d_feat=602)),
+    ShapeSpec("ogb_products", "full_graph",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100)),
+    ShapeSpec("molecule", "batched_graphs",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16)),
+)
 
 
 # ---------------------------------------------------------------------------

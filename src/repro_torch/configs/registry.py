@@ -1,5 +1,5 @@
 """``--arch <id>`` resolution: the paper's three retrievers, the
-decoder-LM family and the recsys family."""
+decoder-LM family, the recsys family and the GNN family."""
 from __future__ import annotations
 
 import importlib
@@ -20,11 +20,14 @@ _ARCH_MODULES = {
     "colsmol": "repro_torch.configs.colsmol",
     "colpali": "repro_torch.configs.colpali",
     "colqwen": "repro_torch.configs.colqwen",
+    # GNN family
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
 }
 
 LM_ARCHS = tuple(list(_ARCH_MODULES)[:5])
 RECSYS_ARCHS = tuple(list(_ARCH_MODULES)[5:9])
-PAPER_ARCHS = tuple(list(_ARCH_MODULES)[9:])
+PAPER_ARCHS = tuple(list(_ARCH_MODULES)[9:12])
+GNN_ARCHS = tuple(list(_ARCH_MODULES)[12:])
 
 
 def get_config(arch: str):

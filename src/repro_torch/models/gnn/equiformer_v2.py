@@ -1,0 +1,531 @@
+"""EquiformerV2: SO(2)-eSCN equivariant graph attention (arXiv:2306.12059),
+the port of ``repro.models.gnn.equiformer_v2``.
+
+- node features are irrep coefficient tensors [*, (l_max+1)^2, C];
+- per edge, features are Wigner-rotated into the edge frame (edge || z),
+  truncated to |m| <= m_max, passed through per-m SO(2) linear maps
+  (the eSCN O(L^3) trick), gated, attention-weighted (multi-head, segment
+  softmax over incoming edges), rotated back and aggregated;
+- equivariant RMS layer norm (per-l statistics, per-(l,c) scale);
+- per-l linear FFN with gate activation;
+- edge-degree embedding initialises l>0 coefficients from neighbour
+  directions (SH of edge dir x radial embedding).
+
+As in ``repro``, the S2-grid activation of the original is replaced by
+the e3nn gate activation (scalars gate higher-l channels).
+
+``EquiformerV2`` holds the parameters under ``repro``'s names, its layers
+in an ``nn.ModuleList`` (``repro`` stacks them and scans; ``to_jax_leaves``
+and ``params_from_jax`` stack and unstack at that boundary). The model
+functions keep ``repro``'s names and take the model, or a layer, where
+``repro`` takes the params tree. Numerics kept from ``repro``:
+``cfg.msg_dtype`` casts the normalised features, the Wigner blocks and
+the radial gains of the edge pipeline (node features, norms and the head
+stay float32); attention logits are float32; SiLU and sigmoid follow
+``jax.nn`` op for op (``models.layers``), so bfloat16 rounds where JAX
+rounds; zero-length edges are masked out of attention and aggregation.
+``cfg.remat`` checkpoints each layer (``torch.utils.checkpoint``), as
+``jax.checkpoint`` does under ``repro``'s scan. Float32 products run with
+TF32 off (``full_f32``). ``repro``'s ``param_specs`` is sharding and
+waits for the sharded mesh code.
+"""
+from __future__ import annotations
+
+import functools
+from functools import partial
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.dispatch import full_f32, resolve_device
+from repro_torch.models.gnn import so3
+from repro_torch.models.gnn.graph import LocalEdges
+from repro_torch.models.layers import _Logistic, _normal, _silu
+
+
+# ---------------------------------------------------------------------------
+# metadata helpers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _l_of_comp(l_max: int) -> np.ndarray:
+    return np.asarray([l for l in range(l_max + 1)
+                       for _ in range(2 * l + 1)], np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _l_of_keep(l_max: int, m_max: int) -> np.ndarray:
+    mi = so3.m_indices(l_max, m_max)
+    full = _l_of_comp(l_max)
+    return full[mi["keep"]]
+
+
+@functools.lru_cache(maxsize=None)
+def _l_mean_mat(l_max: int) -> np.ndarray:
+    """[l_max+1, n_sph] row-normalised per-l averaging matrix."""
+    lof = _l_of_comp(l_max)
+    A = np.zeros((l_max + 1, len(lof)), np.float32)
+    for i, l in enumerate(lof):
+        A[l, i] = 1.0
+    return A / A.sum(axis=1, keepdims=True)
+
+
+def _rbf_centers(n: int, cutoff: float) -> np.ndarray:
+    """``jnp.linspace(0.0, cutoff, n)`` in float32, bit for bit:
+    ``start * (1 - step) + stop * step`` in float32, the last point
+    ``stop``, with ``step = i / (n-1)`` as XLA computes it (a product with
+    the float32 reciprocal of the constant)."""
+    step = (np.arange(n - 1, dtype=np.float32)
+            * (np.float32(1) / np.float32(n - 1)))
+    out = (np.float32(0.0) * (np.float32(1) - step)
+           + np.float32(cutoff) * step)
+    return np.concatenate([out, np.float32([cutoff])]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _rbf_centers_on(n: int, cutoff: float, device: torch.device):
+    return torch.as_tensor(_rbf_centers(n, cutoff), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _meta(l_max: int, m_max: int, device: torch.device) -> dict:
+    """The index tables of one (l_max, m_max) as tensors on ``device``,
+    made once (a table copied per call would wait for the card)."""
+    mi = so3.m_indices(l_max, m_max)
+    t = partial(torch.as_tensor, dtype=torch.long, device=device)
+    order = np.concatenate([mi["m0"]] + [
+        mi[k][m] for m in range(1, m_max + 1) for k in ("cos", "sin")])
+    return {"keep": t(mi["keep"]), "m0": t(mi["m0"]),
+            "cos": {m: t(v) for m, v in mi["cos"].items()},
+            "sin": {m: t(v) for m, v in mi["sin"].items()},
+            "order": t(order),
+            "lof": t(_l_of_comp(l_max)),
+            "lkeep": t(_l_of_keep(l_max, m_max)),
+            "A": torch.as_tensor(_l_mean_mat(l_max), device=device)}
+
+
+def _msg_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.msg_dtype)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(v, axis=-1)``: sqrt of the sum of squares."""
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _dense(gen, shape, device, scale=None) -> nn.Parameter:
+    scale = scale if scale is not None else shape[0] ** -0.5
+    return nn.Parameter(_normal(gen, shape, scale, device))
+
+
+def _zeros(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                    device=device))
+
+
+def _ones(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(shape, dtype=torch.float32, device=device))
+
+
+def so2_conv_params(gen, cfg, device) -> nn.ParameterDict:
+    lm, mm, C = cfg.l_max, cfg.m_max, cfg.d_hidden
+    n0 = lm + 1
+    p = {"w0": _dense(gen, (n0 * C, n0 * C), device)}
+    for m in range(1, mm + 1):
+        n = lm + 1 - m
+        p[f"wre{m}"] = _dense(gen, (n * C, n * C), device)
+        p[f"wim{m}"] = _dense(gen, (n * C, n * C), device)
+    return nn.ParameterDict(p)
+
+
+def _radial_params(gen, cfg, device) -> nn.ParameterDict:
+    h = 64
+    return nn.ParameterDict({
+        "w1": _dense(gen, (cfg.d_edge_rbf, h), device),
+        "b1": _zeros((h,), device),
+        "w2": _dense(gen, (h, cfg.d_hidden), device),
+        "b2": _zeros((cfg.d_hidden,), device)})
+
+
+class EquiformerLayer(nn.Module):
+    """One interaction + FFN layer's parameters, named as one slice of
+    ``repro``'s stacked ``layers`` (``layer["conv_src"]["w0"]``)."""
+
+    def __init__(self, gen, cfg, device):
+        super().__init__()
+        lm, C, H = cfg.l_max, cfg.d_hidden, cfg.n_heads
+        self.ln1 = _ones((lm + 1, C), device)
+        self.conv_src = so2_conv_params(gen, cfg, device)
+        self.conv_dst = so2_conv_params(gen, cfg, device)
+        self.conv_val = so2_conv_params(gen, cfg, device)
+        self.rad_src = _radial_params(gen, cfg, device)
+        self.rad_dst = _radial_params(gen, cfg, device)
+        self.gate_edge = nn.ParameterDict({
+            "w": _dense(gen, (C, lm * C), device),
+            "b": _zeros((lm * C,), device)})
+        self.alpha_w = _dense(gen, (H, (lm + 1) * (C // H)), device)
+        self.proj = _dense(gen, (lm + 1, C, C), device, C ** -0.5)
+        self.ln2 = _ones((lm + 1, C), device)
+        self.ffn_w1 = _dense(gen, (lm + 1, C, C), device, C ** -0.5)
+        self.gate_ffn = nn.ParameterDict({
+            "w": _dense(gen, (C, lm * C), device),
+            "b": _zeros((lm * C,), device)})
+        self.ffn_w2 = _dense(gen, (lm + 1, C, C), device, C ** -0.5)
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def _name_key(name: str) -> tuple:
+    """Sort key of a '.'-joined name in ``jax.tree.leaves`` order (dict
+    keys sorted at every level)."""
+    return tuple(name.split("."))
+
+
+class EquiformerV2(nn.Module):
+    """The model of ``cfg`` (a ``GNNConfig``) over ``d_feat`` input
+    features with ``n_out`` outputs a node. Parameters, as ``repro``'s
+    tree: ``embed``, ``edge_embed_rad`` {w1, b1, w2, b2}, ``layers``
+    (``EquiformerLayer``s), ``ln_f``, ``head``, ``head_b``.
+
+    Weights are drawn from ``generator`` on its device (a CPU generator
+    draws on the host, then the model moves to ``device``) with
+    ``repro``'s scales: normal x ``shape[0] ** -0.5`` (the per-l
+    ``proj``/``ffn_w*`` [l, C, C] x ``C ** -0.5``), biases zero, norms
+    one. ``device`` defaults to the card and raises without one."""
+
+    def __init__(self, cfg, d_feat: int, n_out: int,
+                 generator: torch.Generator | None = None, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        g = generator
+        C = cfg.d_hidden
+        self.cfg = cfg
+        self.embed = _dense(g, (d_feat, C), dev)
+        self.edge_embed_rad = _radial_params(g, cfg, dev)
+        self.layers = nn.ModuleList(EquiformerLayer(g, cfg, dev)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = _ones((cfg.l_max + 1, C), dev)
+        self.head = _dense(g, (C, n_out), dev)
+        self.head_b = _zeros((n_out,), dev)
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------------
+    # ``repro``'s parameter tree
+    # ------------------------------------------------------------------
+
+    def jax_leaf_names(self) -> list:
+        """Paths of ``repro``'s params tree in ``jax.tree.leaves`` order,
+        '/'-joined (``layers/conv_src/w0`` is the [n_layers, ...] stack)."""
+        top = [n for n, _ in self.named_parameters()
+               if not n.startswith("layers.")]
+        per = [f"layers.{n}" for n, _ in self.layers[0].named_parameters()]
+        return [n.replace(".", "/") for n in sorted(top + per, key=_name_key)]
+
+    def jax_stacked(self, name: str) -> bool:
+        """True for a leaf stacked along a leading [n_layers] axis."""
+        return name.startswith("layers/")
+
+    def jax_leaf_params(self, name: str) -> list:
+        """The parameters behind one ``repro`` leaf: the per-layer tensors
+        of a ``layers/`` stack, else the one parameter."""
+        if self.jax_stacked(name):
+            key = name[len("layers/"):].replace("/", ".")
+            return [layer.get_parameter(key) for layer in self.layers]
+        return [self.get_parameter(name.replace("/", "."))]
+
+    @torch.no_grad()
+    def to_jax_leaves(self) -> list:
+        """The parameters as ``repro``'s leaves (layers stacked
+        [n_layers, ...]), in ``jax.tree.leaves`` order."""
+        out = []
+        for name in self.jax_leaf_names():
+            ps = self.jax_leaf_params(name)
+            out.append(torch.stack(ps) if self.jax_stacked(name)
+                       else ps[0].detach().clone())
+        return out
+
+    @torch.no_grad()
+    def load_jax_leaves(self, leaves) -> None:
+        """Copy ``repro``-ordered leaves (numpy arrays or tensors, layers
+        stacked) into the parameters, bit for bit; shapes must match."""
+        names = self.jax_leaf_names()
+        if len(leaves) != len(names):
+            raise ValueError(f"{len(leaves)} leaves, the model has "
+                             f"{len(names)}")
+        for name, x in zip(names, leaves):
+            x = torch.as_tensor(x)
+            ps = self.jax_leaf_params(name)
+            parts = list(x) if self.jax_stacked(name) else [x]
+            if len(parts) != len(ps):
+                raise ValueError(f"{name}: {len(parts)} layers, the model "
+                                 f"has {len(ps)}")
+            for p, v in zip(ps, parts):
+                if tuple(v.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(v.shape)}, the "
+                                     f"model has {tuple(p.shape)}")
+                p.copy_(v)
+
+
+def init_params(cfg, d_feat: int, n_out: int,
+                generator: torch.Generator | None = None,
+                device="cuda") -> EquiformerV2:
+    """A randomly initialised model (``repro``'s ``init_params``; the draws
+    come from ``generator``, not from a JAX key)."""
+    return EquiformerV2(cfg, d_feat, n_out, generator, device)
+
+
+def _tree_get(tree: dict, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def params_from_jax(cfg, tree: dict, device="cuda") -> EquiformerV2:
+    """A model holding ``repro``'s params ``tree`` (nested dicts of numpy
+    arrays, ``layers`` stacked [n_layers, ...]) bit for bit."""
+    d_feat, n_out = (np.shape(tree["embed"])[0], np.shape(tree["head"])[1])
+    model = EquiformerV2(cfg, d_feat, n_out, torch.Generator().manual_seed(0),
+                         device)
+    model.load_jax_leaves([_tree_get(tree, n)
+                           for n in model.jax_leaf_names()])
+    return model
+
+
+def to_jax_leaves(model: EquiformerV2) -> list:
+    """``model``'s parameters as ``repro``'s leaves (``jax.tree.leaves``
+    order of ``init_params``' tree)."""
+    return model.to_jax_leaves()
+
+
+# ---------------------------------------------------------------------------
+# equivariant building blocks
+# ---------------------------------------------------------------------------
+
+def eq_layernorm(x: torch.Tensor, w: torch.Tensor, cfg, eps: float = 1e-5):
+    """x [..., n_sph, C]; w [l_max+1, C]. RMS per l, scale per (l, c)."""
+    meta = _meta(cfg.l_max, cfg.m_max, x.device)
+    lof = meta["lof"]
+    ms = torch.einsum("lm,...mc->...lc", meta["A"], x * x)
+    rms = torch.sqrt(torch.mean(ms, dim=-1) + eps)     # [..., l_max+1]
+    return x / rms[..., lof, None] * w[lof]
+
+
+def gate_act(x: torch.Tensor, p, l_of: torch.Tensor, cfg):
+    """Scalars (l=0) gate higher-l channels; silu on the scalars.
+
+    x [..., n_comp, C] where comp 0 is (l=0, m=0); l_of [n_comp] the l of
+    each component."""
+    C = cfg.d_hidden
+    s = x[..., 0, :]                                    # [..., C]
+    g = _Logistic.apply(s @ p["w"].to(x.dtype) + p["b"].to(x.dtype))
+    g = g.reshape(g.shape[:-1] + (cfg.l_max, C))
+    gates = torch.cat([torch.ones_like(g[..., :1, :]), g], dim=-2)
+    out = x * gates.index_select(-2, l_of)
+    return torch.cat([_silu(s)[..., None, :], out[..., 1:, :]], dim=-2)
+
+
+def radial_gain(p, dist: torch.Tensor, cfg, cutoff: float = 8.0):
+    """Gaussian RBF -> MLP -> per-channel gain [..., C]."""
+    centers = _rbf_centers_on(cfg.d_edge_rbf, cutoff, dist.device)
+    width = cutoff / cfg.d_edge_rbf
+    rbf = torch.exp(-((dist[..., None] - centers) / width) ** 2)
+    h = _silu(rbf @ p["w1"] + p["b1"])
+    return h @ p["w2"] + p["b2"]
+
+
+def so2_conv(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Per-m SO(2) linear maps on m-truncated coeffs. x [..., n_keep, C].
+
+    The m = 0 rows and each m's cos/sin rows together are every retained
+    position once, so the products are written into a fresh zeros tensor
+    by one index copy (``repro``'s ``.at[idx].set`` per m)."""
+    lm, mm, C = cfg.l_max, cfg.m_max, cfg.d_hidden
+    meta = _meta(lm, mm, x.device)
+    lead = x.shape[:-2]
+    dt = x.dtype
+    # m = 0
+    x0 = x.index_select(-2, meta["m0"]).reshape(lead + ((lm + 1) * C,))
+    parts = [(x0 @ p["w0"].to(dt)).reshape(lead + (lm + 1, C))]
+    # m > 0: complex structure (cos/sin pairs)
+    for m in range(1, mm + 1):
+        n = lm + 1 - m
+        xc = x.index_select(-2, meta["cos"][m]).reshape(lead + (n * C,))
+        xs = x.index_select(-2, meta["sin"][m]).reshape(lead + (n * C,))
+        wre, wim = p[f"wre{m}"].to(dt), p[f"wim{m}"].to(dt)
+        yc = xc @ wre - xs @ wim
+        ys = xc @ wim + xs @ wre
+        parts += [yc.reshape(lead + (n, C)), ys.reshape(lead + (n, C))]
+    return torch.zeros_like(x).index_copy(x.ndim - 2, meta["order"],
+                                          torch.cat(parts, dim=-2))
+
+
+def per_l_linear(w: torch.Tensor, x: torch.Tensor, cfg) -> torch.Tensor:
+    """w [l_max+1, C, C]; x [..., n_sph, C] -> same (block over l)."""
+    lof = _meta(cfg.l_max, cfg.m_max, x.device)["lof"]
+    wc = w.index_select(0, lof).to(x.dtype)             # [n_sph, C, C]
+    return torch.einsum("...mc,mcd->...md", x, wc)
+
+
+# ---------------------------------------------------------------------------
+# one interaction (attention) layer
+# ---------------------------------------------------------------------------
+
+def interaction(cfg, p, plan, x: torch.Tensor, pos: torch.Tensor):
+    lm, mm, C, H = cfg.l_max, cfg.m_max, cfg.d_hidden, cfg.n_heads
+    meta = _meta(lm, mm, x.device)
+    keep = meta["keep"]
+    Ch = C // H
+
+    mdt = _msg_dtype(cfg)
+    xn = eq_layernorm(x, p["ln1"], cfg).to(mdt)
+
+    def rotate_trunc(blocks, feats):
+        if cfg.fused_rotation:
+            return so3.apply_wigner_trunc(blocks, feats, lm, mm)
+        return so3.apply_wigner(blocks, feats).index_select(-2, keep)
+
+    # ---- src side: rotate into edge frame, truncate, SO(2) conv
+    xs = plan.gather_src(xn)                            # [*E, n_sph, C]
+    dvec = plan.dst_pos(pos) - plan.src_pos(pos)
+    dist = _norm(dvec)
+    blocks = [b.to(mdt)
+              for b in so3.wigner_blocks(so3.rotation_to_z(dvec), lm)]
+    xt = rotate_trunc(blocks, xs)
+    g = radial_gain(p["rad_src"], dist, cfg).to(mdt)
+    a = so2_conv(p["conv_src"], xt * g[..., None, :], cfg)
+    a = plan.exchange(a)                                # the ONLY transfer
+    a = a.reshape((-1,) + tuple(a.shape[-2:]))
+
+    # ---- dst side: recv edges; rebuild rotation from the positions
+    xd = plan.gather_dst(xn)                            # [Er, n_sph, C]
+    dvec_r = plan.recv_dvec(pos)
+    dist_r = _norm(dvec_r)
+    blocks_r = [b.to(mdt)
+                for b in so3.wigner_blocks(so3.rotation_to_z(dvec_r), lm)]
+    xdt = rotate_trunc(blocks_r, xd)
+    gr = radial_gain(p["rad_dst"], dist_r, cfg).to(mdt)
+    b = so2_conv(p["conv_dst"], xdt * gr[..., None, :], cfg)
+
+    h = gate_act(a + b, p["gate_edge"], meta["lkeep"], cfg)  # [Er, n_keep, C]
+
+    # ---- multi-head attention over incoming edges
+    a0 = h.index_select(-2, meta["m0"])                 # [Er, l_max+1, C]
+    af = a0.reshape(a0.shape[:-2] + (lm + 1, H, Ch))
+    af = torch.movedim(af, -2, -3).reshape(a0.shape[:-2] + (H, (lm + 1) * Ch))
+    z = torch.einsum("...hf,hf->...h", af,
+                     p["alpha_w"].to(af.dtype)).float()
+    logits = torch.where(z >= 0, z, 0.2 * z)            # leaky_relu(0.2)
+    # zero-length (self-loop) edges have no well-defined frame: mask them
+    edge_valid = dist_r > 1e-6
+    alpha = plan.softmax(logits, valid=edge_valid)      # [Er, H]
+
+    v = so2_conv(p["conv_val"], h, cfg)                 # [Er, n_keep, C]
+    v = (v.reshape(v.shape[:-1] + (H, Ch))
+         * alpha.to(v.dtype)[..., None, :, None])
+    v = v.reshape(v.shape[:-2] + (C,))
+
+    # ---- expand |m|<=m_max back to full irreps, rotate out of edge frame
+    if cfg.fused_rotation:
+        vout = so3.apply_wigner_expand(blocks_r, v, lm, mm)
+    else:
+        vfull = v.new_zeros(v.shape[:-2] + ((lm + 1) ** 2, C))
+        vfull = vfull.index_copy(v.ndim - 2, keep, v)
+        vout = so3.apply_wigner(blocks_r, vfull, transpose=True)
+    agg = plan.aggregate(vout, valid=edge_valid)        # [n_local, n_sph, C]
+    return x + per_l_linear(p["proj"], agg, cfg)
+
+
+def ffn_block(cfg, p, x: torch.Tensor):
+    lof = _meta(cfg.l_max, cfg.m_max, x.device)["lof"]
+    h = eq_layernorm(x, p["ln2"], cfg)
+    h = per_l_linear(p["ffn_w1"], h, cfg)
+    h = gate_act(h, p["gate_ffn"], lof, cfg)
+    return x + per_l_linear(p["ffn_w2"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def embed_nodes(cfg, model, plan, feat: torch.Tensor, pos: torch.Tensor):
+    """Scalar embedding + edge-degree equivariant initialisation."""
+    C = cfg.d_hidden
+    x0 = feat @ model.embed                              # [N, C]
+    x = torch.cat([x0[:, None, :],
+                   x0.new_zeros((x0.shape[0], (cfg.l_max + 1) ** 2 - 1, C))],
+                  dim=1)
+    dvec = plan.recv_dvec(pos)
+    dist = _norm(dvec)
+    dhat = dvec / torch.clamp(dist, min=1e-9)[..., None]
+    ys = so3.sph_harm(dhat, cfg.l_max)                  # [Er, n_sph]
+    g = radial_gain(model.edge_embed_rad, dist, cfg)
+    msg = ys[..., :, None] * g[..., None, :]
+    deg = 8.0                                           # degree normaliser
+    return x + plan.aggregate(msg, valid=dist > 1e-6) / deg
+
+
+def _layer(cfg, p, plan, pos, x):
+    x = interaction(cfg, p, plan, x, pos)
+    return ffn_block(cfg, p, x)
+
+
+def forward(cfg, model, plan, feat: torch.Tensor, pos: torch.Tensor):
+    """Returns per-node outputs [n_local, n_out]."""
+    full_f32()
+    x = embed_nodes(cfg, model, plan, feat, pos)
+    for p in model.layers:
+        body = partial(_layer, cfg, p, plan, pos)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
+    x = eq_layernorm(x, model.ln_f, cfg)
+    return x[..., 0, :] @ model.head + model.head_b
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def node_ce_loss(cfg, model, plan, feat, pos, labels, label_mask):
+    logits = forward(cfg, model, plan, feat, pos)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    m = label_mask.to(torch.float32)
+    return torch.sum((logz - gold) * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def graph_energy_loss(cfg, model, plan, feat, pos, target):
+    """Molecule cell: graph-level scalar regression of one graph."""
+    out = forward(cfg, model, plan, feat, pos)          # [n_nodes, 1]
+    energy = torch.mean(out[:, 0])
+    return (energy - target) ** 2
+
+
+def batched_graph_energy_loss(cfg, model, feat, pos, src, dst, emask,
+                              target):
+    """The mean of ``graph_energy_loss`` over G graphs of NN nodes (feat
+    [G, NN, F], pos [G, NN, 3], src/dst/emask [G, EE], target [G]), which
+    ``repro`` vmaps. Here the graphs run as one disjoint union: node ids
+    offset by g * NN, one forward, each graph's energy the mean of its own
+    nodes' outputs. No edge joins two graphs, so every node sees what it
+    sees alone."""
+    G, NN = feat.shape[:2]
+    off = (torch.arange(G, device=src.device) * NN)[:, None]
+    plan = LocalEdges((src + off).reshape(-1), (dst + off).reshape(-1),
+                      emask.reshape(-1), G * NN)
+    out = forward(cfg, model, plan, feat.reshape((G * NN,) + feat.shape[2:]),
+                  pos.reshape(G * NN, 3))
+    energy = torch.mean(out[:, 0].reshape(G, NN), dim=1)
+    return torch.mean((energy - target) ** 2)

@@ -45,8 +45,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 def test_encoder_and_training_modules_are_checked():
     """The AST rule above covers the encoder, the training modules, the
-    recsys family and the training example (the glob reaches every new
-    file)."""
+    recsys and GNN families and the training example (the glob reaches
+    every new file)."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("src/repro_torch/models/late_interaction.py",
                 "src/repro_torch/training/optimizer.py",
@@ -56,6 +56,10 @@ def test_encoder_and_training_modules_are_checked():
                 "src/repro_torch/training/train_state.py",
                 "src/repro_torch/models/recsys/embedding.py",
                 "src/repro_torch/models/recsys/nets.py",
+                "src/repro_torch/models/gnn/so3.py",
+                "src/repro_torch/models/gnn/graph.py",
+                "src/repro_torch/models/gnn/sampler.py",
+                "src/repro_torch/models/gnn/equiformer_v2.py",
                 "examples/train_retriever_torch.py"):
         assert rel in checked, rel
         assert not [m for _, m in _imported_modules(ROOT / rel)

@@ -24,8 +24,15 @@ def test_retriever_configs_identical(arch):
         assert getattr(a, prop) == getattr(b, prop), prop
     assert set(PAPER_ARCHS) == set(ARCHS)
     assert get_config("gemma2-9b").family == "lm"
-    with pytest.raises(KeyError):
-        get_config("equiformer-v2")    # the GNN family is not ported
+    from repro.configs import base as JB
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import base as TB
+    ja, ta = jax_config("equiformer-v2"), get_config("equiformer-v2")
+    assert dataclasses.asdict(ja) == dataclasses.asdict(ta)
+    assert ta.family == "gnn" and GNN_ARCHS == ("equiformer-v2",)
+    assert (ja.n_sph, ja.n_sph_m) == (ta.n_sph, ta.n_sph_m) == (49, 29)
+    assert [(s.name, s.kind, s.dims) for s in TB.GNN_SHAPES] == [
+        (s.name, s.kind, s.dims) for s in JB.GNN_SHAPES]
 
 
 @pytest.mark.parametrize("arch", ("dcn-v2", "autoint", "bert4rec",
