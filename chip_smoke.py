@@ -244,6 +244,30 @@ line) at the first phase that goes wrong:
             4m's profiles, one ``full_graph_sm`` step (base) under
             ``torch.profiler`` (busy, GEMM, scatter, gather and
             elementwise shares);
+4o. cells   ``launch/cells.py``'s cells (after 4n's timed parts, before
+            4k): (a) every cell of ``get_cells(ALL_ARCHS)`` x its
+            variants (101) built on ``meta``: parameters, argument GB,
+            ``model_flops`` (for the train cells of the LMs and the
+            retrievers also this script's ``lm_step_flops`` and
+            ``train_step_flops``, which count the remat forward, the
+            query tower and the score matrix on top), and whether the
+            arguments alone exceed the card's memory; nothing allocated;
+            (b) on the card at full shape, 1 warm-up and 3 calls timed by
+            CUDA events each (ms, ``model_flops``/ms as TFLOP/s): the
+            three retrievers' ``index_1m`` (256 pages under
+            ``torch.inference_mode``, pooling through ``pool.cu``, held
+            against ``pool_ref`` at rtol 1e-5, atol 1e-5), dcn-v2's four
+            cells (base) and ``retrieval_cand`` opt, equiformer-v2's
+            ``molecule`` (base), each beside 4m's or 4n's time in this
+            run; (c) colpali ``search_1m`` stage1, base and opt at a corpus
+            cut to 131072 pages (the cut printed), 64 queries a call
+            (QPS), queries 0-7 held against the plain path (ids equal
+            apart from near-exact ties at the 100th and the 256th cut-off,
+            scores rtol 1e-5, atol 1e-4); (d) minicpm-2b ``train_4k`` and
+            gemma3-4b ``prefill_32k`` and ``decode_32k`` at batch 1 (the
+            cut printed; a cell whose arguments do not fit is printed as
+            not run). The cells' own calls must launch the pool, scan,
+            rerank and an int8 scan or db scan kernel;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -1019,43 +1043,49 @@ def row_swaps(ids_k, ids_p, sc_p, tie: float) -> tuple:
     return swaps, None
 
 
-def compare_two_stage(r, qb, kern, ids_k, sc_k, ids_p, sc_p, what: str,
-                      tie: float = 1e-4) -> tuple:
+def compare_two_stage(store, doc_ids, search, kern, q, qm, ids_k, sc_k,
+                      ids_p, sc_p, what: str, tie: float = 1e-4) -> tuple:
     """``compare_rankings`` for a 2-stage cascade over a corpus whose
     stage-0 scores crowd at the prefetch cutoff, where the scan's own
     tolerance (rtol 1e-5, atol 1e-4) can put a different document among
-    the candidates. A query whose kernel and plain ids differ beyond
-    final-score ties passes only if (i) its kernel and plain stage-0
-    candidate sets differ only in documents whose plain stage-0 score lies
-    within twice that tolerance of the plain cutoff score, and (ii) its
-    kernel ids and scores are the plain top-k over the kernel's own
-    candidates, apart from final-score ties, a tie of the k-th with the
-    (k+1)-th plain score included. Returns (tie swaps, queries explained
-    by cutoff ties). ``r`` holds one segment."""
+    the candidates. ``store`` is one raw store dict, ``doc_ids`` maps its
+    slots to the ids in ``ids_k``, and ``search(q, qm, stages)`` runs the
+    kernel cascade over it to (scores, slot ids). The plain ranking
+    ``ids_p``/``sc_p`` has k or, from ``plus_one``, k + 1 columns. A query
+    whose kernel and plain ids differ beyond final-score ties passes only
+    if (i) its kernel and plain stage-0 candidate sets differ only in
+    documents whose plain stage-0 score (the scan chunked by 256 pages,
+    int8 where the kernel's is) lies within twice that tolerance of the
+    plain cutoff score, and (ii) its kernel ids and scores are the plain
+    top-k over the kernel's own candidates, apart from final-score ties, a
+    tie of the k-th with the (k+1)-th plain score included. Returns (tie
+    swaps, queries explained by cutoff ties)."""
     from repro_torch.core import multistage as MST
+    from repro_torch.retrieval.engine import make_search_fn
     from repro_torch.retrieval.store import ROUTING_KEYS
-    check(ids_k.shape == ids_p.shape, f"{what}: id shapes differ")
+    n, k = ids_k.shape
+    check(ids_p.shape[0] == n and ids_p.shape[1] in (k, k + 1),
+          f"{what}: plain ids {ids_p.shape} against kernel ids {ids_k.shape}")
     check(np.isfinite(sc_k).all() and np.isfinite(sc_p).all(),
           f"{what}: non-finite scores")
     swaps, bad = 0, []
-    for i in range(ids_k.shape[0]):
-        n, j = row_swaps(ids_k[i], ids_p[i], sc_p[i], tie)
+    for i in range(n):
+        m, j = row_swaps(ids_k[i], ids_p[i, :k], sc_p[i], tie)
         if j is not None:
             bad.append(i)
             continue
-        check(np.allclose(sc_k[i], sc_p[i], rtol=1e-5, atol=1e-4),
+        check(np.allclose(sc_k[i], sc_p[i, :k], rtol=1e-5, atol=1e-4),
               f"{what}: query {i} scores differ beyond rtol=1e-5, atol=1e-4")
-        swaps += n
+        swaps += m
     if not bad:
         return swaps, 0
-    store = r.store.vectors
-    doc_ids = r.store.segments[0].doc_ids
-    n_slots = int(store["doc_valid"].shape[0])
-    q, qm = qb.queries[bad], qb.query_mask[bad]
-    _, c0 = r.search(q, qm, stages=kern[:1], translate_ids=False)
-    fs, fk = r.search(q, qm, stages=kern, translate_ids=False)
-    s_all, c_all = MST.search(store, q, (MST.Stage(kern[0].vector,
-                                                   n_slots),), qm)
+    n_slots = int(store[kern[0].vector].shape[0])
+    q, qm = q[bad], qm[bad]
+    _, c0 = search(q, qm, kern[:1])
+    fs, fk = search(q, qm, kern)
+    first = dataclasses.replace(MST.with_scan_policy(
+        kern[:1], use_kernel=False, chunk=256)[0], k=n_slots)
+    s_all, c_all = make_search_fn((first,), n_slots)(store, q, qm)
     k0 = kern[0].k
     for b, i in enumerate(bad):
         cut = float(s_all[b, k0 - 1])
@@ -1078,7 +1108,6 @@ def compare_two_stage(r, qb, kern, ids_k, sc_k, ids_p, sc_p, what: str,
         whole = (dataclasses.replace(kern[1], k=len(cand)),)
         ps, pi = MST.search(sub, q[b:b + 1], whole, qm[b:b + 1])
         want_s = ps[0].float().cpu().numpy()
-        k = fk.shape[1]
         _, j = row_swaps(fk[b].cpu().numpy(), cand[pi[0, :k]].cpu().numpy(),
                          want_s, tie)
         check(j is None, f"{what}: query {i} rank {j}: kernel ids are not "
@@ -2663,7 +2692,9 @@ def train_path(args, dev) -> dict:
           "(d) the plain path launched a kernel")
     m_p = evaluate_ranking(ids_p, qrels, ks=(5, 10))
     swaps, cut_rows = compare_two_stage(
-        r, qb, kern, ids_k, sc_k, ids_p, sc_p,
+        r.store.vectors, r.store.segments[0].doc_ids,
+        lambda q, qm, st: r.search(q, qm, stages=st, translate_ids=False),
+        kern, qb.queries, qb.query_mask, ids_k, sc_k, ids_p, sc_p,
         "(d) encoded corpus, kernel vs plain")
     gaps = sc_p[:, 0] - sc_p[:, -1]
     for key in m_k:
@@ -3305,37 +3336,23 @@ def recsys_dense_flops(cfg, batch: int) -> tuple:
     ``launch/cells.py``'s ``_recsys_dense_flops``, 2 x the multiply-adds
     of the dense products (table lookups and elementwise work left
     out)."""
-    def mlp_f(dims):
-        return sum(2.0 * a * b for a, b in zip(dims[:-1], dims[1:]))
-    f = 0.0
+    from repro_torch.launch.cells import _recsys_dense_flops
     if cfg.name == "dcn-v2":
         d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
-        f = cfg.n_cross_layers * 2.0 * d0 * d0 + mlp_f((d0,) + tuple(cfg.mlp))
         formula = f"3 cross 2 d0^2 + MLP {(d0,) + tuple(cfg.mlp)}, d0 {d0}"
     elif cfg.name == "autoint":
-        F, d, H, da = cfg.n_sparse, cfg.embed_dim, cfg.n_heads, cfg.d_attn
-        din = d
-        for _ in range(cfg.n_attn_layers):
-            f += 2.0 * F * din * H * da * 3 + 2.0 * F * F * H * da * 2 \
-                + 2.0 * F * din * H * da
-            din = H * da
-        f += 2.0 * F * H * da
-        formula = (f"per layer 8 F din H da + 4 F^2 H da, F {F}, H {H}, "
-                   f"da {da}")
+        formula = (f"per layer 8 F din H da + 4 F^2 H da, F {cfg.n_sparse}, "
+                   f"H {cfg.n_heads}, da {cfg.d_attn}")
     elif cfg.name == "dlrm-mlperf":
-        f = mlp_f((cfg.n_dense,) + tuple(cfg.bot_mlp))
         n_vec = cfg.n_sparse + 1
-        f += 2.0 * n_vec * n_vec * cfg.embed_dim
         n_int = n_vec * (n_vec - 1) // 2
-        f += mlp_f((n_int + cfg.embed_dim,) + tuple(cfg.top_mlp))
         formula = (f"bottom MLP + 2 27^2 d + top MLP "
                    f"{(n_int + cfg.embed_dim,) + tuple(cfg.top_mlp)}")
     else:
-        d, S_ = cfg.embed_dim, cfg.seq_len
-        f = cfg.n_blocks * (2.0 * S_ * d * d * 4 + 2.0 * S_ * S_ * d * 2
-                            + 2.0 * S_ * d * 8 * d)
-        formula = f"blocks x (8 S d^2 + 4 S^2 d + 16 S d^2), S {S_}, d {d}"
-    return f * batch, f"{formula}, {f:.4e} a row"
+        formula = (f"blocks x (8 S d^2 + 4 S^2 d + 16 S d^2), S "
+                   f"{cfg.seq_len}, d {cfg.embed_dim}")
+    f = _recsys_dense_flops(cfg, 1)
+    return _recsys_dense_flops(cfg, batch), f"{formula}, {f:.4e} a row"
 
 
 def recsys_batch(cfg, B: int, dev, gen, kind: str) -> dict:
@@ -3782,17 +3799,13 @@ def gnn_flops(cfg, n_edges: int) -> tuple:
     """(FLOPs of one train step, the formula): ``launch/cells.py``'s
     ``_gnn_flops(cfg, n_edges, train=True)``, per layer and edge 3 SO(2)
     convolutions and 2 rotation applies, times 3 for the backward."""
-    C, n0 = cfg.d_hidden, cfg.l_max + 1
-    conv = (n0 * C) ** 2 * 2
-    for m in range(1, cfg.m_max + 1):
-        conv += 4 * ((n0 - m) * C) ** 2 * 2
-    rot = sum((2 * l + 1) ** 2 for l in range(n0)) * C * 2 * 2
-    per_edge = cfg.n_layers * (3 * conv + rot) * 3.0
+    from repro_torch.launch.cells import _gnn_flops
+    per_edge = _gnn_flops(cfg, 1, True)
     formula = (f"3 x L x E x (3 conv + rot), conv = 2 (n0 C)^2 + sum_m 8 "
-               f"((n0 - m) C)^2 = {conv}, rot = 4 C sum_l (2l+1)^2 = {rot} "
-               f"(L {cfg.n_layers}, C {C}, n0 {n0}, m_max {cfg.m_max}): "
-               f"{per_edge / 1e9:.4f} GFLOP per edge")
-    return per_edge * n_edges, formula
+               f"((n0 - m) C)^2, rot = 4 C sum_l (2l+1)^2 (L "
+               f"{cfg.n_layers}, C {cfg.d_hidden}, n0 {cfg.l_max + 1}, m_max "
+               f"{cfg.m_max}): {per_edge / 1e9:.4f} GFLOP per edge")
+    return _gnn_flops(cfg, n_edges, True), formula
 
 
 def gnn_pos(gen, shape: tuple, dev) -> torch.Tensor:
@@ -4289,6 +4302,375 @@ def gnn_summary(gn: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: the cells (launch/cells.py)
+# ---------------------------------------------------------------------------
+
+CELL_SIZES = dict(timed=3, corpus=131072, check_queries=8, lm_batch=1)
+
+
+def cell_run(cell, timed: int, launched: dict) -> tuple:
+    """(median ms, all ms, the warm-up call's output) of ``cell.fn`` on
+    its arguments: one warm-up call, then ``timed`` calls each timed by
+    CUDA events. The kernel launches of these calls are added to
+    ``launched``."""
+    from repro_torch.kernels import dispatch as DSP
+    before = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    out = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    times = [event_ms(lambda: cell.fn(*cell.args))[1]
+             for _ in range(timed)]
+    for k in DSP.KERNELS:
+        launched[k] += DSP.launch_count(k) - before[k]
+    return statistics.median(times), times, out
+
+
+def cell_line(cell, ms: float, times: list) -> str:
+    return (f"{ms:.3f} ms (median of {len(times)}: "
+            + " ".join(f"{t:.3f}" for t in times)
+            + f"), model_flops {cell.model_flops:.4e} = "
+            f"{cell.model_flops / (ms / 1e3) / 1e12:.2f} TFLOP/s")
+
+
+def cells_meta(total: int) -> dict:
+    """(a) every cell of ``get_cells(ALL_ARCHS)`` x its variants on
+    ``meta``: parameters, argument bytes, model_flops, and whether the
+    arguments alone exceed the card's memory; nothing is allocated."""
+    from repro_torch.configs import ALL_ARCHS, get_cells, get_config
+    from repro_torch.launch import cells as C
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    rows = []
+    for arch, shape in get_cells(ALL_ARCHS):
+        for variant in C.variants(arch, shape):
+            c = C.build_cell(arch, shape, "meta", variant)
+            model = c.args[0]
+            n_params = (sum(p.numel() for p in model.parameters())
+                        if isinstance(model, torch.nn.Module) else 0)
+            nb = C.arg_bytes(c)
+            extra = ""
+            cfg, sh = get_config(arch), get_shape(arch, shape)
+            if sh.kind == "train" and cfg.family == "lm":
+                f, _ = lm_step_flops(cfg, sh.global_batch, sh.seq_len)
+                extra = (f"; lm_step_flops (8 N T, with the remat forward) "
+                         f"{f:.4e}")
+            elif sh.kind == "train" and cfg.family == "retriever":
+                f, _ = train_step_flops(cfg, sh.global_batch,
+                                        cfg.max_query_tokens)
+                extra = (f"; train_step_flops (recompute, query tower, score "
+                         f"matrix) {f:.4e}")
+            over = nb > total
+            rows.append(dict(arch=arch, shape=shape, variant=variant,
+                             gb=nb / 1e9, over=over))
+            log(f"[cells] (a) {arch} {shape} {variant}: {n_params / 1e6:.2f}M"
+                f" params, arguments {nb / 1e9:.2f} GB "
+                f"({'over' if over else 'within'} the card's "
+                f"{total / 1e9:.1f} GB), model_flops {c.model_flops:.4e}"
+                + (f", {c.note}" if c.note else "") + extra)
+    check(len(rows) == 101, f"(a) {len(rows)} cells, expected 101")
+    check(torch.cuda.memory_allocated() == held,
+          "(a) building the cells on meta allocated device memory")
+    n_over = sum(r["over"] for r in rows)
+    dt = time.perf_counter() - t0
+    log(f"[cells] (a) {len(rows)} cells on meta in {dt:.1f}s, nothing "
+        f"allocated; {n_over} have arguments over the card's memory")
+    return dict(rows=rows, n_over=n_over, seconds=dt)
+
+
+def get_shape(arch: str, shape: str):
+    from repro_torch.configs import get_shapes
+    return get_shapes(arch)[shape]
+
+
+def cells_index(dev, gen, launched: dict) -> dict:
+    """(b) the three retrievers' ``index_1m`` cells at 256 pages, under
+    ``torch.inference_mode``: encode, hygiene, pooling through
+    ``pool.cu``. The warm-up call's own encoder output is kept: its
+    pooling through the kernel is held against ``pool_ref`` at phase 3's
+    tolerance, and the cell's bfloat16 outputs against that output and
+    ``pool_ref``'s, rounded, within one bfloat16 step."""
+    from repro_torch.configs import PAPER_ARCHS
+    from repro_torch.kernels import pooling as POPS
+    from repro_torch.launch import cells as C
+    out = {}
+    for arch in PAPER_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        c = C.build_cell(arch, "index_1m", dev, generator=gen)
+        model, patches = c.args
+        cfg = model.cfg
+        seen, encode = [], model.encode_pages
+
+        def encode_kept(x):
+            res = encode(x)
+            if not seen:
+                seen.append(res[0])
+            return res
+
+        model.encode_pages = encode_kept
+        with torch.inference_mode():
+            ms, times, res = cell_run(c, CELL_SIZES["timed"], launched)
+            del model.encode_pages
+            vis = seen[0][:, cfg.n_special:]
+            pm = torch.as_tensor(POPS.pooling_matrix(cfg)).to(dev)
+            mask = torch.ones(vis.shape[:2], device=dev)
+            ref = POPS.pool_ref(vis, mask, pm)
+            err = max_err(POPS.pool_pages_fused(vis, mask, pm), ref,
+                          f"(b) {arch} index_1m pooling [256,"
+                          f"{vis.shape[1]},{vis.shape[2]}], P "
+                          f"{list(pm.shape)}", rtol=1e-5, atol=1e-5)
+            check(tuple(res[1].shape) == (256, pm.shape[0], cfg.out_dim)
+                  and all(bool(torch.isfinite(x.float()).all())
+                          for x in res),
+                  f"(b) {arch} index_1m: output not finite or not "
+                  f"[256, {pm.shape[0]}, {cfg.out_dim}]")
+            check(torch.equal(res[0], vis.to(torch.bfloat16)),
+                  f"(b) {arch} index_1m: the cell's vectors are not its "
+                  "encoder's output")
+            want = ref.to(torch.bfloat16).float()
+            off = (res[1].float() - want).abs()
+            check(bool((off <= 2.0 ** -7 * want.abs() + 1e-6).all()),
+                  f"(b) {arch} index_1m: the cell's pooled vectors are "
+                  f"more than one bfloat16 step from pool_ref's (max "
+                  f"{float(off.max()):.3e})")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[arch] = dict(ms=ms, err=err, peak_gb=peak,
+                         tflops=c.model_flops / (ms / 1e3) / 1e12,
+                         pages_s=256 / (ms / 1e3))
+        log(f"[cells] (b) {arch} index_1m (256 pages, S {cfg.seq_len}, "
+            f"{pm.shape[0]} pooled): " + cell_line(c, ms, times)
+            + f", {256 / (ms / 1e3):.1f} pages/s, peak {peak:.2f} GB; the "
+            f"cell's pooled output within one bf16 step of pool_ref's "
+            f"(max {float(off.max()):.3e})")
+        del c, model, patches, seen, vis, res, pm, mask, ref, want, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cells_recsys_gnn(dev, gen, launched: dict, rs: dict, gn: dict) -> dict:
+    """(b) dcn-v2's four cells (base) and ``retrieval_cand`` opt, and
+    equiformer-v2's ``molecule`` (base), beside 4m's and 4n's times."""
+    from repro_torch.launch import cells as C
+    d = rs["dcn-v2"]
+    runs = (("dcn-v2", "train_batch", "base", d["train"]["ms"],
+             "4m (e) train_batch"),
+            ("dcn-v2", "serve_p99", "base", d["p50"],
+             "4m (b) p50, host clock"),
+            ("dcn-v2", "serve_bulk", "base", d["bulk_ms"], "4m (c)"),
+            ("dcn-v2", "retrieval_cand", "base", d["ret"]["1-stage"]["ms"],
+             "4m (d) 1-stage"),
+            ("dcn-v2", "retrieval_cand", "opt",
+             d["ret"]["2-stage cand_proxy"]["ms"],
+             "4m (d) 2-stage cand_proxy"),
+            ("equiformer-v2", "molecule", "base", gn["mol_base"]["ms"],
+             "4n (b) molecule base"))
+    out = {}
+    for arch, shape, variant, was, where in runs:
+        c = C.build_cell(arch, shape, dev, variant, generator=gen)
+        ms, times, res = cell_run(c, CELL_SIZES["timed"], launched)
+        vals = res.values() if isinstance(res, dict) else (
+            res if isinstance(res, tuple) else (res,))
+        check(all(bool(torch.isfinite(v.float()).all()) for v in vals),
+              f"(b) {arch} {shape} {variant}: non-finite output")
+        out[f"{arch} {shape} {variant}"] = dict(
+            ms=ms, was=was, tflops=c.model_flops / (ms / 1e3) / 1e12)
+        log(f"[cells] (b) {arch} {shape} {variant}: " + cell_line(c, ms, times)
+            + f"; {where} in this run: {was:.3f} ms")
+        if shape == "molecule":
+            out[f"{arch} {shape} {variant}"].update(
+                molecule_ids_check(c, launched))
+        del c, res, vals
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def molecule_ids_check(c, launched: dict) -> dict:
+    """The molecule cell's steps again with its edge ids as int64 (4n's
+    dtype; the cell has ``repro``'s int32), then as int32 once more, the
+    same values and calls as the cell's timing: whether the id dtype or
+    the extra warm-up explains a gap to 4n's step."""
+    batch = c.args[2]
+    ms = {}
+    for dtype, key in ((torch.int64, "int64_ms"), (torch.int32, "int32_ms")):
+        for k in ("src", "dst"):
+            batch[k] = batch[k].to(dtype)
+        ms[key], times, _ = cell_run(c, CELL_SIZES["timed"], launched)
+        log(f"[cells] (b) equiformer-v2 molecule base, edge ids {dtype}, "
+            f"after the calls above: " + cell_line(c, ms[key], times))
+    return ms
+
+
+def compare_search_cell(store, kern, q, qm, ids_k, sc_k,
+                        what: str) -> tuple:
+    """A search cell's kernel ranking (stages ``kern`` over the raw
+    ``store``; ids_k, sc_k [n, k] of the queries ``q``) against the plain
+    path on the card, ranked one deeper (``plus_one``), the scan chunked
+    by 256 pages: ``compare_rankings`` for one stage, else
+    ``compare_two_stage``. Returns (tie swaps, queries explained by
+    cut-off ties)."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.retrieval.engine import make_search_fn
+    n_docs = int(store["initial"].shape[0])
+    plain = MST.with_rerank_policy(MST.with_scan_policy(
+        kern, use_kernel=False, chunk=256), rerank_kernel=False)
+    ps, pi = make_search_fn(plus_one(plain), n_docs)(store, q, qm)
+    ids_p, sc_p = pi.cpu().numpy(), ps.float().cpu().numpy()
+    if len(kern) == 1:
+        return compare_rankings(ids_k, sc_k, ids_p, sc_p, what), 0
+    return compare_two_stage(
+        store, np.arange(n_docs),
+        lambda qq, mm, st: make_search_fn(st, n_docs)(store, qq, mm),
+        kern, q, qm, ids_k, sc_k, ids_p, sc_p, what)
+
+
+def cells_search(dev, gen, launched: dict) -> dict:
+    """(c) colpali ``search_1m`` (stage1, base, opt) at a corpus cut to
+    ``CELL_SIZES["corpus"]`` pages: 64 queries a call through the scan,
+    rerank and int8 scan kernels; the first ``check_queries`` queries
+    held against the plain path."""
+    from repro_torch.launch import cells as C
+    full = get_shape("colpali", "search_1m")
+    full_gb = C.arg_bytes(C.build_cell("colpali", "search_1m", "meta")) / 1e9
+    n = CELL_SIZES["corpus"]
+    shape = dataclasses.replace(full, dims={**full.dims, "corpus": n})
+    log(f"[cells] (c) reduced: corpus {full.corpus} -> {n}, "
+        f"{full_gb:.2f} GB of arguments at 1M")
+    out = {}
+    nq = CELL_SIZES["check_queries"]
+    for variant in ("stage1", "base", "opt"):
+        t0 = time.perf_counter()
+        c = C.build_retriever_cell("colpali", shape, dev, variant, gen)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        gb = C.arg_bytes(c) / 1e9
+        ms, times, (sc, ids) = cell_run(c, CELL_SIZES["timed"], launched)
+        store, q, qm = c.args
+        check(tuple(ids.shape) == (full.query_batch, full.top_k)
+              and bool(torch.isfinite(sc).all()),
+              f"(c) {variant}: ids {tuple(ids.shape)} or scores not finite")
+        swaps, cut_ties = compare_search_cell(
+            store, C.search_stages(shape, variant), q[:nq], qm[:nq],
+            ids[:nq].cpu().numpy(), sc[:nq].float().cpu().numpy(),
+            f"(c) search {variant}")
+        qps = full.query_batch / (ms / 1e3)
+        out[variant] = dict(ms=ms, qps=qps, gb=gb, swaps=swaps,
+                            cut_ties=cut_ties,
+                            tflops=c.model_flops / (ms / 1e3) / 1e12)
+        log(f"[cells] (c) colpali search_1m {variant} ({c.note}) over {n} "
+            f"pages, {gb:.2f} GB of arguments made on the card in "
+            f"{t_build:.1f}s: " + cell_line(c, ms, times)
+            + f", {qps:.1f} QPS (64 queries a call); queries 0-{nq - 1} "
+            f"equal the plain path ({swaps} tie swaps, {cut_ties} explained "
+            "by prefetch cut-off ties; scores rtol 1e-5, atol 1e-4)")
+        del c, store, q, qm, sc, ids
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cells_lm(dev, gen, launched: dict) -> dict:
+    """(d) LM cells at batch 1 (the cut printed): minicpm-2b ``train_4k``,
+    gemma3-4b ``prefill_32k`` and ``decode_32k``; a cell whose arguments
+    do not fit the free memory even at batch 1 is printed as not run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cells as C
+    out = {}
+    for arch, name in (("minicpm-2b", "train_4k"),
+                       ("gemma3-4b", "prefill_32k"),
+                       ("gemma3-4b", "decode_32k")):
+        full = get_shape(arch, name)
+        b = CELL_SIZES["lm_batch"]
+        shape = dataclasses.replace(full, dims={**full.dims,
+                                                "global_batch": b})
+        gb = C.arg_bytes(C.build_lm_cell(arch, shape, "meta")) / 1e9
+        full_gb = C.arg_bytes(C.build_cell(arch, name, "meta")) / 1e9
+        free = torch.cuda.mem_get_info()[0] / 1e9
+        cut = (f"reduced: global_batch {full.global_batch} -> {b} "
+               f"({full_gb:.2f} -> {gb:.2f} GB of arguments)")
+        if gb > free:
+            out[f"{arch} {name}"] = None
+            log(f"[cells] (d) {arch} {name}: not run: {gb:.2f} GB of "
+                f"arguments at batch {b}, {free:.2f} GB free; {cut}")
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        c = C.build_lm_cell(arch, shape, dev, generator=gen)
+        ms, times, res = cell_run(c, CELL_SIZES["timed"], launched)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        vals = list(res.values()) if isinstance(res, dict) else [res[0]]
+        check(all(bool(torch.isfinite(v.float()).all()) for v in vals),
+              f"(d) {arch} {name}: non-finite output")
+        extra = ""
+        if full.kind == "train":
+            f, _ = lm_step_flops(get_config(arch), b, full.seq_len)
+            extra = (f"; lm_step_flops (8 N T, with the remat forward) "
+                     f"{f:.4e} = {f / (ms / 1e3) / 1e12:.2f} TFLOP/s")
+        out[f"{arch} {name}"] = dict(
+            ms=ms, tflops=c.model_flops / (ms / 1e3) / 1e12, peak_gb=peak)
+        log(f"[cells] (d) {arch} {name} ({cut}): " + cell_line(c, ms, times)
+            + f" (model_flops: {'6' if full.kind == 'train' else '2'} N "
+            f"{'T' if full.kind != 'decode' else 'B'}){extra}; peak "
+            f"{peak:.2f} GB")
+        del c, res, vals
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cells_path(args, dev, rs: dict, gn: dict) -> dict:
+    """Phase 4o: ``launch/cells.py``'s cells, (a) all on ``meta``, (b) the
+    full-shape cells that fit (retriever ``index_1m``, dcn-v2, molecule),
+    (c) colpali ``search_1m`` at a reduced corpus held to the plain path,
+    (d) LM cells at batch 1."""
+    from repro_torch.kernels import dispatch as DSP
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[cells] device memory held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free")
+    t0 = time.perf_counter()
+    DSP.reset_counts()
+    launched = dict.fromkeys(DSP.KERNELS, 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    res = {"a": cells_meta(total)}
+    res["index"] = cells_index(dev, gen, launched)
+    res["b"] = cells_recsys_gnn(dev, gen, launched, rs, gn)
+    res["c"] = cells_search(dev, gen, launched)
+    res["d"] = cells_lm(dev, gen, launched)
+    res["counts"] = launched
+    log(f"[cells] kernel launches of the cells' own calls: "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    check(launched["pooling"] > 0, "4o launched no pool kernel")
+    check(launched["maxsim_scan"] > 0, "4o launched no scan kernel")
+    check(launched["maxsim_rerank"] > 0, "4o launched no rerank kernel")
+    check(launched["maxsim_scan_int8"] + launched["maxsim_scan_db"] > 0,
+          "4o launched no int8 scan or db scan kernel")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[cells] phase 4o took {res['seconds']:.1f}s")
+    return res
+
+
+def cells_summary(ce: dict) -> str:
+    """Phase 4o's ``[summary]`` line."""
+    idx = "; ".join(f"{a} index {r['ms']:.1f} ms ({r['pages_s']:.0f} "
+                    f"pages/s, pool err {r['err']:.1e})"
+                    for a, r in ce["index"].items())
+    b = "; ".join(f"{k} {r['ms']:.3f} ms (then {r['was']:.3f})"
+                  + (f", int64 ids {r['int64_ms']:.3f}, int32 again "
+                     f"{r['int32_ms']:.3f}" if "int64_ms" in r else "")
+                  for k, r in ce["b"].items())
+    c = "; ".join(f"{v} {r['ms']:.1f} ms {r['qps']:.1f} QPS"
+                  for v, r in ce["c"].items())
+    d = "; ".join(f"{k} " + ("not run" if r is None else
+                              f"{r['ms']:.1f} ms {r['tflops']:.2f} TFLOP/s")
+                  for k, r in ce["d"].items())
+    return (f"[summary] cells (a) {len(ce['a']['rows'])} on meta "
+            f"({ce['a']['n_over']} over the card); (b) {idx}; {b}; (c) "
+            f"colpali search_1m at {CELL_SIZES['corpus']} pages: {c}; (d) "
+            f"batch 1: {d}; phase 4o {ce['seconds']:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -4682,13 +5064,14 @@ def main() -> None:
     entries = kernel_times(args, dev, main_res)
     entries += kernel_times_int8_and_db(args, dev, main_res, int8_res)
 
-    # 4l, 4m, 4n and 4k after the kernel times: their training loads and
-    # profiled steps stay out of them. 4l's, 4m's and 4n's timed parts
-    # come first, their profiles last, so that no profiled step comes
-    # before a 4l, 4m or 4n timing
+    # 4l, 4m, 4n, 4o and 4k after the kernel times: their training loads
+    # and profiled steps stay out of them. 4l's, 4m's and 4n's timed parts
+    # and 4o come first, the profiles last, so that no profiled step comes
+    # before a 4l, 4m, 4n or 4o timing
     lm_res = lm_path(args, dev)
     recsys_res = recsys_path(args, dev)
     gnn_res = gnn_path(args, dev)
+    cells_res = cells_path(args, dev, recsys_res, gnn_res)
     train_res = train_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
@@ -4781,7 +5164,8 @@ def main() -> None:
                                       ("tiered", tier_res),
                                       ("train", train_res),
                                       ("recsys", recsys_res),
-                                      ("gnn", gnn_res))}
+                                      ("gnn", gnn_res),
+                                      ("cells", cells_res))}
     tr = train_res["res"]
     log(f"[summary] train (ColPali, 16 layers, batch 16, f32): "
         f"{tr['b']['ms']:.1f} ms/step, {tr['b']['pages_s']:.1f} pages/s, "
@@ -4829,6 +5213,7 @@ def main() -> None:
             for a, r in rs.items() if a not in ("a", "f", "counts", "seconds"))
         + f"; phase 4m {rs['seconds']:.1f}s")
     log(gnn_summary(gnn_res))
+    log(cells_summary(cells_res))
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

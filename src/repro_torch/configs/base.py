@@ -173,6 +173,14 @@ class RetrieverConfig:
         return self.grid_h
 
 
+RETRIEVER_SHAPES = (
+    ShapeSpec("index_1m", "index", dict(pages_per_step=256, corpus=1_000_000)),
+    ShapeSpec("search_1m", "search", dict(query_batch=64, corpus=1_000_000,
+                                          prefetch_k=256, top_k=100)),
+    ShapeSpec("train_contrastive", "train", dict(global_batch=256)),
+)
+
+
 # ---------------------------------------------------------------------------
 # GNN family
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ Pooling: row-wise mean (Eq. 3), 1024 -> 32, followed by the conv1d uniform
 sliding window (Eq. 4, k=3, boundary extension, 32 -> 34).
 [arXiv:2407.01449]
 """
-from repro_torch.configs.base import RetrieverConfig
+from repro_torch.configs.base import RETRIEVER_SHAPES, RetrieverConfig
 
 CONFIG = RetrieverConfig(
     name="colpali",
@@ -21,3 +21,4 @@ CONFIG = RetrieverConfig(
     pool="rows",
     smooth="conv1d",
 )
+SHAPES = RETRIEVER_SHAPES

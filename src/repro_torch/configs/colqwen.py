@@ -4,7 +4,7 @@ Variable H_eff x W_eff grid after a learned 2x2 PatchMerger. Pooling:
 adaptive row-mean to <= T=32 rows after a same-length Gaussian smoothing
 (Eq. 5; sigma=max(0.5, r/2)). [hf:vidore/colqwen2.5-v0.2]
 """
-from repro_torch.configs.base import RetrieverConfig
+from repro_torch.configs.base import RETRIEVER_SHAPES, RetrieverConfig
 
 CONFIG = RetrieverConfig(
     name="colqwen",
@@ -21,3 +21,4 @@ CONFIG = RetrieverConfig(
     pool="adaptive",
     smooth="gaussian",
 )
+SHAPES = RETRIEVER_SHAPES

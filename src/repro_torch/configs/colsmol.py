@@ -5,7 +5,7 @@ Pages are resized to 512x512 and cut into a 4x3 tile grid (12 tiles) plus
 Pooling: tile-level mean (Eq. 2), 832 -> 13 vectors.
 [hf:vidore/colSmol-500M]
 """
-from repro_torch.configs.base import RetrieverConfig
+from repro_torch.configs.base import RETRIEVER_SHAPES, RetrieverConfig
 
 CONFIG = RetrieverConfig(
     name="colsmol",
@@ -21,3 +21,4 @@ CONFIG = RetrieverConfig(
     pool="tiles",
     smooth="none",
 )
+SHAPES = RETRIEVER_SHAPES

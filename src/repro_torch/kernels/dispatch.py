@@ -58,14 +58,18 @@ def reset_counts(name: str | None = None) -> None:
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. ``cuda`` (the default of every
     entry point) requires a card: without one this raises instead of
-    carrying on on the CPU."""
+    carrying on on the CPU. ``meta`` builds tensors of the right shapes
+    and dtypes with no storage (what ``launch/cells.py`` sizes cells
+    with, ``jax.eval_shape``'s counterpart); nothing runs on it, and a
+    kernel wrapper given a meta tensor raises (``on_cuda``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (expected cuda, cpu or "
+                         "meta)")
     return dev
 
 

@@ -1,0 +1,648 @@
+"""Single-device cells: (arch x shape) -> a step and its inputs (the port
+of ``repro.launch.cells``).
+
+For every cell of ``configs.get_cells(ALL_ARCHS)`` and each variant this
+module builds:
+
+- the step callable (train step, prefill, decode, serve, candidate
+  retrieval, index, search) as ``repro``'s cell runs it, on one device;
+- its arguments. On ``meta`` they are tensors of ``repro``'s shapes and
+  dtypes with no storage: the counterpart of ``jax.eval_shape`` and
+  ``ShapeDtypeStruct`` (shapes, dtypes and bytes, nothing allocated;
+  nothing runs there). On ``cuda`` or ``cpu`` they are the same tensors
+  filled from a generator: ids inside their vocabulary or table, masks
+  all true, store vectors unit-norm bfloat16. ``args[0]`` is the
+  family's model (``DecoderLM``, ``EquiformerV2``, ``RecsysModel``,
+  ``ColXEncoder``), the counterpart of ``repro``'s params tree, except
+  in a search cell, whose first argument is the store dict;
+- ``model_flops``, the useful FLOPs of one step (forward + backward for
+  a train step), formula for formula ``repro``'s.
+
+Kept from ``repro``: the variants (``base``; ``opt``: ragged MoE dispatch,
+no sequence-parallel constraint and 8 checkpointed microbatches for the
+LMs, the fused rotation for the GNN, the 2-stage candidate search for
+recsys, an int8 scan stage for the retrievers; ``stage1``: the retrievers'
+exact 1-stage search), the notes, and ``donate``, which here names the
+arguments that ``fn`` updates in place. ``repro``'s ``in_shardings`` has
+no meaning on one device and is dropped; its mesh cuts are those of one
+device: the minibatch cell's two-level dp x tp layout is dp = tp = 1, the
+vertex-cut cell is one shard of ``ShardedEdges`` (``repro``'s psum over
+one device is the identity), and no corpus or candidate list is padded
+to a shard multiple.
+
+Also kept: ``repro``'s search ``model_flops`` counts the 2-stage rerank
+for the 1-stage (``stage1``) variant too.
+
+``build_cell(arch, shape_name, device, variant)`` dispatches by family;
+``build_lm_cell`` and its siblings take a ``ShapeSpec``, so a caller may
+pass a smaller shape (``dataclasses.replace(shape, dims=...)``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs import get_config, get_shapes
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.training import optimizer as OPT
+from repro_torch.training.train_loop import make_train_step
+
+
+@dataclass
+class Cell:
+    arch: str
+    shape: str
+    fn: object                     # fn(*args)
+    args: tuple                    # tensors, dicts of tensors, a model
+    donate: tuple = ()             # arguments fn updates in place
+    model_flops: float = 0.0       # useful FLOPs per step (fwd+bwd for train)
+    note: str = ""
+
+
+def arg_tensors(args) -> list:
+    """Every tensor of a cell's arguments: a model's parameters, the
+    leaves of dicts, lists and tuples."""
+    if isinstance(args, torch.Tensor):
+        return [args]
+    if isinstance(args, nn.Module):
+        return list(args.parameters())
+    if isinstance(args, dict):
+        args = list(args.values())
+    out = []
+    for a in args:
+        out += arg_tensors(a)
+    return out
+
+
+def arg_bytes(cell: Cell) -> int:
+    """Bytes of a cell's arguments (parameters, optimizer state, batch,
+    caches, store)."""
+    return sum(t.numel() * t.element_size() for t in arg_tensors(cell.args))
+
+
+class _Fill:
+    """A cell's input tensors on ``dev``: storage-free on ``meta``, else
+    drawn from ``gen`` on its own device and moved to ``dev``."""
+
+    def __init__(self, dev: torch.device, gen):
+        self.dev, self.gen = dev, gen
+        self.meta = dev.type == "meta"
+
+    def _out(self, shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=self.dev)
+
+    def ids(self, shape, high) -> torch.Tensor:
+        """int32 ids uniform in [0, high); ``high`` per column when a
+        tuple (one vocabulary per field)."""
+        if self.meta:
+            return self._out(shape, torch.int32)
+        if isinstance(high, (tuple, list)):
+            cols = [torch.randint(0, int(h), tuple(shape[:-1]),
+                                  generator=self.gen, device=self.gen.device)
+                    for h in high]
+            x = torch.stack(cols, dim=-1)
+        else:
+            x = torch.randint(0, int(high), tuple(shape), generator=self.gen,
+                              device=self.gen.device)
+        return x.to(self.dev, torch.int32)
+
+    def normal(self, shape) -> torch.Tensor:
+        if self.meta:
+            return self._out(shape, torch.float32)
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.gen.device).to(self.dev)
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        if self.meta:
+            return self._out(shape, torch.float32)
+        u = torch.rand(tuple(shape), generator=self.gen,
+                       device=self.gen.device)
+        return (lo + (hi - lo) * u).to(self.dev)
+
+    def binary(self, shape) -> torch.Tensor:
+        """float32 0/1 labels."""
+        if self.meta:
+            return self._out(shape, torch.float32)
+        return self.ids(shape, 2).float()
+
+    def ones(self, shape, dtype=torch.bool) -> torch.Tensor:
+        return torch.ones(tuple(shape), dtype=dtype, device=self.dev)
+
+    def unit(self, shape, dtype, chunk: int = 8192) -> torch.Tensor:
+        """Unit-norm vectors along the last axis, drawn in float32
+        ``chunk`` rows at a time and stored as ``dtype``."""
+        out = self._out(shape, dtype)
+        if self.meta:
+            return out
+        for i in range(0, shape[0], chunk):
+            n = min(chunk, shape[0] - i)
+            x = torch.randn((n,) + tuple(shape[1:]), generator=self.gen,
+                            device=self.gen.device).to(self.dev)
+            out[i:i + n] = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+        return out
+
+
+def _setup(device, generator) -> tuple:
+    """(device, model generator, input filler): a meta cell draws
+    nothing; otherwise ``generator`` (default: one seeded 0 on the
+    device) draws the weights and then the inputs."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev, None, _Fill(dev, None)
+    gen = generator if generator is not None else \
+        torch.Generator(dev).manual_seed(0)
+    return dev, gen, _Fill(dev, gen)
+
+
+def _building(dev):
+    """Construct a model under this context: on ``meta`` every factory
+    call without a device lands there too, so nothing is allocated."""
+    return torch.device("meta") if dev.type == "meta" \
+        else contextlib.nullcontext()
+
+
+def _train_state(model, oc) -> tuple:
+    """(optimizer state, labels) of ``model``: ``init_opt_state`` over its
+    named parameters under ``default_labels``."""
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    return OPT.init_opt_state(params, labels), labels
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
+
+def _lm_batch_flops(cfg, tokens: int, train: bool) -> float:
+    per_tok = 6.0 * cfg.n_active_params()
+    return per_tok * tokens * (1.0 if train else 1.0 / 3.0)
+
+
+def _micro_loss(model, tokens, labels):
+    from repro_torch.models import transformer as T
+    return T.loss_fn(model, {"tokens": tokens, "labels": labels})
+
+
+def build_lm_cell(arch: str, shape, device="cuda", variant: str = "base",
+                  generator=None) -> Cell:
+    from repro_torch.models import kv_cache as KV
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    micro = 1
+    if variant == "opt":
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, impl="ragged_ep"))
+        cfg = dataclasses.replace(cfg, sp_activations=False)
+        micro = 8
+    dev, gen, fill = _setup(device, generator)
+    with _building(dev):
+        model = T.init_params(cfg, gen, dev)
+    B, S = shape.global_batch, shape.seq_len
+
+    if shape.kind == "train":
+        oc = OPT.OptConfig(schedule="wsd" if "minicpm" in arch else "cosine")
+        opt_state, labels = _train_state(model, oc)
+
+        def loss(m, b):
+            if micro <= 1:
+                return T.loss_fn(m, b)
+            # gradient accumulation as ``repro``'s checkpointed scan: the
+            # microbatch losses summed in order, then averaged; each
+            # microbatch's activations are recomputed in the backward
+            n, s = b["tokens"].shape
+            tk = b["tokens"].reshape(micro, n // micro, s)
+            lb = b["labels"].reshape(micro, n // micro, s)
+            tot = torch.zeros((), dtype=torch.float32, device=tk.device)
+            for t, l in zip(tk, lb):
+                tot = tot + checkpoint(_micro_loss, m, t, l,
+                                       use_reentrant=False)
+            return tot / micro
+
+        step = make_train_step(loss, oc, labels=labels)
+        batch = {"tokens": fill.ids((B, S), cfg.vocab_size),
+                 "labels": fill.ids((B, S), cfg.vocab_size)}
+        return Cell(arch, shape.name, step, (model, opt_state, batch),
+                    donate=(0, 1),
+                    model_flops=_lm_batch_flops(cfg, B * S, True))
+
+    if shape.kind == "prefill":
+        batch = {"tokens": fill.ids((B, S), cfg.vocab_size)}
+        return Cell(arch, shape.name, T.prefill_step, (model, batch),
+                    model_flops=_lm_batch_flops(cfg, B * S, False))
+
+    # decode (decode_32k / long_500k): one token against a seq_len KV cache
+    caches = KV.init_cache(cfg, T.segment_plan(cfg), B, S,
+                           T.compute_dtype(cfg), device=dev)
+    tok = fill.ids((B, 1), cfg.vocab_size)
+    pos = torch.full((), S - 1, dtype=torch.int32, device=dev)
+    # decode useful FLOPs: params touched once per token (2*N_active*B)
+    flops = 2.0 * cfg.n_active_params() * B
+    return Cell(arch, shape.name, T.decode_step, (model, caches, tok, pos),
+                donate=(1,), model_flops=flops)
+
+
+# ===========================================================================
+# GNN family
+# ===========================================================================
+
+def _gnn_layer_flops(cfg, n_edges: float) -> float:
+    """Per-edge eSCN cost: 3 SO(2) convs + 2 rotation applies."""
+    C = cfg.d_hidden
+    n0 = cfg.l_max + 1
+    conv = (n0 * C) ** 2 * 2
+    for m in range(1, cfg.m_max + 1):
+        conv += 4 * ((n0 - m) * C) ** 2 * 2
+    rot = sum((2 * l + 1) ** 2 for l in range(n0)) * C * 2 * 2
+    return n_edges * (3 * conv + rot)
+
+
+def _gnn_flops(cfg, n_edges: float, train: bool) -> float:
+    f = cfg.n_layers * _gnn_layer_flops(cfg, n_edges)
+    return f * (3.0 if train else 1.0)
+
+
+def _sharded_batch(fill: _Fill, lead: tuple, n_local: int, n_pad: int,
+                   cap: int) -> dict:
+    """One shard's ``ShardedEdges`` arrays [*lead, cap]: at one shard the
+    receive side is the send side (rdst = edstg, rsrcg = esrc)."""
+    esrc = fill.ids(lead + (cap,), n_local)
+    edstg = fill.ids(lead + (cap,), n_pad)
+    emask = fill.ones(lead + (cap,))
+    return {"esrc": esrc, "edstg": edstg, "emask": emask,
+            "rdst": edstg.clone(), "rsrcg": esrc.clone(),
+            "rmask": emask.clone()}
+
+
+def _shard_plan(b: dict, idx: tuple, n_local: int):
+    from repro_torch.models.gnn.graph import ShardedEdges
+    return ShardedEdges(**{k: b[k][idx] for k in ("esrc", "edstg", "emask",
+                                                  "rdst", "rsrcg", "rmask")},
+                        n_local=n_local, shard_offset=0)
+
+
+def build_gnn_cell(arch: str, shape, device="cuda", variant: str = "base",
+                   generator=None) -> Cell:
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.models.gnn.graph import LocalEdges
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, msg_dtype="bfloat16",
+                              fused_rotation=(variant == "opt"))
+    dev, gen, fill = _setup(device, generator)
+    oc = OPT.OptConfig()
+
+    def model_of(d_feat: int, n_out: int):
+        with _building(dev):
+            return E.init_params(cfg, d_feat, n_out, gen, dev)
+
+    def train_cell(model, loss, batch, flops, note=""):
+        opt_state, labels = _train_state(model, oc)
+        step = make_train_step(loss, oc, labels=labels)
+        return Cell(arch, shape.name, step, (model, opt_state, batch),
+                    donate=(0, 1), model_flops=flops, note=note)
+
+    if shape.kind == "batched_graphs":          # molecule
+        G, NN, EE, F = shape.batch, shape.n_nodes, shape.n_edges, shape.d_feat
+        model = model_of(F, 1)
+
+        def loss(m, b):
+            # ``repro`` vmaps the graphs; one disjoint union gives the
+            # same mean of per-graph losses
+            return E.batched_graph_energy_loss(
+                cfg, m, b["feat"], b["pos"], b["src"], b["dst"], b["emask"],
+                b["target"])
+
+        # positions in [-2, 2]^3: every edge inside the 8.0 radial cutoff
+        batch = {"feat": fill.normal((G, NN, F)),
+                 "pos": fill.uniform((G, NN, 3), -2.0, 2.0),
+                 "src": fill.ids((G, EE), NN),
+                 "dst": fill.ids((G, EE), NN),
+                 "emask": fill.ones((G, EE)),
+                 "target": fill.normal((G,))}
+        return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True))
+
+    if shape.kind == "minibatch":
+        # ``repro``: one sampled subgraph per data shard, each vertex-cut
+        # over the model axis; on one device dp = tp = 1
+        from repro_torch.models.gnn.sampler import max_subgraph_shape
+        NN, EE = max_subgraph_shape(shape.batch_nodes, tuple(shape.fanout))
+        F, G, n_cls, tp = shape.d_feat, 1, 41, 1
+        n_local = -(-NN // tp)
+        N_pad = n_local * tp
+        cap = max(8, int(np.ceil(EE / (tp * tp) * 2.0 / 8)) * 8)
+        model = model_of(F, n_cls)
+
+        def loss(m, b):
+            plan = _shard_plan(b, (0, 0), n_local)
+            return E.node_ce_loss(cfg, m, plan, b["feat"][0], b["pos"][0],
+                                  b["labels"][0], b["lmask"][0])
+
+        batch = {"feat": fill.normal((G, N_pad, F)),
+                 "pos": fill.uniform((G, N_pad, 3), -2.0, 2.0),
+                 "labels": fill.ids((G, N_pad), n_cls),
+                 "lmask": fill.ones((G, N_pad)),
+                 **_sharded_batch(fill, (G, tp, tp), n_local, N_pad, cap)}
+        return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True),
+                          note=f"two-level dp={G} x tp={tp}, cap={cap}")
+
+    # full_graph: small -> one edge list; large -> one vertex-cut shard
+    NN, EE, F = shape.n_nodes, shape.n_edges, shape.d_feat
+    n_cls = 47
+    model = model_of(F, n_cls)
+    if EE <= 2_000_000:                          # Cora-scale
+        def loss(m, b):
+            plan = LocalEdges(b["src"], b["dst"], b["emask"], NN)
+            return E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"],
+                                  b["labels"], b["lmask"])
+
+        batch = {"feat": fill.normal((NN, F)),
+                 "pos": fill.uniform((NN, 3), -2.0, 2.0),
+                 "src": fill.ids((EE,), NN),
+                 "dst": fill.ids((EE,), NN),
+                 "emask": fill.ones((EE,)),
+                 "labels": fill.ids((NN,), n_cls),
+                 "lmask": fill.ones((NN,))}
+        return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True))
+
+    # ogbn-products scale: ``repro``'s vertex cut over every device, S = 1
+    S = 1
+    n_local = -(-NN // S)
+    N_pad = n_local * S
+    cap = max(8, int(np.ceil(EE / (S * S) * 1.25 / 8.0)) * 8)
+
+    def loss(m, b):
+        plan = _shard_plan(b, (0,), n_local)
+        return E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"], b["labels"],
+                              b["lmask"])
+
+    batch = {"feat": fill.normal((N_pad, F)),
+             "pos": fill.uniform((N_pad, 3), -2.0, 2.0),
+             "labels": fill.ids((N_pad,), n_cls),
+             "lmask": fill.ones((N_pad,)),
+             **_sharded_batch(fill, (S, S), n_local, N_pad, cap)}
+    return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True),
+                      note=f"vertex-cut S={S} cap={cap}")
+
+
+# ===========================================================================
+# RecSys family
+# ===========================================================================
+
+def _recsys_dense_flops(cfg, batch: float) -> float:
+    def mlp_f(dims):
+        return sum(2.0 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    f = 0.0
+    if cfg.name == "dcn-v2":
+        d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+        f = cfg.n_cross_layers * 2.0 * d0 * d0 + mlp_f((d0,) + tuple(cfg.mlp))
+    elif cfg.name == "autoint":
+        F, d, H, da = cfg.n_sparse, cfg.embed_dim, cfg.n_heads, cfg.d_attn
+        din = d
+        for _ in range(cfg.n_attn_layers):
+            f += 2.0 * F * din * H * da * 3 + 2.0 * F * F * H * da * 2 \
+                + 2.0 * F * din * H * da
+            din = H * da
+        f += 2.0 * F * H * da
+    elif cfg.name == "dlrm-mlperf":
+        f = mlp_f((cfg.n_dense,) + tuple(cfg.bot_mlp))
+        n_vec = cfg.n_sparse + 1
+        f += 2.0 * n_vec * n_vec * cfg.embed_dim
+        n_int = n_vec * (n_vec - 1) // 2
+        f += mlp_f((n_int + cfg.embed_dim,) + tuple(cfg.top_mlp))
+    elif cfg.name == "bert4rec":
+        d, S_ = cfg.embed_dim, cfg.seq_len
+        per_blk = 2.0 * S_ * d * d * 4 + 2.0 * S_ * S_ * d * 2 \
+            + 2.0 * S_ * d * 8 * d
+        f = cfg.n_blocks * per_blk
+    return f * batch
+
+
+def build_recsys_cell(arch: str, shape, device="cuda", variant: str = "base",
+                      generator=None) -> Cell:
+    from repro_torch.models.recsys import nets as R
+
+    cfg = get_config(arch)
+    dev, gen, fill = _setup(device, generator)
+    with _building(dev):
+        model = R.init_params(cfg, gen, dev)
+    item_rows = cfg.n_items if cfg.name == "bert4rec" else \
+        cfg.vocab_sizes[R._item_field(cfg)]
+
+    def batch_for(B):
+        if cfg.name == "bert4rec":
+            M, K = 40, 256
+            return {"seq": fill.ids((B, cfg.seq_len), cfg.n_items),
+                    "seq_mask": fill.ones((B, cfg.seq_len)),
+                    "mlm_positions": fill.ids((B, M), cfg.seq_len),
+                    "mlm_labels": fill.ids((B, M), cfg.n_items),
+                    "mlm_mask": fill.ones((B, M)),
+                    "neg_samples": fill.ids((K,), cfg.n_items)}
+        b = {"sparse": fill.ids((B, cfg.n_sparse), tuple(cfg.vocab_sizes)),
+             "labels": fill.binary((B,))}
+        if cfg.n_dense:
+            b["dense"] = fill.normal((B, cfg.n_dense))
+        return b
+
+    if shape.kind == "train":
+        B = shape.batch
+        oc = OPT.OptConfig(lr=1e-3)
+        opt_state, labels = _train_state(model, oc)
+        step = make_train_step(lambda m, b: R.loss_fn(cfg, m, b), oc,
+                               labels=labels)
+        return Cell(arch, shape.name, step,
+                    (model, opt_state, batch_for(B)), donate=(0, 1),
+                    model_flops=3.0 * _recsys_dense_flops(cfg, B))
+
+    if shape.kind == "serve":
+        B = shape.batch
+        batch = batch_for(B)
+        if cfg.name == "bert4rec":
+            batch = {"seq": batch["seq"], "seq_mask": batch["seq_mask"],
+                     "slate": fill.ids((B, 64), cfg.n_items)}
+        else:
+            batch.pop("labels")
+        return Cell(arch, shape.name, lambda m, b: R.serve_step(cfg, m, b),
+                    (model, batch),
+                    model_flops=_recsys_dense_flops(cfg, B))
+
+    # retrieval_cand: one device, so the candidate list is not padded
+    N = shape.n_candidates
+    if cfg.name == "bert4rec":
+        batch = {"seq": fill.ids((1, cfg.seq_len), cfg.n_items),
+                 "seq_mask": fill.ones((1, cfg.seq_len)),
+                 "candidates": fill.ids((N,), item_rows)}
+    else:
+        batch = {"sparse": fill.ids((1, cfg.n_sparse),
+                                    tuple(cfg.vocab_sizes)),
+                 "candidates": fill.ids((N,), item_rows)}
+        if cfg.n_dense:
+            batch["dense"] = fill.normal((1, cfg.n_dense))
+    n_stages = 2 if variant == "opt" else 1
+    if variant == "opt":
+        batch["cand_proxy"] = fill.normal((N, 16))
+
+    def fn(m, b):
+        # ``repro``'s opt adds its two-level top-k merge, which over one
+        # device selects what ``lax.top_k`` selects
+        return R.retrieval_step(cfg, m, b, stages=n_stages)
+
+    flops = _recsys_dense_flops(cfg, N if n_stages == 1 else 256)
+    return Cell(arch, shape.name, fn, (model, batch), model_flops=flops,
+                note=f"stages={n_stages}")
+
+
+# ===========================================================================
+# Retriever family (the paper's own models; §Perf serving rows)
+# ===========================================================================
+
+def _index_fn(cfg, pm: torch.Tensor):
+    from repro_torch.kernels.pooling import pool_pages_fused
+
+    def fn(model, patches):
+        vecs, _ = model.encode_pages(patches)
+        vis = vecs[:, cfg.n_special:]
+        mask = torch.ones(vis.shape[:2], dtype=torch.float32,
+                          device=vis.device)
+        # ``repro`` calls the plain ``pool_ref`` here; the wrapper launches
+        # ``csrc/pool.cu`` on the card and runs ``pool_ref`` on the CPU
+        pooled = pool_pages_fused(vis, mask, pm)
+        glob = vis.mean(dim=1)
+        return (vis.to(torch.bfloat16), pooled.to(torch.bfloat16),
+                glob.to(torch.bfloat16))
+
+    return fn
+
+
+def search_stages(shape, variant: str) -> tuple:
+    """The search cell's cascade: ``stage1`` the exact 1-stage search,
+    else the paper's 2-stage one, scanning and reranking through the
+    kernels (on the card; the plain versions on the CPU)."""
+    from repro_torch.core import multistage as MST
+    if variant == "stage1":
+        stages = MST.one_stage(shape.top_k)
+    else:
+        stages = MST.two_stage(shape.prefetch_k, shape.top_k)
+    return MST.with_rerank_policy(
+        MST.with_scan_policy(stages, use_kernel=True), rerank_kernel=True)
+
+
+def build_retriever_cell(arch: str, shape, device="cuda",
+                         variant: str = "base", generator=None) -> Cell:
+    from repro_torch.models import late_interaction as LI
+
+    cfg = get_config(arch)
+    dev, gen, fill = _setup(device, generator)
+    n_raw = cfg.n_patches * (4 if cfg.geometry == "dynamic" else 1)
+
+    def model_of():
+        with _building(dev):
+            return LI.init_params(cfg, gen, dev)
+
+    if shape.kind == "train":
+        B = shape.global_batch
+        model = model_of()
+        oc = OPT.OptConfig()
+        opt_state, labels = _train_state(model, oc)
+        step = make_train_step(lambda m, b: m.contrastive_loss(b), oc,
+                               labels=labels)
+        batch = {"patches": fill.normal((B, n_raw, LI.D_PATCH)),
+                 "query_tokens": fill.ids((B, cfg.max_query_tokens),
+                                          cfg.query_vocab),
+                 "query_mask": fill.ones((B, cfg.max_query_tokens))}
+        flops = 12.0 * cfg.n_layers * cfg.d_model * cfg.d_model * 3 \
+            * B * cfg.seq_len
+        return Cell(arch, shape.name, step, (model, opt_state, batch),
+                    donate=(0, 1), model_flops=flops)
+
+    if shape.kind == "index":
+        from repro_torch.kernels.pooling import pooling_matrix
+        B = shape.pages_per_step
+        model = model_of()
+        pm = torch.as_tensor(pooling_matrix(cfg)).to(dev)
+        flops = 12.0 * cfg.n_layers * cfg.d_model * cfg.d_model \
+            * B * cfg.seq_len
+        return Cell(arch, shape.name, _index_fn(cfg, pm),
+                    (model, fill.normal((B, n_raw, LI.D_PATCH))),
+                    model_flops=flops / 3.0)
+
+    # search over the corpus on one device
+    # variants: "stage1" = pre-paper exact-scan baseline; "base" = the
+    # paper's 2-stage cascade; "opt" = 2-stage + int8 scan storage.
+    from repro_torch.kernels.maxsim.ops import quantize_int8
+    from repro_torch.retrieval.engine import make_search_fn
+    from repro_torch.retrieval.store import codes_key, mask_key, scale_key
+    N, Bq = shape.corpus, shape.query_batch
+    stages = search_stages(shape, variant)
+    Dfull, Dp, d = cfg.n_patches, cfg.n_pooled, cfg.out_dim
+    store = {
+        "initial": fill.unit((N, Dfull, d), torch.bfloat16),
+        mask_key("initial"): fill.ones((N, Dfull)),
+        "mean_pooling": fill.unit((N, Dp, d), torch.bfloat16),
+        mask_key("mean_pooling"): fill.ones((N, Dp)),
+        "global_pooling": fill.unit((N, d), torch.bfloat16),
+    }
+    if variant == "opt":
+        first = stages[0].vector
+        if fill.meta:
+            codes = torch.empty(store[first].shape, dtype=torch.int8,
+                                device=dev)
+            scales = torch.empty(store[first].shape[:-1],
+                                 dtype=torch.float32, device=dev)
+        else:
+            codes, scales = quantize_int8(store[first], chunk=8192)
+        store[codes_key(first)] = codes
+        store[scale_key(first)] = scales
+    q = fill.unit((Bq, 32, d), torch.float32)
+    qm = fill.ones((Bq, 32), torch.float32)
+    # stage-1 madds + rerank madds (Eq. 1)
+    flops = 2.0 * Bq * 32 * d * (N * Dp + shape.prefetch_k * Dfull)
+    return Cell(arch, shape.name, make_search_fn(stages, N), (store, q, qm),
+                model_flops=flops,
+                note=f"stages={[s.vector for s in stages]}")
+
+
+# ===========================================================================
+# dispatch
+# ===========================================================================
+
+VARIANTS = ("base", "opt")
+SEARCH_VARIANTS = ("base", "opt", "stage1")
+
+
+def variants(arch: str, shape_name: str) -> tuple:
+    """The variants ``repro``'s cells are built at: base and opt, and
+    the exact 1-stage search for a retriever's search cell."""
+    kind = get_shapes(arch)[shape_name].kind
+    return SEARCH_VARIANTS if kind == "search" else VARIANTS
+
+
+def build_cell(arch: str, shape_name: str, device="cuda",
+               variant: str = "base", generator=None) -> Cell:
+    """variant="base": the paper-faithful step.
+    variant="opt": ``repro``'s beyond-baseline set:
+      - MoE archs: ragged sorted dispatch instead of dense all-experts
+      - equiformer: fused rotate+truncate / expand+rotate-back
+      - recsys retrieval_cand: the paper's 2-stage prefetch->rerank
+      - retriever search: int8 scan stage (+ the 2-stage cascade)
+    ``device`` defaults to the card (and raises without one); ``meta``
+    sizes a cell without allocating it."""
+    cfg = get_config(arch)
+    shape = get_shapes(arch)[shape_name]
+    fam = cfg.family
+    if fam == "lm":
+        return build_lm_cell(arch, shape, device, variant, generator)
+    if fam == "gnn":
+        return build_gnn_cell(arch, shape, device, variant, generator)
+    if fam == "recsys":
+        return build_recsys_cell(arch, shape, device, variant, generator)
+    if fam == "retriever":
+        return build_retriever_cell(arch, shape, device, variant, generator)
+    raise ValueError(fam)

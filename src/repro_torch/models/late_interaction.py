@@ -46,8 +46,11 @@ MERGER_KEYS = ("b", "ln", "w1", "w2")
 
 
 def _dense(gen, shape, scale=None) -> torch.Tensor:
+    """Normal draws times ``scale`` on ``gen``'s device (the default
+    device without a generator)."""
     scale = scale if scale is not None else shape[0] ** -0.5
-    return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=None if gen is None else gen.device) * scale
 
 
 def _zeros(*shape) -> nn.Parameter:
@@ -118,11 +121,12 @@ class Merger(nn.Module):
 class ColXEncoder(nn.Module):
     """The ColX encoder (``repro``'s ``init_params`` tree as a module).
 
-    ``generator`` (a CPU ``torch.Generator``) seeds the random init: the
-    weights are drawn on the host with ``repro``'s scales (``_dense``:
-    ``shape[0] ** -0.5``; ``pos_embed`` 0.02; norms and biases zero) and
-    moved to ``device``, so one seed gives the same model on every
-    device. ``device`` defaults to the card and raises without one."""
+    ``generator`` seeds the random init: the weights are drawn on its
+    device with ``repro``'s scales (``_dense``: ``shape[0] ** -0.5``;
+    ``pos_embed`` 0.02; norms and biases zero) and moved to ``device``,
+    so one CPU generator gives the same model on every device (a CUDA
+    one draws on the card). ``device`` defaults to the card and raises
+    without one."""
 
     def __init__(self, cfg, generator: torch.Generator | None = None,
                  device="cuda"):

@@ -45,8 +45,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 def test_encoder_and_training_modules_are_checked():
     """The AST rule above covers the encoder, the training modules, the
-    recsys and GNN families and the training example (the glob reaches
-    every new file)."""
+    recsys and GNN families, the cells and the training example (the glob
+    reaches every new file)."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("src/repro_torch/models/late_interaction.py",
                 "src/repro_torch/training/optimizer.py",
@@ -60,6 +60,7 @@ def test_encoder_and_training_modules_are_checked():
                 "src/repro_torch/models/gnn/graph.py",
                 "src/repro_torch/models/gnn/sampler.py",
                 "src/repro_torch/models/gnn/equiformer_v2.py",
+                "src/repro_torch/launch/cells.py",
                 "examples/train_retriever_torch.py"):
         assert rel in checked, rel
         assert not [m for _, m in _imported_modules(ROOT / rel)
@@ -119,6 +120,9 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.models.recsys import nets
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nets.init_params(get_config("dcn-v2"))
+    from repro_torch.launch import cells
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cells.build_cell("dcn-v2", "serve_p99")
 
 
 def test_serving_entry_points_raise_without_a_card():
@@ -170,7 +174,8 @@ def test_serving_entry_points_raise_without_a_card():
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     """A CPU tensor runs the plain version and counts no launch; a tensor
-    on any other device is refused, never silently served."""
+    on any other device (``meta`` included) is refused, never silently
+    served."""
     from repro_torch.kernels import dispatch as DSP
     from repro_torch.kernels.maxsim import maxsim_rerank, maxsim_scores
     from repro_torch.kernels.pooling import pool_pages_fused
@@ -185,4 +190,14 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         maxsim_scores(q, docs.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        DSP.resolve_device("meta")
+        maxsim_rerank(q.to("meta"), docs.to("meta"),
+                      torch.zeros((1, 2), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pool_pages_fused(torch.zeros((1, 4, 8), device="meta"),
+                         torch.ones((1, 4), device="meta"),
+                         torch.ones((2, 4), device="meta"))
+    # ``meta`` is for construction only (shapes and bytes, nothing runs)
+    assert DSP.resolve_device("meta").type == "meta"
+    with pytest.raises(ValueError, match="unsupported device"):
+        DSP.resolve_device("mps")
+    assert all(DSP.launch_count(k) == 0 for k in DSP.KERNELS)

@@ -33,6 +33,22 @@ def test_retriever_configs_identical(arch):
     assert (ja.n_sph, ja.n_sph_m) == (ta.n_sph, ta.n_sph_m) == (49, 29)
     assert [(s.name, s.kind, s.dims) for s in TB.GNN_SHAPES] == [
         (s.name, s.kind, s.dims) for s in JB.GNN_SHAPES]
+    # the cells' registry: shapes of every arch, the cell list, the arch
+    # tuples in ``repro``'s order
+    from repro.configs import registry as JREG
+    from repro_torch.configs import registry as TREG
+    assert [(s.name, s.kind, s.dims) for s in TB.RETRIEVER_SHAPES] == [
+        (s.name, s.kind, s.dims) for s in JB.RETRIEVER_SHAPES]
+    assert TREG.ASSIGNED_ARCHS == JREG.ASSIGNED_ARCHS
+    assert TREG.ALL_ARCHS == JREG.ALL_ARCHS
+    assert TREG.get_cells() == JREG.get_cells()
+    assert TREG.get_cells(TREG.ALL_ARCHS) == JREG.get_cells(JREG.ALL_ARCHS)
+    for a in TREG.ALL_ARCHS:
+        assert [(s.name, s.kind, s.dims) for s in
+                TREG.get_shapes(a).values()] == [
+            (s.name, s.kind, s.dims) for s in JREG.get_shapes(a).values()], a
+    assert [(s.name, s.kind, s.dims) for s in TREG.get_shapes(arch).values()
+            ] == [(s.name, s.kind, s.dims) for s in TB.RETRIEVER_SHAPES]
 
 
 @pytest.mark.parametrize("arch", ("dcn-v2", "autoint", "bert4rec",
