@@ -268,6 +268,38 @@ line) at the first phase that goes wrong:
             cut printed; a cell whose arguments do not fit is printed as
             not run). The cells' own calls must launch the pool, scan,
             rerank and an int8 scan or db scan kernel;
+4p. mesh    the retrieval mesh path (after 4j, before phase 5): the
+            phase-4 corpus on ``make_mesh((4,), ("data",),
+            devices=["cuda:0"] * 4)``, 4 shards time-sliced on this one
+            card, each shard's slab scanned and reranked by the kernels,
+            the shards' (score, id) lists gathered in mesh order, held
+            against the single-device kernel path of this run: (a) a
+            1-position mesh gives the 1-, 2- and 3-stage results of phase
+            4 bit for bit; (b) on 4 shards (4c's tenants and tags) the 1-,
+            2- and 3-stage cascades, 4b's int8 stores placed on the mesh
+            (db scan, ``scan_topk``, int8 rerank), 4c's first filter and
+            routed search (one clustering of the whole segment, equal to
+            4d's on every slab; full probe and ``n_probe`` 8) give the
+            one-device scores bit for bit, its ids apart from exact ties
+            and the same NDCG@10 to 3 decimals, full probe the
+            exhaustive metrics; (c) the first 4093 pages (capacity 4160,
+            slabs of 1040), 64 pages ingested through the pooling kernel
+            (tenant 1), 10 deleted: the scores of a one-device store
+            rebuilt from the survivors bit for bit and its ids apart
+            from exact ties, a
+            2-stage(256, 100) over the 60 live tenant-1 pages holds each
+            once per row and -1 after, and nothing is built after
+            warm-up; (d) 8 segments of 512 pages behind a ``TieredEngine``
+            with a budget of 3: bit for bit the resident mesh search; a
+            snapshot restored onto the mesh answers bit for bit, restored
+            onto one device with the same scores bit for bit and the
+            same ids apart from exact ties; (e) QPS at one device, 1 and
+            4 shards, per-shard scan and rerank kernel ms against the
+            whole store's (the rerank scores all 256 rows on every
+            shard), search peak memory, the phase's seconds. The mesh
+            runs must launch the scan, rerank, pool, db scan, int8 scan,
+            int8 rerank and ``ivf_route`` kernels, and their launches
+            join the kernels line;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -1369,10 +1401,21 @@ def base_store(main):
                         if not is_store_companion(k)}, n)
 
 
+def tenant_groups(n: int, group: int = 64, n_tenants: int = 8,
+                  n_tags: int = 64):
+    """Phase 4c's stamping of ``n`` pages: (lo, hi, tenant, tags) of each
+    group of ``group`` pages, 8 of ``n_tags`` tags drawn per group."""
+    rng = np.random.default_rng(15)
+    for g, lo in enumerate(range(0, n, group)):
+        tags = tuple(int(t) for t in rng.choice(n_tags, 8, replace=False))
+        yield lo, min(lo + group, n), g % n_tenants, tags
+
+
 def filtered_path(args, dev, main) -> dict:
     """The phase-4 pages upserted in groups of 64, each group stamped with
     a tenant and 8 of 64 tags; filtered 2-stage searches against the
-    rebuilt matching corpus and the plain filtered path."""
+    rebuilt matching corpus and the plain filtered path. Returns the
+    filtered store too (phase 4p holds its mesh twin against it)."""
     from repro_torch.core import multistage as MST
     from repro_torch.data.synthetic import evaluate_ranking
     from repro_torch.kernels import dispatch as DSP
@@ -1385,21 +1428,18 @@ def filtered_path(args, dev, main) -> dict:
     n = base.n_docs
     cap = bucket_capacity(args.pages)
     n_tenants, n_tags, group = 8, 64, 64
-    rng = np.random.default_rng(15)
     tenant_of = np.zeros(n, np.int64)
     tags_of = np.zeros((n, n_tags), bool)
     empty = VectorStore({k: v[:0] for k, v in base.vectors.items()}, 0)
     t0 = time.perf_counter()
     r = Retriever(empty, capacity=cap, device=dev, filter_words=2)
-    for g, lo in enumerate(range(0, n, group)):
-        hi = min(lo + group, n)
-        tags = tuple(int(t) for t in rng.choice(n_tags, 8, replace=False))
+    for lo, hi, tenant, tags in tenant_groups(n, group, n_tenants, n_tags):
         ids = r.upsert(VectorStore({k: v[lo:hi] for k, v in
                                     base.vectors.items()}, hi - lo),
-                       tenant=g % n_tenants, tags=tags)
+                       tenant=tenant, tags=tags)
         check(np.array_equal(ids, np.arange(lo, hi)),
               "filtered store: page ids must follow the phase-4 order")
-        tenant_of[lo:hi] = g % n_tenants
+        tenant_of[lo:hi] = tenant
         tags_of[lo:hi, list(tags)] = True
     torch.cuda.synchronize()
     log(f"[filter] upserted {n} pages in groups of {group}, {n_tenants} "
@@ -1466,8 +1506,7 @@ def filtered_path(args, dev, main) -> dict:
     for k in ("maxsim_scan", "maxsim_rerank"):
         check(counts[k] > 0, f"kernel {k} was never launched on the "
               "filtered path")
-    del r
-    return dict(results=results, counts=counts)
+    return dict(results=results, counts=counts, retriever=r, specs=specs)
 
 
 # ---------------------------------------------------------------------------
@@ -1477,7 +1516,8 @@ def filtered_path(args, dev, main) -> dict:
 def routed_path(args, dev, main) -> dict:
     """The phase-4 pages clustered into 64 IVF clusters; the routed 2-stage
     kernel cascade at full probe against the exhaustive one, and at
-    n_probe 8."""
+    n_probe 8. Returns the routed store too (phase 4p holds its mesh twin
+    against it)."""
     from repro_torch.core import multistage as MST
     from repro_torch.data.synthetic import evaluate_ranking
     from repro_torch.kernels import dispatch as DSP
@@ -1535,8 +1575,8 @@ def routed_path(args, dev, main) -> dict:
         check(counts[k] > 0, f"kernel {k} was never launched on the routed "
               "path")
     routed_stage0_times(args, dev, r, bench, two, n_clusters)
-    del r
-    return dict(results=results, counts=counts)
+    return dict(results=results, counts=counts, retriever=r,
+                n_clusters=n_clusters)
 
 
 def routed_stage0_times(args, dev, r, bench, two, n_clusters: int) -> None:
@@ -2387,6 +2427,459 @@ def tiered_path(args, dev, main) -> dict:
     del eng, r8
     res["counts"] = counts
     log(f"[tiered] launches over the tiered searches {used(counts)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4p: the retrieval mesh path, 4 shards on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_RAGGED = dict(cut=3, ingest=64, delete=10)   # 4093 + 64 - 10 pages
+
+
+def same_ranking(got, want, what: str) -> int:
+    """Two rankings (scores tensor, ids) with every score equal bit for bit
+    and the ids equal except where equal scores sit side by side (an
+    exact tie, ordered by segment and shard on a mesh, by candidate on one
+    device). Returns the exact-tie swaps."""
+    gs, gi = got
+    ws, wi = want
+    check(bool(torch.equal(gs, ws)), f"{what}: scores differ")
+    ws = ws.float().cpu().numpy()
+    swaps = 0
+    for r in range(len(gi)):
+        m, j = row_swaps(gi[r], wi[r], ws[r], 0.0)
+        check(j is None, f"{what}: row {r} rank {j} id {gi[r][j]} != "
+              f"{wi[r][j] if j is not None else ''} without a tie")
+        swaps += m
+    return swaps
+
+
+def exact_rankings(ids, sc, ref_ids, ref_sc, what: str) -> int:
+    """``compare_rankings`` held to bit for bit: the top-k scores equal
+    the reference's ranked one deeper (``plus_one``) bit for bit, and the
+    ids equal but where equal scores sit side by side (an exact tie, the
+    k-th with the (k+1)-th included). Returns the exact-tie swaps."""
+    swaps = compare_rankings(ids, sc, ref_ids, ref_sc, what, tie=0.0)
+    got, want = sc, ref_sc[:, :sc.shape[1]]
+    check(np.array_equal(got, want), f"{what}: scores not bit for bit (max "
+          f"abs difference {np.abs(got - want).max():.3e})")
+    return swaps
+
+
+def mesh_path(args, dev, main, int8, filt, routed) -> dict:
+    """Phase 4p: the phase-4 corpus on a mesh of 4 shards of this card
+    (``make_mesh((4,), ("data",), devices=["cuda:0"] * 4)``), held against
+    the single-device kernel path of this run. (a) a 1-position mesh
+    equals ``mesh=None`` bit for bit; (b) 4 shards: the 1-, 2- and 3-stage
+    cascades, int8 (db scan, ``scan_topk``, int8 rerank), a tenant filter
+    and routed search (full probe and ``n_probe`` 8) give the single-device
+    scores bit for bit, its ids apart from exact ties and phase 4's
+    NDCG@10 to 3 decimals; (c) a ragged corpus (4093 pages, 64 ingested,
+    10 deleted) equals a single-device store rebuilt from the survivors
+    in the same way, no page twice in a
+    row when k exceeds the live candidates, 0 builds after warm-up; (d) 8
+    segments behind a ``TieredEngine`` with a budget of 3 equal the
+    resident mesh search bit for bit, and a snapshot restores onto the
+    mesh and onto one device; (e) QPS, per-shard kernel ms, peak
+    memory. Only the mesh's own runs count launches."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.kernels.maxsim import ops as KOPS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.retrieval import tracing
+    from repro_torch.retrieval.ingest import IngestPipeline
+    from repro_torch.retrieval.retriever import Retriever
+    from repro_torch.retrieval.routing import RoutingPolicy
+    from repro_torch.retrieval.segments import bucket_capacity
+    from repro_torch.retrieval.store import (FilterSpec, VectorStore,
+                                             is_store_companion)
+
+    t_phase = time.perf_counter()
+    S = MESH_SHARDS
+    bench = main["bench"]
+    base = base_store(main)
+    n = base.n_docs
+    B = args.batch
+    q, qm = bench.queries, bench.query_mask
+    batches = [(q[i:i + B], qm[i:i + B]) for i in range(0, len(q), B)]
+    mesh = make_mesh((S,), ("data",), devices=[dev] * S)
+    mesh1 = make_mesh((1,), ("data",), devices=[dev])
+    cap = bucket_capacity(args.pages, S)
+    counts = {k: 0 for k in DSP.KERNELS}
+
+    def counted(fn):
+        """Run ``fn`` (a mesh run) with the launch counters zeroed before
+        and added to this phase's counts after."""
+        DSP.reset_counts()
+        out = fn()
+        for k in DSP.KERNELS:
+            counts[k] += DSP.launch_count(k)
+        return out
+
+    def kern(stages, **scan):
+        return MST.with_rerank_policy(MST.with_scan_policy(
+            stages, use_kernel=True, **scan), rerank_kernel=True)
+
+    def rows(lo, hi, vecs=base.vectors):
+        return VectorStore({k: v[lo:hi] for k, v in vecs.items()}, hi - lo)
+
+    cascades = {1: MST.one_stage(10), 2: MST.two_stage(256, 10),
+                3: MST.three_stage(1024, 256, 10)}
+    res = {"qps": {}, "swaps": {}}
+    log(f"[mesh] {mesh}: {S} shards time-sliced on one card, slabs of "
+        f"{cap // S} slots; the single-device kernel path of this run is "
+        "the reference")
+
+    # (a) a 1-position mesh: mesh=None's results bit for bit
+    r1 = Retriever(base, capacity=cap, mesh=mesh1)
+    for ns, st in cascades.items():
+        ids, sc, dt, nq = counted(lambda: run_cascade(r1, bench, kern(st),
+                                                      B))
+        want = main["results"][ns]
+        check(np.array_equal(ids, want["ids"])
+              and np.array_equal(sc, want["scores"]),
+              f"(a) 1-position mesh {ns}-stage != mesh=None bit for bit")
+        res["qps"][(1, ns)] = nq / dt
+    del r1
+    log("[mesh] (a) 1-position mesh: the 1-, 2- and 3-stage kernel "
+        "cascades equal mesh=None bit for bit (ids and scores); QPS "
+        + ", ".join(f"{ns}-stage {res['qps'][(1, ns)]:.1f}"
+                    for ns in cascades))
+
+    # (b) 4 shards: phase 4c's tenants and tags, so one store serves the
+    # unfiltered, filtered and (below) routed checks
+    t0 = time.perf_counter()
+    r4 = Retriever(rows(0, 0), capacity=cap, mesh=mesh, filter_words=2)
+    for lo, hi, tenant, tags in tenant_groups(n):
+        r4.upsert(rows(lo, hi), tenant=tenant, tags=tags)
+    torch.cuda.synchronize()
+    check(r4.store.capacities == (cap,) and r4.store.n_shards == S
+          and len(r4.store.segments[0].slabs) == S,
+          f"(b) 4-shard store: capacities {r4.store.capacities}")
+    log(f"[mesh] (b) {n} pages upserted onto {S} slabs in groups of 64 "
+        f"(4c's tenants and tags) in {time.perf_counter() - t0:.2f}s")
+    single = main["retriever"]
+    for ns, st in cascades.items():
+        ref_ids, ref_sc, _, _ = run_cascade(single, bench,
+                                            plus_one(kern(st)), B)
+        ids, sc, dt, nq = counted(lambda: run_cascade(r4, bench, kern(st),
+                                                      B))
+        swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
+                               f"(b) 4 shards {ns}-stage vs one device")
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        want = main["results"][ns]["metrics"]
+        check(abs(m["ndcg@10"] - want["ndcg@10"]) < 5e-4,
+              f"(b) {ns}-stage ndcg@10 {m['ndcg@10']:.4f} != phase 4's "
+              f"{want['ndcg@10']:.4f} to 3 decimals")
+        res["qps"][(S, ns)] = nq / dt
+        res["swaps"][ns] = swaps
+        log(f"[mesh] (b) {ns}-stage on {S} shards: QPS {nq / dt:.1f} (one "
+            f"device {main['results'][ns]['qps']:.1f}); ids == one device "
+            f"({swaps} exact-tie swaps), scores bit for bit; "
+            f"ndcg@10={m['ndcg@10']:.4f}")
+
+    # int8: 4b's quantised stores placed on the mesh
+    one, two = MST.one_stage(10), MST.two_stage(256, 10)
+    stores8 = {"a": int8["ra"], "b": int8["rb"]}
+    cascades8 = {
+        "1-stage int8 initial (db scan)": ("a", one, False),
+        "2-stage bf16 pooled (db scan) + int8 rerank": ("a", two, False),
+        "1-stage int8 initial scan_topk": ("a", one, True),
+        "2-stage int8 pooled scan_topk + bf16 rerank": ("b", two, True),
+    }
+    for which in ("a", "b"):
+        r8 = stores8[which]
+        m8 = Retriever(VectorStore(
+            {k: v[:n] for k, v in r8.store.vectors.items()
+             if not is_store_companion(k)}, n),
+            capacity=cap, mesh=mesh)
+        for name, (w, st, topk) in cascades8.items():
+            if w != which:
+                continue
+            st = kern(st, chunk=256, scan_topk=topk)
+            ref_ids, ref_sc, _, _ = run_cascade(r8, bench, plus_one(st), B)
+            ids, sc, dt, nq = counted(lambda: run_cascade(m8, bench, st, B))
+            swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
+                                   f"(b) 4 shards {name} vs one device")
+            m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+            want = int8["results"][name]["metrics"]
+            check(abs(m["ndcg@10"] - want["ndcg@10"]) < 5e-4,
+                  f"(b) {name} ndcg@10 {m['ndcg@10']:.4f} != 4b's "
+                  f"{want['ndcg@10']:.4f}")
+            res["qps"][(S, name)] = nq / dt
+            log(f"[mesh] (b) {name} on {S} shards: QPS {nq / dt:.1f} (one "
+                f"device {int8['results'][name]['qps']:.1f}); ids == one "
+                f"device ({swaps} exact-tie swaps), scores bit for bit; "
+                f"ndcg@10={m['ndcg@10']:.4f}")
+        del m8
+    for k in ("maxsim_scan_db", "maxsim_scan_int8", "maxsim_rerank_int8"):
+        check(counts[k] > 0, f"(b) the int8 mesh cascades never launched "
+              f"{k}")
+
+    # a tenant filter, against 4c's single-device filtered store
+    spec = filt["specs"][0]
+    ref_ids, ref_sc, _, _ = run_cascade(filt["retriever"], bench,
+                                        plus_one(kern(two)), B, spec)
+    ids, sc, dt, nq = counted(lambda: run_cascade(r4, bench, kern(two), B,
+                                                  spec))
+    swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
+                           f"(b) 4 shards filter {spec} vs one device")
+    res["qps"][(S, "filter")] = nq / dt
+    log(f"[mesh] (b) 2-stage {spec} on {S} shards: QPS {nq / dt:.1f}; ids "
+        f"== 4c's one-device filtered search ({swaps} exact-tie swaps), "
+        "scores bit for bit")
+
+    # routed: one clustering of the whole segment, on every shard
+    t0 = time.perf_counter()
+    r4.store.enable_routing(RoutingPolicy(routed["n_clusters"]))
+    torch.cuda.synchronize()
+    t_cluster = time.perf_counter() - t0
+    rs = routed["retriever"]
+    for key in ("ivf_centroids", "ivf_members"):
+        for slab in r4.store.segments[0].slabs:
+            check(bool(torch.equal(slab[key], rs.store.vectors[key])),
+                  f"(b) the mesh store's {key} differ from 4d's")
+    ex_m = evaluate_ranking(run_cascade(r4, bench, kern(two), B)[0],
+                            bench.qrels, ks=(5, 10))
+    for n_probe in (routed["n_clusters"], 8):
+        st = MST.with_routing_policy(kern(two), n_probe=n_probe,
+                                     n_clusters=routed["n_clusters"])
+        ref_ids, ref_sc, _, _ = run_cascade(rs, bench, plus_one(st), B)
+        ids, sc, dt, nq = counted(lambda: run_cascade(r4, bench, st, B))
+        swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
+                               f"(b) 4 shards routed n_probe={n_probe} "
+                               "vs one device")
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        if n_probe == routed["n_clusters"]:
+            for k in m:
+                check(abs(m[k] - ex_m[k]) < 5e-4, f"(b) full probe {k}: "
+                      f"routed {m[k]:.4f} != exhaustive {ex_m[k]:.4f}")
+        res["qps"][(S, f"routed {n_probe}")] = nq / dt
+        log(f"[mesh] (b) routed 2-stage n_probe={n_probe}/"
+            f"{routed['n_clusters']} on {S} shards: QPS {nq / dt:.1f}; ids "
+            f"== 4d's one device ({swaps} exact-tie swaps), scores bit "
+            "for bit; ndcg@10="
+            f"{m['ndcg@10']:.4f}" + (" == exhaustive metrics"
+                                     if n_probe == routed["n_clusters"]
+                                     else ""))
+    check(counts["ivf_route"] > 0, "(b) routed mesh search never launched "
+          "ivf_route")
+    log(f"[mesh] (b) clustering the 4-shard store: {t_cluster:.2f}s; "
+        "centroids and member lists equal 4d's on every slab")
+
+    # (e) per-shard kernels: shard 0's slab against the whole store
+    qb = torch.as_tensor(q[:B]).to(dev)
+    mb = torch.as_tensor(qm[:B]).to(dev)
+    vec = single.store.vectors
+    slab0 = r4.store.segments[0].slabs[0]
+    kms = {}
+    for name in ("initial", "mean_pooling"):
+        kms[name] = (
+            time_ms(lambda: KOPS.maxsim_scores(qb, slab0[name], mb,
+                                               slab0[name + "_mask"])),
+            time_ms(lambda: KOPS.maxsim_scores(qb, vec[name], mb,
+                                               vec[name + "_mask"])))
+    _, cand = single.search(qb, mb, stages=kern(MST.one_stage(256)),
+                            translate_ids=False)
+    n_local = cap // S
+    mine = cand // n_local == 0
+    order = torch.sort((~mine).to(torch.uint8), dim=1, stable=True)[1]
+    rsel = torch.gather(cand % n_local, 1, order)
+    ok = torch.gather(mine, 1, order)
+    kms["rerank"] = (
+        time_ms(lambda: KOPS.maxsim_rerank(qb, slab0["initial"], rsel, mb,
+                                           slab0["initial_mask"], ok)),
+        time_ms(lambda: KOPS.maxsim_rerank(qb, vec["initial"], cand, mb,
+                                           vec["initial_mask"],
+                                           torch.ones_like(ok))))
+    owned = float(ok.float().mean())
+    # where the 4-shard scores' last bits come from: shard 0's scans and
+    # its rerank's owned candidates against the same documents on the
+    # whole store (printed, not checked: both are within the kernels'
+    # tolerance of the plain version)
+    bits = {}
+    for name in ("initial", "mean_pooling"):
+        a = KOPS.maxsim_scores(qb, slab0[name], mb, slab0[name + "_mask"])
+        b = KOPS.maxsim_scores(qb, vec[name][:n_local], mb,
+                               vec[name + "_mask"][:n_local])
+        bits[f"scan {name}"] = float((a - b).abs().max())
+    a = KOPS.maxsim_rerank(qb, slab0["initial"], rsel, mb,
+                           slab0["initial_mask"], ok)
+    b = KOPS.maxsim_rerank(qb, vec["initial"], torch.gather(cand, 1, order),
+                           mb, vec["initial_mask"], ok)
+    bits["rerank owned"] = float((a - b)[ok].abs().max())
+    b_all = KOPS.maxsim_rerank(qb, vec["initial"], cand, mb,
+                               vec["initial_mask"], torch.ones_like(ok))
+    bits["rerank owned vs unmasked"] = float(
+        (a - torch.gather(b_all, 1, order))[ok].abs().max())
+    peak = {}
+    for label, r in (("one device", single), (f"{S} shards", r4)):
+        st = kern(two)
+        r.search(qb, mb, stages=st)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        r.search(qb, mb, stages=st)
+        torch.cuda.synchronize()
+        peak[label] = (torch.cuda.max_memory_allocated() - m0) / 1e6
+    res["kernel_ms"], res["peak_mb"], res["owned"] = kms, peak, owned
+    log("[mesh] (e) shard 0 against the same documents on the whole store, "
+        "max abs difference: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in bits.items()))
+    log("[mesh] (e) per-shard kernels (wrapper calls, median of 10): scan "
+        + "; ".join(f"{k} slab [{n_local}, ...] {a:.3f} ms vs the whole "
+                    f"[{cap}, ...] {b:.3f} ms" for k, (a, b) in kms.items()
+                    if k != "rerank")
+        + f"; rerank [{B}, 256] on a slab {kms['rerank'][0]:.3f} ms (all "
+        f"256 rows scored, {100 * owned:.1f}% owned) x {S} shards = "
+        f"{S * kms['rerank'][0]:.3f} ms vs one device "
+        f"{kms['rerank'][1]:.3f} ms; search peak memory above the store "
+        + ", ".join(f"{k} {v:.1f} MB" for k, v in peak.items()))
+    del r4, rs, cand
+    filt.pop("retriever")
+    routed.pop("retriever")
+
+    # (c) a ragged corpus: 4093 pages, 64 ingested, 10 deleted
+    cfg = get_config("colpali")
+    pipe = IngestPipeline(cfg, device=dev)
+    n0 = n - MESH_RAGGED["cut"]
+    n_new, n_del = MESH_RAGGED["ingest"], MESH_RAGGED["delete"]
+    total = n0 + n_new
+    cap_r = -(-total // S) * S
+    rr = Retriever(rows(0, n0), capacity=cap_r, mesh=mesh, ingest=pipe)
+    two_k = kern(two)
+    spec1 = FilterSpec(tenant=1)
+    wide = kern(MST.two_stage(256, 100))
+    for st in (two_k, wide):                              # warm-up
+        rr.search(*batches[0], stages=st)
+    torch.cuda.synchronize()
+    builds = tracing.trace_count()
+    new_pages = -bench.pages[:n_new]          # distinct pages, new ids
+    new_ids = counted(lambda: rr.ingest(new_pages, bench.token_types,
+                                        tenant=1))
+    check(np.array_equal(new_ids, np.arange(n0, total)),
+          f"(c) ingested ids {new_ids[:3]}...")
+    dead = [5] + [int(n0 * f) for f in (0.19, 0.37, 0.5, 0.73)] + [
+        n0 - 1] + [int(new_ids[j]) for j in (0, 10, 33, 63)]
+    check(len(dead) == n_del and rr.delete(dead) == n_del,
+          "(c) delete of 10 pages")
+    ids, sc, dt, nq = counted(lambda: run_cascade(rr, bench, two_k, B))
+    f_ids, f_sc, _, _ = counted(lambda: run_cascade(rr, bench, wide, B,
+                                                    spec1))
+    check(tracing.trace_count() == builds,
+          f"(c) {tracing.trace_count() - builds} builds after warm-up")
+    check(rr.store.capacities == (cap_r,), f"(c) capacities "
+          f"{rr.store.capacities}")
+    keep = np.setdiff1d(np.arange(total), dead)
+    new = pipe.index(new_pages, bench.token_types)
+    sel = torch.from_numpy(keep[keep < n0]).to(dev)
+    sel_new = torch.from_numpy(keep[keep >= n0] - n0).to(dev)
+    rebuilt = Retriever(VectorStore(
+        {k: torch.cat([v.index_select(0, sel),
+                       new.vectors[k].index_select(0, sel_new)])
+         for k, v in base.vectors.items()}, len(keep)), device=dev)
+    ref_ids, ref_sc, _, _ = run_cascade(rebuilt, bench, plus_one(two_k), B)
+    ref_ids = np.where(ref_ids >= 0, keep[np.clip(ref_ids, 0, None)], -1)
+    swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
+                           "(c) ragged 4 shards vs the rebuilt store")
+    live_new = set(keep[keep >= n0].tolist())
+    for r, row in enumerate(f_ids):
+        live = row[row >= 0]
+        check(len(live) == len(set(live.tolist())),
+              f"(c) query {r}: a page twice in one row: {row}")
+        check(set(live.tolist()) == live_new, f"(c) query {r}: the "
+              f"tenant-1 rows {sorted(set(live.tolist()))[:5]}... are not "
+              "the live tenant-1 pages")
+        check(bool((f_sc[r][row < 0] <= NEG / 2).all()),
+              f"(c) query {r}: a filler with a live score")
+    res["qps"][(S, "ragged")] = nq / dt
+    log(f"[mesh] (c) {n0} pages on {S} shards (capacity {cap_r}, slabs of "
+        f"{cap_r // S}), {n_new} ingested (pooling kernel, tenant 1), "
+        f"{n_del} deleted: 2-stage ids == a one-device store rebuilt from "
+        f"the {len(keep)} survivors ({swaps} exact-tie swaps, scores bit for "
+        f"bit), QPS {nq / dt:.1f}; "
+        f"2-stage(256, 100) over the {len(live_new)} live tenant-1 pages: "
+        f"every one once per row, the rest -1; builds after warm-up 0")
+    del rr, rebuilt, new, pipe
+
+    # (d) 8 segments of pages/8 on the mesh behind a TieredEngine
+    per = n // 8
+    rt = Retriever(rows(0, per), mesh=mesh)
+    for lo in range(per, n, per):
+        rt.upsert(rows(lo, lo + per))
+    check(rt.store.capacities == (per,) * 8, f"(d) capacities "
+          f"{rt.store.capacities}")
+    rt.search(*batches[0], stages=two_k)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oracle = counted(lambda: [rt.search(bq, bm, stages=two_k)
+                              for bq, bm in batches])
+    torch.cuda.synchronize()
+    dt_res = time.perf_counter() - t0
+    seg_bytes = rt.store.segments[0].nbytes
+    with rt.tiered(3 * seg_bytes) as eng:
+        check(len(eng.resident()) == 3, f"(d) budget of 3: resident "
+              f"{eng.resident()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = counted(lambda: [eng.search(bq, bm, stages=two_k)
+                               for bq, bm in batches])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for b, (g, o) in enumerate(zip(got, oracle)):
+            same_result(g, o, f"(d) tiered mesh batch {b}")
+        promo = eng.stats["promotions"]
+        check(promo > 0, "(d) the tiered mesh search promoted nothing")
+        # a scope runs as one joint cascade, so it pins every segment it
+        # holds: a whole-corpus scope overshoots the budget (``overflow``)
+        # and stays resident, as in ``repro``
+        over, held = eng.stats["overflow"], len(eng.resident())
+    res["qps"][(S, "tiered")] = len(q) / dt
+    res["qps"][(S, "tiered resident")] = len(q) / dt_res
+    snap_root = Path(__file__).resolve().parent / "build"
+    snap_root.mkdir(exist_ok=True)
+    snap = tempfile.mkdtemp(prefix="mesh_snapshot_", dir=snap_root)
+    try:
+        rt.snapshot(snap, keep=1)
+        on_mesh = Retriever.from_snapshot(snap, mesh=mesh)
+        on_one = Retriever.from_snapshot(snap, device=dev)
+        check(on_mesh.store.n_shards == S and on_one.store.n_shards == S
+              and all(len(s.slabs) == S for s in on_mesh.store.segments)
+              and all(len(s.slabs) == 1 for s in on_one.store.segments),
+              "(d) restored stores: shards and placement")
+        swaps = 0
+        for b, (bq, bm) in enumerate(batches):
+            a = on_mesh.search(bq, bm, stages=two_k)
+            same_result(a, oracle[b], f"(d) restored on the mesh, batch {b}")
+            swaps += same_ranking(on_one.search(bq, bm, stages=two_k), a,
+                                  f"(d) restored on one device, batch {b}")
+        del on_mesh, on_one
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    log(f"[mesh] (d) {len(rt.store.segments)} segments of {per} pages "
+        f"({seg_bytes / 1e6:.1f} MB each) on {S} shards, budget 3: tiered "
+        f"{len(q) / dt:.1f} QPS (resident {len(q) / dt_res:.1f}), bit for "
+        f"bit the resident mesh search, {promo} promotions, {held} segments resident after (the joint "
+        f"cascade pins its whole scope: {over} budget overflows); a "
+        f"snapshot restored onto the mesh answers bit "
+        f"for bit, restored onto one device the same scores bit for bit and "
+        f"ids ({swaps} exact-tie swaps)")
+    del rt, oracle, got
+
+    for k in ("maxsim_scan", "maxsim_rerank", "pooling", "maxsim_scan_db",
+              "maxsim_scan_int8", "maxsim_rerank_int8", "ivf_route"):
+        check(counts[k] > 0, f"kernel {k} was never launched on the mesh "
+              "path")
+    res["counts"] = counts
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] launches over the mesh runs {used(counts)}; phase 4p "
+        f"{res['seconds']:.1f}s")
     return res
 
 
@@ -5059,6 +5552,7 @@ def main() -> None:
     fe_res = frontend_path(args, dev, main_res)
     mrl_res = matryoshka_quickstart_path(args, dev, main_res)
     tier_res = tiered_path(args, dev, main_res)
+    mesh_res = mesh_path(args, dev, main_res, int8_res, filt_res, route_res)
 
     # 5. times
     entries = kernel_times(args, dev, main_res)
@@ -5077,12 +5571,19 @@ def main() -> None:
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
     c8 = int8_res["counts"]
-    launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"],
-                "maxsim_rerank": main_res["counts"]["maxsim_rerank"],
-                "pool": main_res["counts"]["pooling"],
-                "maxsim_scan_db": c8["maxsim_scan_db"],
-                "maxsim_scan_int8": c8["maxsim_scan_int8"],
-                "maxsim_rerank_int8": c8["maxsim_rerank_int8"]}
+    cm = mesh_res["counts"]
+    # the main paths' launches, each path driven with the counts zeroed
+    # before it and read after: phase 4 (float), 4b (int8), 4p (mesh)
+    launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"]
+                + cm["maxsim_scan"],
+                "maxsim_rerank": main_res["counts"]["maxsim_rerank"]
+                + cm["maxsim_rerank"],
+                "pool": main_res["counts"]["pooling"] + cm["pooling"],
+                "maxsim_scan_db": c8["maxsim_scan_db"] + cm["maxsim_scan_db"],
+                "maxsim_scan_int8": c8["maxsim_scan_int8"]
+                + cm["maxsim_scan_int8"],
+                "maxsim_rerank_int8": c8["maxsim_rerank_int8"]
+                + cm["maxsim_rerank_int8"]}
     errs_by = dict(errs, pool=errs["pooling"])
     for e in entries:
         e["launches"] = launches[e["name"]]
@@ -5106,6 +5607,9 @@ def main() -> None:
         f"{c8['maxsim_scan_int8']} (one per scan_topk chunk), "
         f"maxsim_rerank_int8 {c8['maxsim_rerank_int8']}, maxsim_rerank "
         f"(bf16) {c8['maxsim_rerank']}")
+    log(f"[times] mesh path (4p) launches: "
+        f"{ {k: v for k, v in cm.items() if v} }; added to the kernels "
+        "line")
     for n, res in main_res["results"].items():
         log(f"[summary] {n}-stage @ {args.pages} pages: kernel QPS "
             f"{res['qps']:.1f}, plain QPS {res['plain_qps']:.1f}, "
@@ -5157,6 +5661,20 @@ def main() -> None:
         f"results; snapshot write {t['snapshot']['write_gbs']:.2f} GB/s, "
         f"restore {t['snapshot']['restore_gbs']:.2f} GB/s; int8 "
         f"{t['int8']['qps']:.1f} QPS; engine peak {t['peak_mb']:.1f} MB")
+    mq = mesh_res["qps"]
+    log(f"[summary] mesh (4p), {MESH_SHARDS} shards time-sliced on one "
+        "card: not a multi-card figure. QPS one device / 1-position mesh / "
+        f"{MESH_SHARDS} shards: " + "; ".join(
+            f"{n}-stage {main_res['results'][n]['qps']:.1f} / "
+            f"{mq[(1, n)]:.1f} / {mq[(MESH_SHARDS, n)]:.1f}"
+            for n in main_res["results"]) + "; " + "; ".join(
+            f"{k} {v:.1f}" for (s_, k), v in mq.items()
+            if s_ == MESH_SHARDS and not isinstance(k, int))
+        + "; per-shard rerank " + f"{mesh_res['kernel_ms']['rerank'][0]:.3f}"
+        f" ms x {MESH_SHARDS} vs one device "
+        f"{mesh_res['kernel_ms']['rerank'][1]:.3f} ms; search peak "
+        + ", ".join(f"{k} {v:.1f} MB" for k, v in mesh_res["peak_mb"].items())
+        + f"; phase 4p {mesh_res['seconds']:.1f}s")
     new_launches = {name: {k: v for k, v in res["counts"].items() if v}
                     for name, res in (("ingest", ingest_res),
                                       ("frontend", fe_res),

@@ -35,6 +35,31 @@ segments of a ``SegmentedStore``:
   breaks ties by probed-row position instead, so its routed ids can
   differ from these on exact ties, and only there.)
 
+With a ``mesh`` (``launch.mesh``: one controller, a device per mesh
+position) the cascade runs SHARDED, as ``repro``'s ``shard_map`` body
+does, once per mesh position on that position's device and slab:
+
+- documents never move: shard r scans and reranks only its slab, slots
+  ``[r * n_local, (r + 1) * n_local)`` of each segment (``n_local =
+  capacity // S``; a capacity divides by S);
+- only (score, id) pairs cross between devices: each stage gathers the
+  shards' lists onto the mesh's first device in mesh order
+  (``topk.allgather_topk``/``gathered_merge_topk``/``all_gather``) and
+  merges them with the stable top-k, so every result lands there;
+- rerank stages (and a routed stage 0, whose replicated routing
+  companions give every shard the identical probed rows) compact each
+  shard's OWNED candidates to the front with a stable sort, keeping the
+  candidate order, and score the first ``cap_slots = min(L, ceil(L / S)
+  * RERANK_OVERCOMMIT)`` of them: exact when no shard owns more than
+  that (always, when S <= RERANK_OVERCOMMIT);
+- a non-owned copy scores NEG AND drops its id to -1, so NEG filler can
+  never duplicate a live page when k exceeds the live candidates.
+
+Stores come placed (``SegmentedStore.place_on``; ``shards()`` hands
+over a tuple of slab dicts per segment) or as one raw dict
+(``make_search_fn``), which the search splits over the mesh on each call
+(``store.split_slabs``; views on the tensors' own device). No step of the per-shard body reads a value back to the host.
+
 The oracle is ``repro_torch.core.multistage.search``.
 """
 from __future__ import annotations
@@ -45,15 +70,24 @@ from repro_torch.core import maxsim as MS
 from repro_torch.core.multistage import DEFAULT_SCAN_TOPK_CHUNK, Stage, top_k
 from repro_torch.kernels.maxsim import ops as KOPS
 from repro_torch.kernels.maxsim.ref import dequantize
-from repro_torch.retrieval.store import (VALIDITY_KEY, as_filter_arrays,
+from repro_torch.retrieval.store import (ROUTING_KEYS, VALIDITY_KEY,
+                                         as_filter_arrays,
                                          effective_validity, filter_words,
                                          rerank_arrays, routing_arrays,
-                                         scan_arrays)
-from repro_torch.retrieval.topk import merge_topk
+                                         scan_arrays, split_slabs)
+from repro_torch.retrieval.topk import (all_gather, allgather_topk,
+                                        gathered_merge_topk, merge_topk)
 from repro_torch.retrieval.tracing import record_trace
 
 NEG = -1e30
 INT8_REF_CHUNK = 1024      # plain int8 scan chunk when the stage sets none
+# each shard of a mesh scores at most ceil(L / S) * RERANK_OVERCOMMIT of a
+# stage's L candidates (``repro``'s default overcommit)
+RERANK_OVERCOMMIT = 8
+
+
+def _mesh_shards(mesh) -> int:
+    return 1 if mesh is None else mesh.size
 
 
 def _prefix(vecs, q):
@@ -264,16 +298,19 @@ def _resolve_stage0(stages: tuple) -> Stage:
     return stages[0]
 
 
-def make_segmented_search_fn(stages: tuple, capacities: tuple):
-    """The cascade over a tuple of segment store dicts.
+def make_segmented_search_fn(stages: tuple, capacities: tuple, mesh=None):
+    """The cascade over a tuple of segment stores.
 
-    Returns fn(stores: tuple[dict, ...], q [B,Q,d], q_mask [B,Q],
-    fspec=None) -> (scores [B,k], global slot ids [B,k]). ``fspec`` is a
+    Returns fn(stores: tuple, q [B,Q,d], q_mask [B,Q], fspec=None) ->
+    (scores [B,k], global slot ids [B,k]). ``fspec`` is a
     ``store.FilterSpec`` (or a packed triple, or None for the
-    match-everything filter), packed here for the stores' device. Each
-    build counts one ``tracing.record_trace`` (``Retriever`` caches the
-    function per stages and store layout, so steady-state serving builds
-    none).
+    match-everything filter), packed here for the stores' device. Without
+    ``mesh`` each store is one dict; with it the cascade runs sharded
+    (``_mesh_search``), each store being a segment's slabs
+    (``SegmentedStore.shards``) or one dict, and the results land on the
+    mesh's first device. Each build counts
+    one ``tracing.record_trace`` (``Retriever`` caches the function per
+    stages, store layout and mesh, so steady-state serving builds none).
     """
     record_trace()
     stages = tuple(stages)
@@ -281,6 +318,8 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
     _resolve_stage0(stages)
     if not capacities:
         raise ValueError("search needs at least one segment")
+    if mesh is not None:
+        return _mesh_search(mesh, stages, capacities)
     offsets = _offsets(capacities)
     total_cap = sum(capacities)
 
@@ -312,6 +351,142 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple):
                 k = min(stage.k, cand.shape[1])
                 scores, sel = top_k(s_all, k)
                 cand = torch.gather(cand, 1, sel)
+        return scores, cand
+
+    return search
+
+
+def _owned_first(mine, n: int):
+    """Per row, the positions of the True entries of ``mine`` [B, L] in
+    their order, then the rest, cut to the first ``n``: a stable sort
+    (``repro``'s ``argsort(~mine)``), so ties keep the candidate order."""
+    key = (~mine).to(torch.uint8)
+    return torch.sort(key, dim=1, stable=True)[1][:, :n]
+
+
+def _mesh_search(mesh, stages: tuple, capacities: tuple):
+    """The sharded cascade: ``repro``'s ``shard_map`` body, run once per
+    mesh position on its device, with each stage's (score, id) lists
+    gathered in mesh order onto the mesh's first device."""
+    devices = tuple(mesh.devices.flat)
+    gdev = devices[0]
+    n_shards = len(devices)
+    for cap in capacities:
+        # segment capacities are shard-padded at allocation, raw corpora
+        # by make_search_fn: no corpus-size constraint, only this one
+        if cap % n_shards:
+            raise ValueError(f"segment capacity {cap} not divisible by "
+                             f"{n_shards} shards")
+    offsets = _offsets(capacities)
+    total_cap = sum(capacities)
+
+    def stage0(stage, slab, eff, cap, off, r, q, q_mask):
+        """Shard r's stage 0 over one segment's slab: its winners as
+        (vals, GLOBAL slot ids), or its [B, n_local] scores for the
+        exhaustive scan (selected in ``allgather_topk``)."""
+        n_local = cap // n_shards
+        vecs, mask, scales = scan_arrays(slab, stage.vector)
+        if stage.n_probe > 0:
+            # the replicated routing companions give every shard the same
+            # rows; it scores the ones it owns, compacted to cap_slots
+            # (>= n_local when K * C >= capacity, the member-width
+            # invariant, so full probe stays exact)
+            rows = _routed_rows(slab, stage, q, q_mask)
+            R = rows.shape[1]
+            rclip = rows.clamp(0, cap - 1)
+            cap_slots = min(R, max(1, -(-R // n_shards)) * RERANK_OVERCOMMIT)
+            mine = (rows >= 0) & (rclip // n_local == r)
+            order = _owned_first(mine, cap_slots)
+            rsel = torch.gather(rclip % n_local, 1, order)
+            gsel = torch.gather(rclip, 1, order)
+            ok = torch.gather(mine, 1, order)
+            if eff is not None:
+                ok = ok & eff[rsel]
+            s = _score_candidates(vecs, mask, scales, q, q_mask, rsel, ok,
+                                  stage.use_kernel or stage.rerank_kernel)
+            v, sel = top_k(s, min(stage.k, cap, cap_slots))
+            gi = torch.where(torch.gather(ok, 1, sel),
+                             torch.gather(gsel, 1, sel) + off, -1)
+            return v, gi
+        if stage.scan_topk:
+            # streamed per-shard running top-k; ids shift into the global
+            # slot space before the gathered merge
+            v, i = _dispatch_scan_topk(stage, vecs, mask, q, q_mask, scales,
+                                       eff, min(stage.k, cap))
+            return v, i + r * n_local + off
+        return _dispatch_scan(stage, vecs, mask, q, q_mask, scales)
+
+    def rerank(stage, slab, eff, cap, off, r, q, q_mask, cand, cap_slots):
+        """Shard r's scores for its owned candidates of one segment,
+        compacted to ``cap_slots``, and their global ids (-1 where not
+        owned or dead)."""
+        n_local = cap // n_shards
+        local = cand - off
+        in_seg = (local >= 0) & (local < cap)
+        lclip = local.clamp(0, cap - 1)
+        mine = in_seg & (lclip // n_local == r)
+        order = _owned_first(mine, cap_slots)
+        rows = torch.gather(lclip % n_local, 1, order)
+        ok = torch.gather(mine, 1, order)
+        if eff is not None:
+            ok = ok & eff[rows]
+        vecs, mask, scales = rerank_arrays(slab, stage.vector)
+        s = _score_candidates(vecs, mask, scales, q, q_mask, rows, ok,
+                              stage.rerank_kernel)
+        # a non-owned copy drops its id, not only its score: with k above
+        # the live candidates, NEG filler carrying a live id would
+        # duplicate that page; -1 scores NEG in every later stage too
+        return s, torch.where(ok, torch.gather(cand, 1, order), -1)
+
+    def search(stores, q, q_mask, fspec=None):
+        slabs = [store if isinstance(store, tuple)
+                 else split_slabs(store, mesh) for store in stores]
+        for sl in slabs:
+            if len(sl) != n_shards:
+                raise ValueError(f"a segment in {len(sl)} slabs on a mesh "
+                                 f"of {n_shards}")
+        arrays = as_filter_arrays(fspec, filter_words(slabs[0][0]), gdev)
+        # the query and the request filter are replicated: every shard
+        # applies them to its own slab
+        qs = [q.to(d) for d in devices]
+        qms = [q_mask.to(d) for d in devices]
+        effs = [[effective_validity(sl[r], tuple(t.to(d) for t in arrays))
+                 for r, d in enumerate(devices)] for sl in slabs]
+        scores = cand = None
+        for si, stage in enumerate(stages):
+            parts_v, parts_i = [], []
+            if si == 0:
+                for sl, eff, cap, off in zip(slabs, effs, capacities,
+                                             offsets):
+                    got = [stage0(stage, sl[r], eff[r], cap, off, r, qs[r],
+                                  qms[r]) for r in range(n_shards)]
+                    k0 = min(stage.k, cap)
+                    if stage.n_probe > 0 or stage.scan_topk:
+                        v, i = gathered_merge_topk([g[0] for g in got],
+                                                   [g[1] for g in got], k0,
+                                                   gdev)
+                    else:
+                        v, i = allgather_topk(got, k0, cap // n_shards,
+                                              valid_local=eff,
+                                              seg_offset=off, device=gdev)
+                    parts_v.append(v)
+                    parts_i.append(i)
+                k = min(stage.k, total_cap)
+            else:
+                L = cand.shape[1]
+                cap_slots = min(L, max(1, -(-L // n_shards))
+                                * RERANK_OVERCOMMIT)
+                cands = [cand.to(d) for d in devices]
+                for sl, eff, cap, off in zip(slabs, effs, capacities,
+                                             offsets):
+                    got = [rerank(stage, sl[r], eff[r], cap, off, r, qs[r],
+                                  qms[r], cands[r], cap_slots)
+                           for r in range(n_shards)]
+                    parts_v.append(all_gather([g[0] for g in got], gdev))
+                    parts_i.append(all_gather([g[1] for g in got], gdev))
+                k = min(stage.k, L)
+            scores, cand = merge_topk(torch.cat(parts_v, dim=1),
+                                      torch.cat(parts_i, dim=1), k)
         return scores, cand
 
     return search
@@ -361,7 +536,7 @@ def make_segment_rerank_fn(stages: tuple, stage_index: int, capacity: int):
     return seg_rerank
 
 
-def make_search_fn(stages: tuple, n_docs: int):
+def make_search_fn(stages: tuple, n_docs: int, mesh=None):
     """The cascade over ONE raw store dict of ``n_docs`` rows (no
     segments): fn(store_vectors: dict, q [B,Q,d], q_mask [B,Q],
     fspec=None) -> (scores [B,k], ids [B,k]), ids being row numbers.
@@ -370,20 +545,30 @@ def make_search_fn(stages: tuple, n_docs: int):
     ``doc_valid`` is all live; one with it (a ragged capacity-padded
     store) keeps its own.
 
-    This is the single-device body: a store of one device is its own
-    capacity, so there is no shard padding, and the store is served as
-    one segment of ``n_docs`` slots."""
-    body = make_segmented_search_fn(stages, (n_docs,))
+    The store is served as one segment. On a ``mesh`` of S positions its
+    rows are padded with zeros to a multiple of S (``doc_valid`` with
+    False) on each call, so any ``n_docs`` shards; the routing companions
+    are left whole."""
+    cap = -(-n_docs // _mesh_shards(mesh)) * _mesh_shards(mesh)
+    body = make_segmented_search_fn(stages, (cap,), mesh)
+
+    def pad(v):
+        if v.shape[0] == cap:
+            return v
+        return torch.cat([v, v.new_zeros((cap - n_docs,) + v.shape[1:])])
 
     def fn(store, q, q_mask=None, fspec=None):
         dev = next(iter(store.values())).device
+        store = dict(store)
         if VALIDITY_KEY not in store:
-            store = dict(store)
             store[VALIDITY_KEY] = torch.ones((n_docs,), dtype=torch.bool,
                                              device=dev)
+        store = {k: v if k in ROUTING_KEYS else pad(v)
+                 for k, v in store.items()}
         q = torch.as_tensor(q).to(dev)
         q_mask = (torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
                   if q_mask is None else torch.as_tensor(q_mask).to(dev))
         return body((store,), q, q_mask.bool(), fspec)
 
     return fn
+

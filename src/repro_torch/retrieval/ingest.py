@@ -224,8 +224,8 @@ class IngestPipeline:
             vectors = quantize_vectors(vectors, self.quantize, self.stages)
         return vectors
 
-    def _write_body(self, seg_vectors: dict, pages, token_types, start: int,
-                    n_real: int, tenant: int, words: np.ndarray) -> dict:
+    def _write_body(self, seg, pages, token_types, start: int,
+                    n_real: int, tenant: int, words: np.ndarray) -> None:
         """Index the bucket-padded batch and write it into the segment's
         reserved tail: one full-bucket slice copy per array, then the
         padding rows zeroed (pooled masks and int8 scales are nonzero for
@@ -233,20 +233,19 @@ class IngestPipeline:
         and the arrays equal ``index`` + ``add_pages``'s. ``doc_valid``,
         ``doc_tenant`` and ``doc_filter`` are stamped on the claimed rows
         only. ``reserve`` left a full bucket of tail room, so the block
-        never reaches a live row."""
+        never reaches a live row. The batch is indexed once, on the
+        pipeline's device; on a mesh its rows are then split onto the
+        slabs they land in (``Segment.write``)."""
         batch = self._index_arrays(pages, token_types, None)
         bucket = pages.shape[0]
         for k, v in batch.items():
-            dst = seg_vectors[k][start:start + bucket]
-            dst.copy_(v)
+            seg.write(k, start, v)
             if n_real < bucket:
-                dst[n_real:].zero_()
+                seg.fill(k, start + n_real, start + bucket, 0)
         end = start + n_real
-        seg_vectors[VALIDITY_KEY][start:end] = True
-        seg_vectors[TENANT_KEY][start:end] = int(tenant)
-        seg_vectors[FILTER_KEY][start:end] = words_tensor(
-            words, self.device)[None, :]
-        return seg_vectors
+        seg.fill(VALIDITY_KEY, start, end, True)
+        seg.fill(TENANT_KEY, start, end, int(tenant))
+        seg.fill(FILTER_KEY, start, end, words_tensor(words)[None, :])
 
     # ------------------------------------------------------------------
     # host entry points
@@ -295,7 +294,7 @@ class IngestPipeline:
         through ``store.commit``, so with routing on they join their
         clusters there. Returns the assigned stable page ids."""
         if store.segments:
-            have = {k for k in store.segments[0].vectors
+            have = {k for k in store.segments[0].slabs[0]
                     if not is_store_companion(k)}
             if have != set(self.produced_keys):
                 raise ValueError(
@@ -306,7 +305,6 @@ class IngestPipeline:
         pages_p, tt, n = self._padded(pages, token_types)
         # a full bucket of headroom: the write is a bucket-wide block
         seg_i, start = store.reserve(n, min_free=pages_p.shape[0])
-        seg = store.segments[seg_i]
-        new_vectors = self._write_body(seg.vectors, pages_p, tt, start, n,
-                                       tenant, words)
-        return store.commit(seg_i, new_vectors, n)
+        self._write_body(store.segments[seg_i], pages_p, tt, start, n,
+                         tenant, words)
+        return store.commit(seg_i, n)

@@ -1,9 +1,11 @@
-"""Serving facade: one object that owns the corpus and the cascade fns.
+"""Serving facade: one object that owns the corpus, the mesh and the
+cascade fns.
 
 ``Retriever`` wraps the engine (``repro_torch.retrieval.engine``) over a
 SEGMENTED, capacity-padded corpus (``repro_torch.retrieval.segments``) on
-one device, and caches the cascade function per ``(stages, segment
-layout)`` — not per fill level.
+one device or sharded over a mesh (``launch.mesh``), and caches the
+cascade function per ``(stages, segment layout, mesh)`` — not per fill
+level.
 
     store = build_store(cfg, pages, token_types)         # on cuda
     r = Retriever(store, capacity=4096,                  # ingest headroom
@@ -14,6 +16,9 @@ layout)`` — not per fill level.
     r.delete([3, 17])
     scores, ids = r.search(q, q_mask, stages=stages,
                            filter=FilterSpec(tenant=2, require_tags=(5,)))
+
+    mesh = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
+    r4 = Retriever(store, mesh=mesh, capacity=4096)      # 4 shards
 
 The no-retrace contract (``retrieval.tracing``): ``upsert``/``ingest``
 into preallocated padding and ``delete`` keep the layout, so steady-state
@@ -36,19 +41,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import home_device
 from repro_torch.retrieval import engine, tracing
 from repro_torch.retrieval.segments import SegmentedStore
 from repro_torch.retrieval.store import VectorStore
 
 
 class Retriever:
-    def __init__(self, store, capacity: int | None = None, device="cuda",
-                 filter_words: int = 1, routing=None, ingest=None):
-        """``store`` is a built ``VectorStore`` (wrapped as segment 0 on
-        ``device`` — exact fit by default, or preallocated to ``capacity``
-        slots for ingestion headroom) or an existing ``SegmentedStore``,
-        which must already live on ``device``. ``filter_words`` sizes the
+    def __init__(self, store, capacity: int | None = None, device=None,
+                 filter_words: int = 1, routing=None, ingest=None,
+                 mesh=None):
+        """``store`` is a built ``VectorStore`` (wrapped as segment 0 —
+        exact fit by default, or preallocated to ``capacity`` slots for
+        ingestion headroom) or an existing ``SegmentedStore``, which must
+        already live on the retriever's device type. ``device`` defaults
+        to "cuda"; with a ``mesh`` the retriever's device is the mesh's
+        first device, where results land. ``filter_words`` sizes the
         packed metadata-tag bitset (32 tags per word) when wrapping a
         ``VectorStore``; a ``SegmentedStore`` keeps its own width.
         ``routing`` enables IVF centroid routing on the store (an int
@@ -56,17 +64,39 @@ class Retriever:
         clustered now and maintained through upsert, ingest, delete and
         compact, and scan stages with ``Stage.n_probe > 0`` route through
         the clusters. ``ingest`` is an optional ``IngestPipeline`` that
-        enables ``Retriever.ingest`` (raw pages in, stable ids out)."""
-        self.device = resolve_device(device)
+        enables ``Retriever.ingest`` (raw pages in, stable ids out).
+
+        ``mesh`` shards the search over the mesh's S positions: the corpus
+        is laid out on the mesh once (``SegmentedStore.place_on``), with
+        capacities rounded to multiples of S (a ``SegmentedStore`` whose
+        capacities do not divide by S raises). Without a mesh, a store
+        placed on a mesh of several positions raises: restore it onto one
+        device (``tiering.restore_store``) or pass its mesh."""
+        self.mesh = mesh
+        self.device = home_device(mesh, device)
         self._ingest = ingest
         self._fns: dict = {}
+        n_shards = engine._mesh_shards(mesh)
         if isinstance(store, VectorStore):
-            store = SegmentedStore.from_store(store, capacity=capacity,
-                                              device=self.device,
-                                              filter_words=filter_words)
-        elif store.device.type != self.device.type:
-            raise ValueError(f"store lives on {store.device}, retriever on "
-                             f"{self.device}")
+            store = SegmentedStore.from_store(
+                store, capacity=capacity, device=self.device,
+                filter_words=filter_words, n_shards=n_shards, mesh=mesh)
+        else:
+            if store.device.type != self.device.type:
+                raise ValueError(f"store lives on {store.device}, retriever "
+                                 f"on {self.device}")
+            for cap in store.capacities:
+                if cap % n_shards:
+                    raise ValueError(
+                        f"segment capacity {cap} not divisible by "
+                        f"{n_shards} shards — allocate with n_shards set")
+            if mesh is not None:
+                store.place_on(mesh)
+            elif any(len(seg.slabs) > 1 for seg in store.segments):
+                raise ValueError(
+                    f"the store is placed on a mesh of {store.mesh.size} "
+                    "positions; pass mesh= to search it sharded, or "
+                    "restore it onto one device")
         self.store = store
         if routing is not None:
             self.store.enable_routing(routing)
@@ -149,15 +179,17 @@ class Retriever:
         return tiering.snapshot(self.store, directory, **kwargs)
 
     @classmethod
-    def from_snapshot(cls, directory: str, *, step: int | None = None,
-                      device="cuda", **kwargs) -> "Retriever":
+    def from_snapshot(cls, directory: str, mesh=None, *,
+                      step: int | None = None, device=None,
+                      **kwargs) -> "Retriever":
         """Cold-start a retriever from a ``snapshot`` directory (this
         package's or ``repro``'s), bit for bit the store that was saved,
-        every segment resident on ``device``. Extra kwargs go to the
-        constructor (``ingest``, ...)."""
+        every segment resident on ``device`` or, with ``mesh``, placed on
+        the mesh. Extra kwargs go to the constructor (``ingest``, ...)."""
         from repro_torch.retrieval import tiering
-        store = tiering.restore_store(directory, step=step, device=device)
-        return cls(store, device=device, **kwargs)
+        store = tiering.restore_store(directory, mesh=mesh, step=step,
+                                      device=device)
+        return cls(store, device=device, mesh=mesh, **kwargs)
 
     # ------------------------------------------------------------------
     # search
@@ -165,18 +197,19 @@ class Retriever:
 
     def search_fn(self, stages: tuple):
         """The cascade function for ``stages``, built at most once per
-        (stages, segment layout); functions of an older layout are
-        dropped. Signature: fn(stores: tuple[dict, ...], q, q_mask,
-        fspec=None) -> (scores, slot ids)."""
+        (stages, segment layout, mesh); functions of an older layout are
+        dropped. Signature: fn(stores: tuple, q, q_mask, fspec=None) ->
+        (scores, slot ids)."""
         stages = tuple(stages)
         layout = self.store.layout_key()
-        fn = self._fns.get((stages, layout))
+        key = (stages, layout, self.mesh)
+        fn = self._fns.get(key)
         if fn is None:
             self._fns = {k: v for k, v in self._fns.items()
                          if k[1] == layout}
-            fn = engine.make_segmented_search_fn(stages,
-                                                 self.store.capacities)
-            self._fns[(stages, layout)] = fn
+            fn = engine.make_segmented_search_fn(
+                stages, self.store.capacities, self.mesh)
+            self._fns[key] = fn
         return fn
 
     def search(self, q, q_mask=None, *, stages: tuple,
@@ -185,7 +218,7 @@ class Retriever:
 
         ids are stable page ids (np.int64; -1 marks filler when k exceeds
         the live, matching corpus); pass translate_ids=False for the raw
-        slot ids (a tensor on the device).
+        slot ids (a tensor on the retriever's device).
 
         ``filter`` is a request-scoped ``store.FilterSpec`` (tenant scope,
         required and any-of tags) or None for the whole corpus; the
@@ -197,8 +230,9 @@ class Retriever:
                                 device=self.device)
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
-        scores, slots = self.search_fn(stages)(self.store.stores(), q,
-                                               q_mask, filter)
+        stores = (self.store.stores() if self.mesh is None
+                  else self.store.shards())
+        scores, slots = self.search_fn(stages)(stores, q, q_mask, filter)
         if not translate_ids:
             return scores, slots
         ids = self.store.translate_slots(slots.cpu().numpy())

@@ -290,11 +290,15 @@ def alloc_arrays(policy: RoutingPolicy, like_vectors: dict, capacity: int,
 # ---------------------------------------------------------------------------
 
 def recluster(store, seg) -> None:
-    """Re-cluster one segment (same shapes — data, not layout)."""
-    cents, members, fills = cluster_segment(seg.vectors, store.router,
+    """Re-cluster one segment (same shapes — data, not layout). On a
+    mesh the whole segment is clustered once, gathered from its slabs,
+    and every shard gets the same centroids and member lists, so every
+    shard derives the identical routed rows (never one index per
+    shard)."""
+    cents, members, fills = cluster_segment(seg.gathered(), store.router,
                                             seg.capacity)
-    seg.vectors[CENTROIDS_KEY] = cents
-    seg.vectors[MEMBERS_KEY] = members
+    seg.set_replicated(CENTROIDS_KEY, cents)
+    seg.set_replicated(MEMBERS_KEY, members)
     seg.routing = RouteState(fills=fills)
 
 
@@ -318,15 +322,13 @@ def on_commit(store, seg, slots: np.ndarray) -> None:
     m = int(slots.size)
     if st is None or m == 0:
         return
-    c = seg.vectors[MEMBERS_KEY].shape[1]
-    members = seg.vectors[MEMBERS_KEY]
-    idx = torch.from_numpy(slots).to(members.device)
+    first = seg.slabs[0]
+    c = first[MEMBERS_KEY].shape[1]
     # routing source of just the new rows: gather them from every per-doc
-    # tensor, then reduce — O(m), not O(capacity)
-    sub = {kk: v[idx] for kk, v in seg.vectors.items()
-           if kk not in ROUTING_KEYS and v.ndim >= 1
-           and v.shape[0] == seg.capacity}
-    ranked = _rank(routing_source(sub), seg.vectors[CENTROIDS_KEY])
+    # tensor (across the slabs on a mesh), then reduce — O(m), not
+    # O(capacity)
+    sub = {kk: seg.take(kk, slots) for kk in first if kk not in ROUTING_KEYS}
+    ranked = _rank(routing_source(sub), first[CENTROIDS_KEY])
     ranked = ranked.cpu().numpy()
     cids = np.empty((m,), np.int64)
     pos = np.empty((m,), np.int64)
@@ -339,8 +341,13 @@ def on_commit(store, seg, slots: np.ndarray) -> None:
                 break
         else:                                  # K * C >= capacity
             raise AssertionError("no cluster with room — invariant broken")
-    members[torch.from_numpy(cids).to(members.device),
-            torch.from_numpy(pos).to(members.device)] = idx.to(torch.int32)
+    # every shard holds the same member lists: the same write on each
+    for slab in seg.slabs:
+        members = slab[MEMBERS_KEY]
+        dev = members.device
+        members[torch.from_numpy(cids).to(dev),
+                torch.from_numpy(pos).to(dev)] = torch.from_numpy(
+                    slots.astype(np.int32)).to(dev)
     st.drift += m
     maybe_recluster(store, seg)
 

@@ -235,6 +235,41 @@ def routing_arrays(vectors: dict):
     return c, vectors[MEMBERS_KEY]
 
 
+def store_shardings(mesh, store_vectors: dict) -> dict | None:
+    """Each key's layout on ``mesh`` as ``repro``'s ``PartitionSpec``
+    tuple: ``()`` (replicated) for the routing companions, whose member
+    slots index the whole store, and rows split over every mesh axis for
+    the rest (``(axes,)``, or ``(name,)`` on a one-axis mesh, as
+    ``PartitionSpec`` stores it); None without a mesh. ``split_slabs``
+    lays a store out by these specs."""
+    if mesh is None:
+        return None
+    axes = tuple(mesh.axis_names)
+    rows = (axes if len(axes) > 1 else axes[0],)
+    return {k: () if k in ROUTING_KEYS else rows for k in store_vectors}
+
+
+def split_slabs(vectors: dict, mesh, copy: bool = False) -> tuple:
+    """A store dict laid out over ``mesh`` by ``store_shardings``: one
+    dict per mesh position, in mesh order. Shard r holds rows ``[r *
+    n_local, (r + 1) * n_local)`` of every row-split tensor on the r-th
+    device, with ``n_local = N // S``; a replicated tensor goes whole to
+    every shard. ``copy`` gives every slab its own storage; a slab on the
+    tensor's own device is otherwise a view."""
+    specs = store_shardings(mesh, vectors)
+    devices = tuple(mesh.devices.flat)
+    s = len(devices)
+    n = next(v.shape[0] for k, v in vectors.items() if specs[k])
+    if n % s:
+        raise ValueError(f"{n} rows do not split over {s} shards")
+    n_local = n // s
+    return tuple(
+        {k: (v[r * n_local:(r + 1) * n_local] if specs[k] else v
+             ).to(dev, copy=copy)
+         for k, v in vectors.items()}
+        for r, dev in enumerate(devices))
+
+
 # ---------------------------------------------------------------------------
 # request-scoped filters
 # ---------------------------------------------------------------------------

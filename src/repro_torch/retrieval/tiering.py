@@ -54,8 +54,15 @@ cascade (``engine._segment_stage0``/``_segment_rerank`` through
 ``engine.make_segment_scan_fn``/``make_segment_rerank_fn``, so the same
 kernels) and folds segments with the same stable top-k merge and
 elementwise max, so its results are bit for bit
-``Retriever.search``'s. The sharded (mesh) path waits for the sharded
-engine.
+``Retriever.search``'s. On a mesh (``Retriever(mesh=...)``) a segment
+moves between the tiers slab by slab, each slab to and from its own
+mesh device, and ``search`` promotes the whole scope, then runs it as one
+joint sharded cascade (``_search_mesh``: the function
+``engine.make_segmented_search_fn`` builds for a resident search), so
+its results are bit for bit the resident mesh search's; the deadline
+path is single-device only (on a mesh the deadline is ignored). A
+snapshot holds each segment whole (its slabs gathered) with the store's
+``n_shards``; ``restore_store(mesh=...)`` places it on a mesh.
 """
 from __future__ import annotations
 
@@ -69,7 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.multistage import top_k
-from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import home_device
 from repro_torch.retrieval import engine
 from repro_torch.retrieval import faults as FLT
 from repro_torch.retrieval import routing as RT
@@ -175,20 +182,24 @@ def snapshot(store: SegmentedStore, directory: str, *,
     words are written as the uint32 words ``repro`` stores. Everything
     else — per-segment key order (``store.snapshot_entries``),
     capacities, fills, slot maps, tiers, IVF ``RouteState``, the router
-    policy, the store's scalars — rides the checkpoint meta, in
-    ``repro``'s layout. Host-tier segments persist from host memory.
+    policy, the store's scalars (``n_shards`` among them) — rides the
+    checkpoint meta, in ``repro``'s layout. Host-tier segments persist
+    from host memory. A segment on a mesh is written whole, each leaf
+    gathered from the slabs onto the host when its turn comes.
     ``step`` defaults to the store generation. ``faults`` (a
     ``faults.FaultPlan`` or ``FaultInjector``) arms the writer's crash
     and corruption emulation."""
-    leaves, seg_meta, leaf_names = [], [], []
+    def leaf(seg, k):
+        v = seg.tensor(k, "cpu")
+        return v.numpy().view(np.uint32) if k == FILTER_KEY else v
+
+    seg_meta, leaf_names, order = [], [], []
     for si, seg in enumerate(store.segments):
-        entries = snapshot_entries(seg.vectors)
-        for k, v in entries:
-            leaves.append(v.cpu().numpy().view(np.uint32)
-                          if k == FILTER_KEY else v)
-            leaf_names.append(f"seg{si}/{k}")
+        keys = [k for k, _ in snapshot_entries(seg.slabs[0])]
+        order += [(seg, k) for k in keys]
+        leaf_names += [f"seg{si}/{k}" for k in keys]
         seg_meta.append({
-            "keys": [k for k, _ in entries],
+            "keys": keys,
             "capacity": seg.capacity,
             "n_docs": seg.n_docs,
             "doc_ids": np.asarray(seg.doc_ids).tolist(),
@@ -200,7 +211,7 @@ def snapshot(store: SegmentedStore, directory: str, *,
     meta = {
         "kind": SNAPSHOT_KIND,
         "store_dtype": store.store_dtype,
-        "n_shards": 1,
+        "n_shards": store.n_shards,
         "next_id": store.next_id,
         "filter_words": store.filter_words,
         "generation": store.generation,
@@ -212,20 +223,25 @@ def snapshot(store: SegmentedStore, directory: str, *,
         "segments": seg_meta,
     }
     step = store.generation if step is None else step
-    return CKPT.save(directory, step, leaves, meta=meta, keep=keep,
-                     leaf_names=leaf_names, faults=FLT.as_injector(faults))
+    # one leaf on the host at a time: the save pulls them one by one
+    return CKPT.save(directory, step, (leaf(seg, k) for seg, k in order),
+                     meta=meta, keep=keep, leaf_names=leaf_names,
+                     faults=FLT.as_injector(faults))
 
 
-def restore_store(directory: str, *, step: int | None = None,
-                  device="cuda") -> SegmentedStore:
+def restore_store(directory: str, *, mesh=None, step: int | None = None,
+                  device=None) -> SegmentedStore:
     """Rebuild a ``SegmentedStore`` from a ``snapshot`` directory (one
     written by this package or by ``repro``), bit for bit: tensors
     through the checkpoint's bit-pattern round trip, slot maps, tenants,
-    filters, IVF companions and their ``RouteState`` from the meta. Every
-    segment comes back resident on ``device`` ("device" tier); wrap the
-    store in a ``TieredEngine`` to impose a budget again. A store sharded
-    over several devices restores onto one."""
-    dev = resolve_device(device)
+    filters, IVF companions and their ``RouteState``, and ``n_shards``
+    from the meta. Every segment comes back resident ("device" tier) on
+    ``device`` ("cuda" by default) or, with ``mesh``, placed on the mesh
+    (routing companions on every shard): restore doubles as a restart
+    onto another topology, and a store saved from a mesh restores onto
+    one device as well. Wrap the store in a
+    ``TieredEngine`` to impose a budget again."""
+    dev = home_device(mesh, device)
     if step is None:
         step = CKPT.latest_step(directory)
     ckpt_meta = CKPT.load_meta(directory, step)
@@ -235,18 +251,22 @@ def restore_store(directory: str, *, step: int | None = None,
             f"{directory} is not a store snapshot (kind={m.get('kind')!r})")
     leaves, _ = CKPT.restore(directory, step=step, device=dev)
     out = SegmentedStore([], m["store_dtype"], next_id=int(m["next_id"]),
-                         filter_words=int(m["filter_words"]))
+                         filter_words=int(m["filter_words"]),
+                         n_shards=int(m.get("n_shards", 1)))
     if m["router"] is not None:
         out.router = RT.RoutingPolicy(**m["router"])
     it = iter(leaves)
     for sm in m["segments"]:
-        seg = Segment({k: next(it) for k in sm["keys"]}, int(sm["capacity"]),
-                      int(sm["n_docs"]), np.asarray(sm["doc_ids"], np.int64))
+        seg = Segment(({k: next(it) for k in sm["keys"]},),
+                      int(sm["capacity"]), int(sm["n_docs"]),
+                      np.asarray(sm["doc_ids"], np.int64))
         if sm["routing"] is not None:
             seg.routing = RT.RouteState(
                 fills=np.asarray(sm["routing"]["fills"], np.int64),
                 drift=int(sm["routing"]["drift"]))
         out.segments.append(seg)
+    if mesh is not None:
+        out.place_on(mesh)
     out.generation = int(m["generation"])
     return out
 
@@ -303,11 +323,17 @@ class TieredEngine:
         self.retry_backoff_s = float(retry_backoff_s)
         self._faults = FLT.as_injector(faults)
         self._cuda = self.device.type == "cuda"
+        # the device of each slab of a segment, in mesh order
+        mesh = retriever.mesh
+        self._slab_devices = ((self.device,) if mesh is None
+                              else tuple(mesh.devices.flat))
         self._copy = self._compute = None
-        if self._cuda:
-            self._copy = torch.cuda.Stream(self.device)
-            self._compute = torch.cuda.current_stream(self.device)
-        self._host: dict = {}                      # seg_i -> pinned tensors
+        if self._cuda:                             # a copy stream per card
+            self._copy = {d: torch.cuda.Stream(d)
+                          for d in set(self._slab_devices)}
+            self._compute = {d: torch.cuda.current_stream(d)
+                             for d in self._copy}
+        self._host: dict = {}          # (seg_i, slab) -> pinned tensors
         self._lock = threading.RLock()
         self._lru: OrderedDict = OrderedDict()     # resident seg_i -> True
         self._resident_bytes = 0
@@ -387,43 +413,61 @@ class TieredEngine:
 
     # -- transfers -------------------------------------------------------
 
-    def _to_host(self, i: int, vecs: dict) -> dict:
-        """Segment ``i``'s tensors in host memory, bitwise. On the card:
+    def _to_host(self, i: int, slabs: tuple) -> tuple:
+        """Segment ``i``'s slabs in host memory, bitwise. On the card:
         copied into the segment's pinned buffers (allocated once, reused)
-        on the copy stream, after the compute stream's pending writes,
-        and waited for; the caller may drop the device tensors on
-        return. On the CPU the tensors themselves are the host tier."""
+        on the copy stream of each slab's device, after that device's
+        compute stream's pending writes, and waited for; the caller may
+        drop the device tensors on return. On the CPU the tensors
+        themselves are the host tier."""
         if not self._cuda:
-            return dict(vecs)
-        bufs = self._host.get(i)
-        if bufs is None:
-            bufs = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    for k, v in vecs.items()}
-            self._host[i] = bufs
-        self._copy.wait_stream(self._compute)
-        with torch.cuda.stream(self._copy):
-            for k, v in vecs.items():
-                bufs[k].copy_(v, non_blocking=True)
-        self._copy.record_event().synchronize()
-        return dict(bufs)
+            return tuple(dict(slab) for slab in slabs)
+        out, events = [], []
+        for r, slab in enumerate(slabs):
+            bufs = self._host.get((i, r))
+            if bufs is None:
+                bufs = {k: torch.empty(v.shape, dtype=v.dtype,
+                                       pin_memory=True)
+                        for k, v in slab.items()}
+                self._host[(i, r)] = bufs
+            dev = self._slab_devices[r]
+            copy = self._copy[dev]
+            copy.wait_stream(self._compute[dev])
+            with torch.cuda.stream(copy):
+                for k, v in slab.items():
+                    bufs[k].copy_(v, non_blocking=True)
+            events.append(copy.record_event())
+            out.append(dict(bufs))
+        for e in events:
+            e.synchronize()
+        return tuple(out)
 
-    def _to_device_tier(self, vecs: dict) -> dict:
-        """Fresh device tensors holding ``vecs`` (host tier) bitwise. On
-        the card: allocated and filled on the copy stream, waited for,
-        and marked in use by the compute stream (``record_stream``) so
-        the allocator reuses none of them before the compute stream's
-        work queued at their free has finished. On the CPU a clone."""
+    def _to_device_tier(self, slabs: tuple) -> tuple:
+        """Fresh device tensors holding ``slabs`` (host tier; each slab
+        going to its mesh device) bitwise. On the card: allocated and
+        filled on the device's copy stream, waited for, and marked in use
+        by its compute stream (``record_stream``) so the allocator reuses
+        none of them before the compute stream's work queued at their
+        free has finished. On the CPU a clone."""
         if not self._cuda:
-            return {k: v.clone() for k, v in vecs.items()}
-        with torch.cuda.stream(self._copy):
-            dev = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                   for k, v in vecs.items()}
-            for k, v in vecs.items():
-                dev[k].copy_(v, non_blocking=True)
-        self._copy.record_event().synchronize()
-        for t in dev.values():
-            t.record_stream(self._compute)
-        return dev
+            return tuple({k: v.clone() for k, v in slab.items()}
+                         for slab in slabs)
+        out, events = [], []
+        for r, slab in enumerate(slabs):
+            d = self._slab_devices[r]
+            with torch.cuda.stream(self._copy[d]):
+                dev = {k: torch.empty(v.shape, dtype=v.dtype, device=d)
+                       for k, v in slab.items()}
+                for k, v in slab.items():
+                    dev[k].copy_(v, non_blocking=True)
+            events.append(self._copy[d].record_event())
+            out.append(dev)
+        for e in events:
+            e.synchronize()
+        for r, dev in enumerate(out):
+            for t in dev.values():
+                t.record_stream(self._compute[self._slab_devices[r]])
+        return tuple(out)
 
     def _pace(self, n_bytes: int, t0: float) -> None:
         """Emulated-link pacing: hold this thread until the transfer has
@@ -448,7 +492,7 @@ class TieredEngine:
                 t0 = time.monotonic()
                 if self._faults is not None:
                     self._faults.fire("d2h")
-                host = self._to_host(i, seg.vectors)
+                host = self._to_host(i, seg.slabs)
                 self._pace(seg.nbytes, t0)
             except FLT.TransientTransferError as e:
                 last = e
@@ -526,7 +570,7 @@ class TieredEngine:
                 t0 = time.monotonic()
                 if self._faults is not None:
                     self._faults.fire("h2d")
-                dev = self._to_device_tier(seg.vectors)
+                dev = self._to_device_tier(seg.slabs)
                 self._pace(need, t0)
             except (FLT.TransientTransferError, FLT.DeviceOOM) as e:
                 last = e
@@ -759,7 +803,9 @@ class TieredEngine:
         engine degrades per ``degrade`` (default ``DegradePolicy()``)
         instead of blocking — cold segments are skipped and the result
         comes back ``degraded=True`` with the skip count (a non-degraded
-        result is ALWAYS the resident search's answer)."""
+        result is ALWAYS the resident search's answer). On a mesh the
+        scope runs as one joint sharded cascade (``_search_mesh``) and
+        the deadline is ignored."""
         t_entry = time.monotonic()
         store = self.store
         stages = tuple(stages)
@@ -775,8 +821,11 @@ class TieredEngine:
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
         fspec = as_filter_arrays(
-            filter, filter_words(store.segments[scope[0]].vectors),
+            filter, filter_words(store.segments[scope[0]].slabs[0]),
             self.device)
+        if self.r.mesh is not None:
+            return self._search_mesh(q, q_mask, stages, scope, fspec,
+                                     overlap)
         if deadline_ms:
             return self._search_degraded(
                 q, q_mask, stages, scope, fspec,
@@ -910,6 +959,39 @@ class TieredEngine:
         return TieredResult(*self._translate(scores, cand),
                             degraded=degraded,
                             skipped_segments=len(skipped))
+
+    def _search_mesh(self, q, q_mask, stages, scope, fspec,
+                     overlap: bool) -> TieredResult:
+        """Mesh path: promote the scope (with ``overlap`` the worker's
+        transfers overlap each other; per-segment pipelining of compute
+        is the single-device path's), then run the scope as one joint
+        sharded cascade — the function a resident search over those
+        segments runs. Slot ids are scope-local (offsets over the scope's
+        capacities) and translate through the scope's slot maps."""
+        if overlap:
+            self.prefetch(scope)
+        for si in scope:
+            self._acquire(si, overlap)
+        try:
+            segs = [self.store.segments[si] for si in scope]
+            layout = self.store.layout_key()
+            key = ("mesh", stages, tuple(layout[si] for si in scope))
+            fn = self._fns.get(key)
+            if fn is None:
+                fn = engine.make_segmented_search_fn(
+                    stages, tuple(seg.capacity for seg in segs), self.r.mesh)
+                self._fns[key] = fn
+            scores, slots = fn(tuple(seg.slabs for seg in segs), q, q_mask,
+                               fspec)
+        finally:
+            for si in scope:
+                self._release(si)
+        table = np.concatenate([seg.doc_ids for seg in segs])
+        slots = slots.cpu().numpy()
+        ids = np.where(slots >= 0, table[np.clip(slots, 0, len(table) - 1)],
+                       np.int64(-1))
+        filler = (scores <= engine.NEG / 2).cpu().numpy()
+        return TieredResult(scores, np.where(filler, np.int64(-1), ids))
 
     def _translate(self, scores, cand) -> tuple:
         """Slot ids -> stable page ids with the retriever's NEG-filler

@@ -1,9 +1,17 @@
-"""Top-k selection with ids: local select and score/id merge."""
+"""Top-k selection with ids: local select, score/id merge, and the mesh's
+gathered merge (never moves a document, only (score, id) pairs).
+
+On a mesh (``launch.mesh``) the per-shard results are lists in mesh
+order, one tensor per shard on that shard's device; ``all_gather``
+concatenates them along the last axis on the gather device, shard 0
+first, as ``jax.lax.all_gather(..., tiled=True)`` does."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.multistage import top_k
+
+NEG = -1e30
 
 
 def local_topk_with_ids(scores: torch.Tensor, k: int, id_offset) -> tuple:
@@ -19,3 +27,42 @@ def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int) -> tuple:
     k = min(k, vals.shape[-1])
     v, sel = top_k(vals, k)
     return v, torch.gather(ids, -1, sel)
+
+
+def all_gather(parts: list, device=None) -> torch.Tensor:
+    """Per-shard tensors [B, m] in mesh order -> [B, S * m] on ``device``
+    (default: shard 0's), shard 0 first."""
+    device = parts[0].device if device is None else device
+    return torch.cat([p.to(device) for p in parts], dim=-1)
+
+
+def gathered_merge_topk(vals: list, global_ids: list, k: int,
+                        device=None) -> tuple:
+    """Gather the shards' (vals, GLOBAL ids) [B, k'] winner lists in mesh
+    order onto ``device`` and merge them to the top-k. Traffic: S * B * k'
+    scores and ids, never the documents. The merge half of
+    ``allgather_topk``, used directly by the streamed scan top-k path
+    (whose local select already happened chunk by chunk)."""
+    return merge_topk(all_gather(vals, device), all_gather(global_ids, device),
+                      k)
+
+
+def allgather_topk(scores_local: list, k: int, n_local: int,
+                   valid_local: list | None = None, seg_offset: int = 0,
+                   device=None) -> tuple:
+    """Per-shard top-k, then the gathered merge: ``scores_local`` holds
+    shard r's [B, n_local] scores at position r; returns (vals, global
+    ids) [B, k] on ``device``.
+
+    ``valid_local`` (one [n_local] bool per shard, or None) NEGs dead and
+    padding slots before the local select (the tail of a ragged shard and
+    deleted documents must never win on merit). Shard r's local slot j is
+    global slot ``r * n_local + j + seg_offset``."""
+    vs, gis = [], []
+    for r, s in enumerate(scores_local):
+        if valid_local is not None and valid_local[r] is not None:
+            s = s.masked_fill(~valid_local[r][None, :], NEG)
+        v, gi = local_topk_with_ids(s, k, r * n_local + seg_offset)
+        vs.append(v)
+        gis.append(gi)
+    return gathered_merge_topk(vs, gis, k, device)

@@ -5,7 +5,10 @@ Gradients are quantised to int8 with one float32 scale per tensor, and the
 quantisation residual is carried into the next step (error feedback keeps
 the method unbiased over time). Gradients and residuals are dicts keyed
 by parameter name. The compressed all-reduce (``repro``'s
-``psum_compressed``) belongs to the sharded engine and is not ported yet.
+``psum_compressed``) is not ported yet: it waits for the training
+collectives, which have to decide between the single-controller mesh the
+retrieval path uses (``launch.mesh``) and ``torch.distributed`` process
+groups.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@
 Deterministic per-step data assignment (any host can recompute any shard's
 batch from ``(run, step, shard)``) and a step-time watchdog that flags slow
 steps. ``repro``'s ``remesh`` and ``reshard_tree`` rebuild a device mesh
-and re-place the train state on it; they belong to the sharded engine and
-are not ported yet.
+and re-place the train state on it; they wait for the training
+collectives' slice, with ``training.compression``'s all-reduce.
 """
 from __future__ import annotations
 

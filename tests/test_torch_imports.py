@@ -45,8 +45,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 def test_encoder_and_training_modules_are_checked():
     """The AST rule above covers the encoder, the training modules, the
-    recsys and GNN families, the cells and the training example (the glob
-    reaches every new file)."""
+    recsys and GNN families, the cells, the mesh and the sharding policy,
+    and the training example (the glob reaches every new file)."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("src/repro_torch/models/late_interaction.py",
                 "src/repro_torch/training/optimizer.py",
@@ -61,6 +61,8 @@ def test_encoder_and_training_modules_are_checked():
                 "src/repro_torch/models/gnn/sampler.py",
                 "src/repro_torch/models/gnn/equiformer_v2.py",
                 "src/repro_torch/launch/cells.py",
+                "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/distributed/sharding.py",
                 "examples/train_retriever_torch.py"):
         assert rel in checked, rel
         assert not [m for _, m in _imported_modules(ROOT / rel)

@@ -1,6 +1,6 @@
 """Tiered segment residency and snapshot/restore in the port, mirroring
 8 of the 9 tests of ``tests/test_tiering.py`` (the ninth, the multi-shard
-subprocess test, waits for the sharded engine).
+subprocess test, is mirrored in ``tests/test_torch_mesh_retrieval.py``).
 
 - **residency is invisible**: a ``TieredEngine`` search under any budget
   (evictions, promotions mid-search, prefetch on or off, int8 stores,
