@@ -300,6 +300,38 @@ line) at the first phase that goes wrong:
             runs must launch the scan, rerank, pool, db scan, int8 scan,
             int8 rerank and ``ivf_route`` kernels, and their launches
             join the kernels line;
+4q. shard  the sharded model bodies (``distributed.shard_map``: one
+            thread per mesh position, collectives as joint autograd
+            nodes) on 4 positions of this one card, after 4k: (a) bodies
+            around psum (one and both axes of (2, 2)), all_gather (tiled,
+            stacked), all_to_all (rows, columns), a checkpointed
+            all_to_all replayed in the backward and an unreduced value
+            under P(): values and input gradients on ``["cuda:0"] * 4``
+            equal ``["cpu"] * 4`` bit for bit; (b) EquiformerV2's vertex
+            cut at S = 4 and minibatch cell at dp = tp = 2
+            (``cells.vertex_cut_loss``, ``cells.minibatch_loss``): at the
+            CPU tests' size in f32 with remat on, loss (rtol 1e-5) and
+            every gradient (rtol 1e-3, atol 1e-6) against the CPU mesh;
+            at full width (bf16 messages) on full_graph_sm's sizes (2708
+            nodes, 10556 edges), ms/step, peak memory and the all_to_all
+            bytes a layer, losses finite; (c) granite-moe-1b-a400m with
+            ``ragged_ep`` over (1, 4): 2 full-width layers in f32 against
+            the CPU mesh (loss rtol 1e-5, gradients rtol 1e-3, atol
+            1e-6), all 24 layers at 4l (d)'s batch: ms/step beside 4l
+            (d)'s ragged step, the share of dropped assignments, and the
+            loss equal to ``moe_ragged``'s within rtol 1e-5 where none
+            was dropped; (d) dlrm-mlperf's capped table (12.82 GB) in 4
+            row slabs: ``lookup_shardmap`` == ``lookup`` bit for bit at
+            batch 65536, ms of each; (e) dcn-v2's 2-stage search over
+            10^6 candidates with the two-level top-k at S = 4: ids equal
+            the one-level ids apart from ties within 1e-5, ms of each;
+            (f) ``psum_compressed`` over (4,) on EquiformerV2's gradient
+            tree: bit for bit the CPU mesh, GB/s; (g) granite-moe's
+            ``param_specs`` resolved at (2, 2), resharded onto (1, 4)
+            with ``reshard_tree`` and restored from a checkpoint with
+            ``shardings=``: every slab equals its slice bit for bit.
+            Nothing here launches a hand-written kernel (the bodies are
+            ``repro``'s einsum, take and segment work);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -5167,6 +5199,561 @@ def cells_summary(ce: dict) -> str:
 # phase 5: times
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 4q. the sharded model bodies (shard_map on one card)
+# ---------------------------------------------------------------------------
+
+SHARD_SIZES = dict(gnn_timed=1, moe_batch=(4, 256), moe_timed=2,
+                   dlrm_batch=65536, n_cand=1_000_000, timed=3)
+
+
+def shard_meshes(shape: tuple, axes: tuple) -> tuple:
+    """(the card's mesh, the CPU's) of ``shape``: 4 positions on
+    ``cuda:0``, and 4 on the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    n = int(np.prod(shape))
+    return (make_mesh(shape, axes, devices=["cuda:0"] * n),
+            make_mesh(shape, axes, devices=["cpu"] * n))
+
+
+def mixed_mesh(shape: tuple, axes: tuple):
+    """A mesh of ``shape`` whose positions alternate between ``cuda:0``
+    and the CPU: positions on another device than the model's, as on a
+    mesh of separate cards."""
+    from repro_torch.launch.mesh import make_mesh
+    n = int(np.prod(shape))
+    return make_mesh(shape, axes, devices=["cuda:0", "cpu"] * (n // 2))
+
+
+def same_bits(got, want, what: str) -> None:
+    got = got.detach().cpu()
+    want = want.detach().cpu()
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.equal(got, want)),
+          f"{what}: the card's result != the CPU mesh's bit for bit "
+          f"(max abs err {float((got.double() - want.double()).abs().max()):.3e})")
+
+
+def close(got, want, rtol: float, atol: float, what: str) -> float:
+    got, want = got.detach().cpu(), want.detach().cpu()
+    try:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    except AssertionError as e:
+        fail(f"{what}: card != CPU (rtol {rtol}, atol {atol}): {e}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def cos_weight(shape) -> torch.Tensor:
+    n = int(np.prod(shape))
+    return torch.cos(torch.arange(n, dtype=torch.float32) * 0.7 + 0.3
+                     ).reshape(shape)
+
+
+def shard_collectives(args) -> dict:
+    """(a) bodies of elementwise work around every collective on a (2, 2)
+    mesh: the card's values and input gradients equal the CPU mesh's bit
+    for bit (sums in mesh order; the weighted-sum cotangent is exact)."""
+    from repro_torch.distributed import shard_map as SM
+    P, BOTH = SM.P, ("data", "model")
+
+    def remat(b):
+        return SM.checkpoint(lambda z: SM.all_to_all(
+            z * z, BOTH, 0, 0, tiled=True) * z, b)
+    cases = {
+        "psum over data": (P(BOTH), P(BOTH), lambda b: SM.psum(
+            b * b, "data") * (1 + SM.axis_index("model"))),
+        "psum over both": (P(BOTH), P(BOTH), lambda b: SM.psum(b * b, BOTH)),
+        "all_gather tiled": (P(BOTH), P(BOTH), lambda b: SM.all_gather(
+            b, "model", axis=0, tiled=True) * (1 + SM.axis_index(BOTH))),
+        "all_gather stacked": (P(BOTH), P(BOTH), lambda b: SM.all_gather(
+            b * b, BOTH, axis=0)),
+        "all_to_all rows": (P(BOTH), P(BOTH), lambda b: SM.all_to_all(
+            b * (1 + SM.axis_index(BOTH)), BOTH, 0, 0, tiled=True)),
+        "all_to_all cols": (P("data", "model"), P("data", "model"),
+                            lambda b: SM.all_to_all(b * b, "model", 1, 0,
+                                                    tiled=True)),
+        "checkpoint replay": (P(BOTH), P(BOTH), remat),
+        "unreduced under P()": (P(BOTH), P(), lambda b: b * b),
+    }
+    meshes = shard_meshes((2, 2), BOTH)
+    x0 = torch.randn((16, 8), generator=torch.Generator().manual_seed(
+        args.seed))
+    for name, (ins, outs, body) in cases.items():
+        got = []
+        for mesh in meshes:
+            x = x0.to(mesh.devices.flat[0]).clone().requires_grad_(True)
+            y = SM.shard_map(body, mesh, ins, outs)(x)
+            (y * cos_weight(tuple(y.shape)).to(y.device)).sum().backward()
+            got.append((y, x.grad))
+        same_bits(got[0][0], got[1][0], f"(a) {name} value")
+        same_bits(got[0][1], got[1][1], f"(a) {name} gradient")
+    log(f"[shard] (a) {len(cases)} bodies on (2, 2) (psum over one and both "
+        "axes, all_gather tiled and stacked, all_to_all over rows and "
+        "columns, a checkpointed all_to_all replayed in the backward, an "
+        "unreduced value under P()): values and gradients on "
+        "[\"cuda:0\"] * 4 == [\"cpu\"] * 4 bit for bit")
+    return dict(n=len(cases))
+
+
+def gnn_sharded_batch(src, dst, n: int, S: int, cap: int, f: int, n_cls: int,
+                      gen, lead: int = 0) -> dict:
+    """Node arrays and ``partition_edges``' buckets of one graph at S
+    shards, on the host; ``lead`` > 0 stacks that many copies as the
+    minibatch cell's dp subgraphs."""
+    from repro_torch.models.gnn.graph import partition_edges
+    part = partition_edges(src, dst, n, S, cap=cap)
+    b = {"feat": torch.randn((n, f), generator=gen),
+         "pos": torch.rand((n, 3), generator=gen) * 4 - 2,
+         "labels": torch.randint(0, n_cls, (n,), generator=gen),
+         "lmask": torch.rand((n,), generator=gen) > 0.1,
+         **{k: torch.from_numpy(part[k]) for k in (
+             "esrc", "edstg", "emask", "rdst", "rsrcg", "rmask")}}
+    if lead:
+        b = {k: v.expand((lead,) + tuple(v.shape)).contiguous()
+             for k, v in b.items()}
+    return b, part["dropped"]
+
+
+def gnn_losses(cfg, S_vc: int, n: int, tp: int):
+    """(vertex-cut loss over (2, 2), minibatch loss at dp = tp = 2) for a
+    mesh: ``launch/cells.py``'s bodies."""
+    from repro_torch.launch import cells as TC
+    return (lambda mesh: TC.vertex_cut_loss(cfg, mesh, n // S_vc,
+                                            ("data", "model")),
+            lambda mesh: TC.minibatch_loss(cfg, mesh, n // tp, ("data",),
+                                           ("model",)))
+
+
+def shard_gnn(args, dev) -> dict:
+    """(b) EquiformerV2's vertex cut at S = 4 and minibatch cell at dp = tp
+    = 2: at the CPU tests' size in f32 (remat on), loss and every gradient
+    on the card, and on a mesh alternating the card and the CPU (the
+    model on the card), against the CPU mesh; at full width (bf16
+    messages) on ``full_graph_sm``'s graph, 1 warm-up and
+    ``SHARD_SIZES["gnn_timed"]`` timed train steps each."""
+    import copy
+    from repro_torch.distributed import shard_map as SM
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    res = {}
+    gen = torch.Generator().manual_seed(args.seed)
+    card, cpu = shard_meshes((2, 2), ("data", "model"))
+    # reduced, f32: card vs CPU
+    cfg = gnn_reduced(remat=True)
+    n, e, f = 64, 256, 10
+    src = torch.randint(0, n, (e,), generator=gen).numpy()
+    dst = torch.randint(0, n, (e,), generator=gen).numpy()
+    vc_loss, mb_loss = gnn_losses(cfg, 4, n, 2)
+    b_vc, drop_vc = gnn_sharded_batch(src, dst, n, 4, None, f, 5, gen)
+    b_mb, drop_mb = gnn_sharded_batch(src, dst, n, 2, None, f, 5, gen, 2)
+    check(drop_vc == drop_mb == 0, "(b) the reduced graph dropped edges")
+    ref = E.init_params(cfg, f, 5, torch.Generator().manual_seed(args.seed),
+                        "cpu")
+    worst = {}
+    mixed = mixed_mesh((2, 2), ("data", "model"))
+    for name, make, b in (("vertex cut S=4", vc_loss, b_vc),
+                          ("minibatch dp=tp=2", mb_loss, b_mb)):
+        out = []
+        for mesh in (cpu, card, mixed):
+            d = mesh.devices.flat[0]
+            m = copy.deepcopy(ref).to(d)
+            loss = make(mesh)(m, {k: v.to(d) for k, v in b.items()})
+            loss.backward()
+            out.append((loss.item(), {k: p.grad for k, p in
+                                      m.named_parameters()}))
+        (lc, gc) = out[0]
+        for (lg, gg), where in zip(out[1:], ("card", "card + CPU")):
+            check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+                  f"(b) {name}: {where} loss {lg!r} != CPU {lc!r} "
+                  "(rtol 1e-5)")
+            err = max(close(gg[k], gc[k], 1e-3, 1e-6,
+                            f"(b) {name} {where} grad {k}") for k in gc)
+            worst[f"{name} {where}"] = err
+            log(f"[shard] (b) {name} on {where} "
+                f"{[str(x) for x in (card if where == 'card' else mixed).devices.flat]}, "
+                f"the CPU tests' size (2 layers, d 16, f32, remat on), {n} "
+                f"nodes, {e} edges: loss {lg:.7f} vs CPU mesh {lc:.7f} "
+                f"(rtol 1e-5); {len(gc)} grad tensors within rtol 1e-3, "
+                f"atol 1e-6, max abs err {err:.2e}")
+    # full width, bf16 messages, on full_graph_sm's graph
+    cfg = gnn_config("base")
+    n, e, f, n_cls = 2708, 10556, 1433, GNN_SIZES["sm_classes"]
+    src = torch.randint(0, n, (e,), generator=gen).numpy()
+    dst = torch.randint(0, n, (e,), generator=gen).numpy()
+    vc_loss, mb_loss = gnn_losses(cfg, 4, n, 2)
+    oc = OPT.OptConfig()
+    flops, _ = gnn_flops(cfg, e)
+    for name, make, S, cap_rule, lead in (
+            ("vertex cut S=4", vc_loss, 4, 1.25, 0),
+            ("minibatch dp=tp=2", mb_loss, 2, 2.0, 2)):
+        cap = max(8, int(np.ceil(e / (S * S) * cap_rule / 8)) * 8)
+        b, dropped = gnn_sharded_batch(src, dst, n, S, cap, f, n_cls, gen,
+                                       lead)
+        b = {k: v.to(dev) for k, v in b.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = E.init_params(cfg, f, n_cls, torch.Generator(
+            device=dev).manual_seed(args.seed), dev)
+        params = dict(model.named_parameters())
+        labels = OPT.default_labels(params)
+        opt = OPT.init_opt_state(params, labels)
+        loss_fn = make(card)
+        step = make_train_step(loss_fn, oc, labels=labels)
+        SM.TRAFFIC.update(all_to_all=0, psum=0)
+        with torch.no_grad():
+            loss_fn(model, b)
+        a2a = SM.TRAFFIC["all_to_all"]
+        times, losses = [], []
+        for i in range(1 + SHARD_SIZES["gnn_timed"]):
+            m, ms = event_ms(lambda: step(model, opt, b))
+            losses.append(float(m["loss"]))
+            if i:
+                times.append(ms)
+        check(all(np.isfinite(losses)), f"(b) {name} full width: non-finite "
+              f"loss {losses}")
+        ms = statistics.median(times)
+        mult = lead or 1
+        res[name] = dict(ms=ms, peak_gb=torch.cuda.max_memory_allocated()
+                         / 1e9, a2a_layer_mb=a2a / cfg.n_layers / 1e6,
+                         cap=cap, dropped=dropped, losses=losses)
+        log(f"[shard] (b) {name}, full width ({sum(p.numel() for p in params.values()) / 1e6:.2f}M "
+            f"params, bf16 messages, remat on), full_graph_sm's graph "
+            f"({n} nodes, {e} edges{', one copy per dp position' if lead else ''}), cap "
+            f"{cap}, {dropped} edges dropped: {ms:.1f} ms/step (median of "
+            f"{len(times)}, CUDA events; {mult * flops / ms / 1e9:.2f} TFLOP/s "
+            f"by cells.py's _gnn_flops), peak {res[name]['peak_gb']:.2f} GB, "
+            f"all_to_all {res[name]['a2a_layer_mb']:.2f} MB a layer between "
+            f"positions (forward), losses {losses}")
+        del model, opt, step, b, params
+    res["worst"] = worst
+    return res
+
+
+def shard_moe(args, dev, lm) -> dict:
+    """(c) granite-moe-1b-a400m at full width with ``ragged_ep`` over tp =
+    4: 2 layers in f32 at 4l (d)'s batch, layer 0's router skewed so that
+    pairs are dropped, on the card against the CPU mesh (loss, every
+    gradient, the assignments kept and dropped); all 24
+    layers in f32 at that batch: a train step timed beside 4l (d)'s
+    one-device ragged step, the share of dropped assignments, and the
+    loss against ``moe_ragged``'s."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch import train as TR
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training.train_loop import make_train_step
+
+    base = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                               dtype="float32")
+    ep = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl="ragged_ep"))
+    card, cpu = shard_meshes((1, 4), ("data", "model"))
+    two = dataclasses.replace(ep, n_layers=2)
+    ref = T.init_params(two, torch.Generator().manual_seed(args.seed), "cpu")
+    # a skewed router, as the CPU tests use: every token's residual stream
+    # leans along u and layer 0's expert 0 reads u, so that expert's owner
+    # fills past capacity and the comparison covers the dropped pairs
+    u = torch.randn((two.d_model,), generator=torch.Generator().manual_seed(
+        args.seed + 1))
+    with torch.no_grad():
+        ref.embed += 3.0 * u / u.norm()
+        ref.layers[0].ffn["router"][:, 0] = 8.0 * u / u.norm()
+    B, S = SHARD_SIZES["moe_batch"]
+    b = TR.make_batch(two, args.seed, 0, B, S, "cpu")
+    out = []
+    for mesh in (cpu, card):
+        d = mesh.devices.flat[0]
+        m = copy.deepcopy(ref).to(d)
+        L.EP_STATS.update(assigned=0, kept=0)
+        loss = T.loss_fn(m, {k: v.to(d) for k, v in b.items()},
+                         ShardingPolicy(mesh))
+        counts = dict(L.EP_STATS)
+        loss.backward()
+        out.append((loss.item(), {k: p.grad for k, p in
+                                  m.named_parameters()}, counts))
+    (lc, gc, nc), (lg, gg, ng) = out
+    check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+          f"(c) 2 layers: card loss {lg!r} != CPU mesh {lc!r} (rtol 1e-5)")
+    check(ng == nc, f"(c) 2 layers: the card kept {ng}, the CPU mesh {nc}")
+    check(ng["kept"] < ng["assigned"], "(c) 2 layers: nothing was dropped, "
+          "so the capacity path went unchecked")
+    worst = max(close(gg[k], gc[k], 1e-3, 1e-6, f"(c) grad {k}") for k in gc)
+    drop2 = 1 - ng["kept"] / ng["assigned"]
+    log(f"[shard] (c) {base.name} ragged_ep over tp=4, 2 layers at full "
+        f"width (d {base.d_model}, {base.moe.n_experts} experts top "
+        f"{base.moe.top_k}), f32, batch {B} x {S}: loss {lg:.7f} vs CPU mesh "
+        f"{lc:.7f} (rtol 1e-5); {len(gc)} grad tensors within rtol 1e-3, "
+        f"atol 1e-6, max abs err {worst:.2e}; {ng['assigned'] - ng['kept']} "
+        f"of {ng['assigned']} owned assignments dropped past capacity "
+        f"({100 * drop2:.3f}%; layer 0's router skewed), the same on both")
+    del ref, out, gc, gg
+    # all 24 layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(ep, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    B, S = SHARD_SIZES["moe_batch"]
+    b = TR.make_batch(ep, args.seed, 0, B, S, dev)
+    pol = ShardingPolicy(card)
+    L.EP_STATS.update(assigned=0, kept=0)
+    with torch.no_grad():
+        loss_ep = float(T.loss_fn(model, b, pol))
+        kept, assigned = L.EP_STATS["kept"], L.EP_STATS["assigned"]
+        model.cfg = dataclasses.replace(ep, moe=dataclasses.replace(
+            ep.moe, impl="ragged"))
+        loss_rg = float(T.loss_fn(model, b))
+        model.cfg = ep
+    dropped = 1 - kept / assigned
+    rel = abs(loss_ep - loss_rg) / abs(loss_rg)
+    check(np.isfinite(loss_ep), "(c) full width: non-finite loss")
+    if kept == assigned:
+        check(rel <= 1e-5, f"(c) nothing dropped, yet the ragged_ep loss "
+              f"{loss_ep!r} != moe_ragged's {loss_rg!r} (rtol 1e-5)")
+    params = dict(model.named_parameters())
+    labels = OPT.default_labels(params)
+    opt = OPT.init_opt_state(params, labels)
+    oc = OPT.OptConfig(lr=3e-4, warmup=10, total_steps=50)
+    step = make_train_step(lambda m, bb: T.loss_fn(m, bb, pol), oc,
+                           labels=labels)
+    times = []
+    for i in range(1 + SHARD_SIZES["moe_timed"]):
+        mt, ms = event_ms(lambda: step(model, opt, b))
+        check(np.isfinite(float(mt["loss"])), "(c) non-finite train loss")
+        if i:
+            times.append(ms)
+    ms = statistics.median(times)
+    one = lm["d"]["ragged_ms"]
+    log(f"[shard] (c) {base.name}, {base.n_layers} layers, f32, batch {B} x "
+        f"{S}, ragged_ep over (1, 4) on one card: {ms:.1f} ms/step (median "
+        f"of {len(times)}; 4l (d)'s one-device ragged step {one:.1f} ms, "
+        f"ratio {ms / one:.2f}); {assigned - kept} of {assigned} owned "
+        f"assignments dropped past capacity ({100 * dropped:.3f}%); loss "
+        f"{loss_ep:.7f} vs moe_ragged {loss_rg:.7f} (rel err {rel:.2e}"
+        + (", rtol 1e-5 held: none dropped)" if kept == assigned else
+           ", not held to 1e-5: some were dropped)")
+        + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, opt, step, params
+    return dict(ms=ms, one_ms=one, dropped=dropped, loss_rel=rel,
+                grad_abs=worst, dropped_2l=drop2)
+
+
+def shard_dlrm(args, dev) -> dict:
+    """(d) dlrm-mlperf's capped table row-sharded over 4 positions:
+    ``lookup_shardmap`` against ``lookup`` bit for bit at batch 65536."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.models.recsys import embedding as EMB
+    from repro_torch.models.recsys import nets as R
+
+    cfg = recsys_config("dlrm-mlperf")
+    card, _ = shard_meshes((1, 4), ("data", "model"))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    layout = R.layout_of(cfg)
+    check(bool(layout.big_fields), "(d) dlrm-mlperf has no row-sharded field")
+    emb = EMB.init_embedding(layout, gen, dev, n_shards=4)
+    idx = recsys_batch(cfg, SHARD_SIZES["dlrm_batch"], dev, gen,
+                       "query")["sparse"]
+    pol = ShardingPolicy(card)
+    with torch.no_grad():
+        whole = EMB.lookup(emb, idx)
+        sharded = EMB.lookup_shardmap(emb, idx, pol)
+        check(bool(torch.equal(whole, sharded)), "(d) lookup_shardmap != "
+              "lookup bit for bit")
+        t_one = time_ms(lambda: EMB.lookup(emb, idx), iters=3)
+        t_sh = time_ms(lambda: EMB.lookup_shardmap(emb, idx, pol), iters=3)
+    gb = sum(t.numel() * t.element_size() for t in emb.parameters()) / 1e9
+    log(f"[shard] (d) dlrm-mlperf, {len(cfg.vocab_sizes)} fields capped at "
+        f"{RECSYS_ROW_CAP} rows ({gb:.2f} GB; big table "
+        f"{tuple(emb.big.shape)} over 4 row slabs), batch "
+        f"{SHARD_SIZES['dlrm_batch']}: lookup_shardmap == lookup bit for "
+        f"bit; {t_sh:.3f} ms sharded vs {t_one:.3f} ms whole (median of 3, "
+        "CUDA events)")
+    del emb, whole, sharded
+    return dict(ms=t_sh, one_ms=t_one)
+
+
+def shard_retrieval(args, dev) -> dict:
+    """(e) dcn-v2's 2-stage candidate search over 10^6 candidates with the
+    two-level top-k at S = 4 against the one-level search."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.models.recsys import nets as R
+
+    cfg = recsys_config("dcn-v2")
+    card, _ = shard_meshes((2, 2), ("data", "model"))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = R.init_params(cfg, gen, dev)
+    N = SHARD_SIZES["n_cand"]
+    q = recsys_batch(cfg, 1, dev, gen, "query")
+    batch = dict(q, candidates=torch.randint(
+        0, cfg.vocab_sizes[R._item_field(cfg)], (N,), generator=gen,
+        device=dev))
+    pol = ShardingPolicy(card)
+    res = {}
+    for name, kw in (("one-level", {}), ("two-level S=4", dict(
+            two_level_topk=True, shard=pol))):
+        R.retrieval_step(cfg, model, batch, stages=2, **kw)
+        times = []
+        for _ in range(SHARD_SIZES["timed"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, i = R.retrieval_step(cfg, model, batch, stages=2, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[name] = dict(ms=statistics.median(times), ids=i, scores=s)
+    a, b2 = res["one-level"], res["two-level S=4"]
+    sw = 0
+    for j in np.flatnonzero((a["ids"] != b2["ids"]).cpu().numpy()):
+        sc = a["scores"].cpu().numpy()
+        near = [abs(sc[j] - sc[jj]) <= 1e-5 for jj in (j - 1, j + 1)
+                if 0 <= jj < len(sc)]
+        check(any(near), f"(e) two-level id at rank {j} differs without a "
+              "tie within 1e-5")
+        sw += 1
+    log(f"[shard] (e) dcn-v2 2-stage (256 -> 100) over {N} candidates: "
+        f"two-level top-k at S=4 ids == one-level ids ({sw} differ at ties "
+        f"within 1e-5); {b2['ms']:.2f} ms vs {a['ms']:.2f} ms one-level "
+        "(median of 3, host clock)")
+    del model
+    return dict(ms=b2["ms"], one_ms=a["ms"], swaps=sw)
+
+
+def shard_compressed(args, dev) -> dict:
+    """(f) ``psum_compressed`` on a dp = 4 mesh over one full-width
+    gradient tree (EquiformerV2's, 107.66M params a position), timed on
+    the card: its averages and residuals of every leaf kind (the leaves
+    outside the layers and those of layer 0; each leaf is compressed on
+    its own) equal the CPU mesh's bit for bit."""
+    from repro_torch.distributed import shard_map as SM
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.training import compression as C
+
+    with torch.device("meta"):
+        shapes = {k: tuple(p.shape) for k, p in E.init_params(
+            gnn_config("base"), 1433, 47, None, "meta").named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    g = {k: torch.randn((4,) + s, generator=gen, device=dev) for k, s in
+         shapes.items()}
+    r = {k: torch.randn((4,) + s, generator=gen, device=dev) * 1e-3
+         for k, s in shapes.items()}
+    keys = list(shapes)
+    kinds = [k for k in keys if not k.startswith("layers.")
+             or k.startswith("layers.0.")]
+
+    def body(g, r):
+        avg, rs = C.psum_compressed({k: v[0] for k, v in g.items()},
+                                    {k: v[0] for k, v in r.items()}, "data")
+        return ({k: v[None] for k, v in avg.items()},
+                {k: v[None] for k, v in rs.items()})
+    card, cpu = shard_meshes((4,), ("data",))
+    spec = (SM.P("data"), SM.P("data"))
+    f = SM.shard_map(body, card, spec, SM.P("data"))
+    f(g, r)
+    times = []
+    for _ in range(SHARD_SIZES["timed"]):
+        (avg_g, rs_g), t = event_ms(lambda: f(g, r))
+        times.append(t)
+    ms = statistics.median(times)
+    avg_c, rs_c = SM.shard_map(body, cpu, spec, SM.P("data"))(
+        {k: g[k].cpu() for k in kinds}, {k: r[k].cpu() for k in kinds})
+    del g, r
+    for k in kinds:
+        same_bits(avg_g[k], avg_c[k], f"(f) average {k}")
+        same_bits(rs_g[k], rs_c[k], f"(f) residual {k}")
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    gb = 4 * n * 4 / 1e9
+    log(f"[shard] (f) psum_compressed over (4,) (dp = 4), EquiformerV2's "
+        f"gradient tree ({len(keys)} leaves, {n / 1e6:.2f}M params a "
+        f"position, f32): averages and residuals of the {len(kinds)} leaves "
+        f"outside the layers and of layer 0 == the CPU mesh's bit for "
+        f"bit; {ms:.2f} ms a call (median of 3, CUDA events), {gb / ms * 1e3:.1f} "
+        f"GB/s of the 4 positions' f32 gradients ({gb:.3f} GB)")
+    return dict(ms=ms, gbs=gb / ms * 1e3)
+
+
+def shard_specs(args, dev) -> dict:
+    """(g) granite-moe's ``param_specs`` resolved at (2, 2) on its 2-layer
+    full-width leaves, the state resharded onto (1, 4) with
+    ``reshard_tree`` (by the specs at tp = 4, dp = 1) and a checkpoint of
+    it restored with ``shardings=``: every slab equals its slice of the
+    whole leaf bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import elastic as EL
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=2)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    names = model.jax_leaf_names()
+    leaves = model.to_jax_leaves()
+    del model
+    m22, _ = shard_meshes((2, 2), ("data", "model"))
+    m14, _ = shard_meshes((1, 4), ("data", "model"))
+    specs = [T._tree_get(T.param_specs(cfg, 2, 2), n) for n in names]
+    # the new topology's own specs (tp = 4, dp = 1), as an elastic restart
+    # re-resolves them
+    specs14 = [T._tree_get(T.param_specs(cfg, 4, 1), n) for n in names]
+    pol = SH.ShardingPolicy(m22)
+
+    def held(placed, what):
+        split = 0
+        for name, leaf, sh in zip(names, leaves, placed):
+            mesh, spec = sh.sharding.mesh, sh.sharding.spec
+            split += any(e is not None for e in spec)
+            for c, slab in zip(SH.mesh_coords(mesh), sh.slabs):
+                check(bool(torch.equal(slab, SH.block(leaf, mesh, spec, c))),
+                      f"(g) {what} {name}: a slab != its slice")
+        return split
+    placed = [SH.device_put(x, pol.named(*s)) for x, s in zip(leaves, specs)]
+    n22 = held(placed, "(2, 2)")
+    moved = EL.reshard_tree(placed, specs14, m14)
+    n14 = held(moved, "resharded onto (1, 4)")
+    d = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        CK.save(d, 1, leaves, leaf_names=names)
+        pol14 = SH.ShardingPolicy(m14)
+        got, _ = CK.restore(d, shardings=[pol14.named(*s) for s in specs14])
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    held(got, "restored onto (1, 4)")
+    gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    log(f"[shard] (g) {cfg.name} at 2 layers, full width ({len(names)} "
+        f"leaves, {gb:.3f} GB): param_specs at (2, 2) split {n22} leaves "
+        f"over the mesh, resharded onto (1, 4) {n14}; a checkpoint saved "
+        f"and restored with shardings= in {secs:.2f} s; every slab of the "
+        "three == its slice of the whole leaf bit for bit")
+    return dict(split22=n22, split14=n14)
+
+
+def shard_path(args, dev, lm) -> dict:
+    """Phase 4q: the sharded model bodies on one card (4 positions on
+    ``cuda:0``) against the CPU mesh, then at full width."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = {"a": shard_collectives(args)}
+    res["b"] = shard_gnn(args, dev)
+    res["c"] = shard_moe(args, dev, lm)
+    res["d"] = shard_dlrm(args, dev)
+    res["e"] = shard_retrieval(args, dev)
+    res["f"] = shard_compressed(args, dev)
+    res["g"] = shard_specs(args, dev)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[shard] phase 4q {res['seconds']:.1f}s")
+    return res
+
+
 def kernel_times(args, dev, main) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.maxsim import ops as KOPS
@@ -5567,6 +6154,7 @@ def main() -> None:
     gnn_res = gnn_path(args, dev)
     cells_res = cells_path(args, dev, recsys_res, gnn_res)
     train_res = train_path(args, dev)
+    shard_res = shard_path(args, dev, lm_res)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
@@ -5732,6 +6320,19 @@ def main() -> None:
         + f"; phase 4m {rs['seconds']:.1f}s")
     log(gnn_summary(gnn_res))
     log(cells_summary(cells_res))
+    sq = shard_res
+    log(f"[summary] shard (4q), 4 positions on one card (not a multi-card "
+        f"figure): collectives bit for bit the CPU mesh ({sq['a']['n']} "
+        f"bodies); equiformer-v2 full width vertex cut S=4 "
+        f"{sq['b']['vertex cut S=4']['ms']:.1f} ms/step, minibatch dp=tp=2 "
+        f"{sq['b']['minibatch dp=tp=2']['ms']:.1f} ms/step; granite-moe "
+        f"ragged_ep tp=4 {sq['c']['ms']:.1f} ms/step (one device ragged "
+        f"{sq['c']['one_ms']:.1f}), {100 * sq['c']['dropped']:.3f}% dropped; "
+        f"dlrm lookup_shardmap {sq['d']['ms']:.3f} ms (whole "
+        f"{sq['d']['one_ms']:.3f}); dcn-v2 two-level 2-stage "
+        f"{sq['e']['ms']:.2f} ms (one-level {sq['e']['one_ms']:.2f}); "
+        f"psum_compressed {sq['f']['gbs']:.1f} GB/s; phase 4q "
+        f"{sq['seconds']:.1f}s")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

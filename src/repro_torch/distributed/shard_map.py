@@ -1,0 +1,596 @@
+"""Per-shard bodies on a single-controller mesh (the port of
+``jax.experimental.shard_map`` and of ``jax.lax``'s ``psum``,
+``all_to_all``, ``all_gather``, ``axis_index`` and ``axis_size``).
+
+``shard_map(body, mesh, in_specs, out_specs)(*args)`` splits each argument
+into per-position blocks by its spec (``sharding.split``: the block on
+that position's device), runs ``body`` once per mesh position, and
+assembles the outputs by ``out_specs`` on the mesh's first device: an
+axis named in an output's spec concatenates the positions' blocks in mesh
+order, an axis it leaves out takes the block of the position at index 0
+along it (``P()`` takes position 0's value).
+
+The positions run in lockstep, one thread each, so a body is written as
+``repro`` writes it: collectives are called by axis name (one axis or a
+tuple of axes) inside the body. The threads take turns in mesh order, one
+running at a time from one collective to the next (on one card the work
+is enqueued on one stream either way; turns keep four threads from
+contending for the interpreter at every operation). Each collective is a
+rendezvous at which
+ONE joint ``torch.autograd.Function`` takes every position's operand and
+returns every position's result, so the whole call is one autograd graph
+and the caller runs ``backward`` once, on its own thread (a backward per
+position would deadlock: autograd runs every caller's backward on one
+worker thread per device, and the positions may share one device). The
+caller's grad mode, autocast state and current CUDA stream are copied
+into each position. An exception on any position fails the whole call;
+no position is left waiting.
+
+Gradients are those of ``jax.grad`` through ``repro``'s ``check_rep=False``
+bodies: ``psum``'s transpose is ``psum``, ``all_to_all``'s is the inverse
+``all_to_all``, ``all_gather``'s is a reduce-scatter, a replicated input's
+gradient sums over the positions, and an output's cotangent reaches each
+position divided by the number of positions along the axes its spec
+leaves out (so ``psum``'d sums divided by a ``psum``'d count under ``P()``
+give the true gradient, and ``P()`` over an unreduced value gives
+``repro``'s 1/n share).
+
+Sums run in mesh order on the group's first device, the same order on
+every device, so a mesh of ``["cuda:0"] * 4`` gives the bits of
+``["cpu"] * 4`` wherever the body's own arithmetic does.
+
+``TRAFFIC`` counts, per collective, the bytes its forward moves between
+positions (a chunk or operand that stays on its own position is not
+counted); a caller zeroes it and reads it around a call.
+
+``checkpoint`` is ``torch.utils.checkpoint`` for bodies: a checkpointed
+region that calls a collective replays that collective's forward result
+when the backward recomputes the region (the recomputation runs on
+autograd's thread, where no other position waits).
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import ExitStack, contextmanager
+from math import prod
+
+import torch
+from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+
+from repro_torch.distributed.sharding import (P, PartitionSpec, axes_of,
+                                              block, check_spec,
+                                              linear_index, mesh_coords,
+                                              split)
+
+__all__ = ["P", "shard_map", "psum", "all_to_all", "all_gather",
+           "axis_index", "axis_size", "in_shard_map", "checkpoint"]
+
+_local = threading.local()
+
+TRAFFIC = {"psum": 0, "all_to_all": 0, "all_gather": 0}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# positions and the rendezvous
+# ---------------------------------------------------------------------------
+
+class _Position:
+    def __init__(self, runner, index: int, coords: dict, device):
+        self.runner, self.index = runner, index
+        self.coords, self.device = coords, device
+        self.calls = 0            # collectives called so far
+        self.recording = 0        # inside a checkpointed region
+        self.log = {}             # call index -> (result, requires grad)
+
+
+class _Replay:
+    """A checkpointed region being recomputed: its collectives return the
+    results logged in the forward, in call order."""
+
+    def __init__(self, pos: _Position, start: int):
+        self.pos, self.next = pos, start
+
+    def take(self):
+        out = self.pos.log[self.next]
+        self.next += 1
+        return _tree_map(lambda t: t[0].detach().requires_grad_(t[1]), out)
+
+
+class _Aborted(threading.BrokenBarrierError):
+    """Raised on a position whose lockstep another position broke."""
+
+
+class _Runner:
+    """The lockstep: the positions take turns in mesh order, one at a time,
+    each running from one collective to the next; the last to arrive
+    computes the collective for all, and position 0 goes on. One thread
+    runs at a time, so the positions never contend for the interpreter
+    and enqueue their work in a fixed order."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.coords = mesh_coords(mesh)
+        self.devices = tuple(mesh.devices.flat)
+        self.slots = [None] * mesh.size
+        self.results = None
+        self.go = [threading.Event() for _ in range(mesh.size)]
+        self.failed = False
+        self.go[0].set()
+
+    def groups(self, axes: tuple) -> list:
+        """The positions that reduce together over ``axes``: those equal
+        on every other axis, each group in order of ``axis_index(axes)``."""
+        by = {}
+        for i, c in enumerate(self.coords):
+            key = tuple(c[a] for a in self.mesh.axis_names if a not in axes)
+            by.setdefault(key, []).append(
+                (linear_index(self.mesh, axes, c), i))
+        return [[i for _, i in sorted(g)] for g in by.values()]
+
+    def _act(self):
+        ops = [s[0] for s in self.slots]
+        if any(o != ops[0] for o in ops):
+            raise RuntimeError(f"positions called different collectives at "
+                               f"one step: {ops}")
+        kind, axes, opts = ops[0]
+        xs = [s[1] for s in self.slots]
+        fn = _COLLECTIVES[kind]
+        self.results = fn(self, axes, dict(opts), xs)
+
+    def wait_turn(self, i: int) -> None:
+        self.go[i].wait()
+        self.go[i].clear()
+        if self.failed:
+            raise _Aborted()
+
+    def abort(self) -> None:
+        self.failed = True
+        for e in self.go:
+            e.set()
+
+    def call(self, pos: _Position, op: tuple, x):
+        i = pos.index
+        self.slots[i] = (op, x)
+        if i == len(self.slots) - 1:
+            self._act()
+        self.go[(i + 1) % len(self.slots)].set()
+        self.wait_turn(i)
+        return self.results[i]
+
+
+def _position() -> _Position:
+    rp = getattr(_local, "replay", None)
+    if rp is not None:
+        return rp.pos
+    pos = getattr(_local, "pos", None)
+    if pos is None:
+        raise RuntimeError("a collective (psum, all_to_all, all_gather, "
+                           "axis_index, axis_size) is called by axis name "
+                           "inside a shard_map body; this call is outside "
+                           "one")
+    return pos
+
+
+def in_shard_map() -> bool:
+    """True inside a ``shard_map`` body (or its recomputation)."""
+    return (getattr(_local, "pos", None) is not None
+            or getattr(_local, "replay", None) is not None)
+
+
+def _axes(mesh, axis_name) -> tuple:
+    axes = axes_of(axis_name)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not an axis of the mesh "
+                             f"{mesh.axis_names}")
+    return axes
+
+
+def _collective(kind: str, x, axis_name, **opts):
+    rp = getattr(_local, "replay", None)
+    if rp is not None:
+        return rp.take()
+    pos = _position()
+    axes = _axes(pos.runner.mesh, axis_name)
+    out = pos.runner.call(pos, (kind, axes, tuple(sorted(opts.items()))), x)
+    if pos.recording:
+        pos.log[pos.calls] = _tree_map(lambda t: (t.detach(),
+                                                  t.requires_grad), out)
+    pos.calls += 1
+    return out
+
+
+def _tree_map(fn, x):
+    """``fn`` over the tensors of a list (or a tensor); other leaves as
+    they are."""
+    if isinstance(x, list):
+        return [_tree_map(fn, v) for v in x]
+    return fn(x) if isinstance(x, (torch.Tensor, tuple)) else x
+
+
+# ---------------------------------------------------------------------------
+# the joint operations (one autograd node over every position)
+# ---------------------------------------------------------------------------
+
+def _sum_to(parts: list, dev) -> torch.Tensor:
+    """The parts summed in order on ``dev``."""
+    total = parts[0].to(dev)
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
+
+
+def _group_sums(xs: list, groups: list, devices: tuple) -> list:
+    out = [None] * len(xs)
+    for g in groups:
+        total = _sum_to([xs[i] for i in g], devices[g[0]])
+        for j, i in enumerate(g):
+            out[i] = (total.to(devices[i], copy=j > 0) if len(g) > 1
+                      else total.clone())
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, devices, *xs):
+        ctx.groups, ctx.devices = groups, devices
+        return tuple(_group_sums(list(xs), groups, devices))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(_group_sums(list(gs), ctx.groups,
+                                                ctx.devices))
+
+
+def _a2a(xs: list, groups: list, devices: tuple, split_axis: int,
+         concat_axis: int) -> list:
+    out = [None] * len(xs)
+    for g in groups:
+        n = len(g)
+        chunks = []
+        for i in g:
+            if xs[i].shape[split_axis] % n:
+                raise ValueError(f"all_to_all: dimension {split_axis} of "
+                                 f"size {xs[i].shape[split_axis]} does not "
+                                 f"split into {n}")
+            chunks.append(torch.chunk(xs[i], n, dim=split_axis))
+        for j, i in enumerate(g):
+            out[i] = torch.cat([chunks[r][j].to(devices[i]) for r in range(n)],
+                               dim=concat_axis)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, devices, split_axis, concat_axis, *xs):
+        ctx.args = (groups, devices, split_axis, concat_axis)
+        return tuple(_a2a(list(xs), groups, devices, split_axis,
+                          concat_axis))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        groups, devices, split_axis, concat_axis = ctx.args
+        return (None,) * 4 + tuple(_a2a(list(gs), groups, devices,
+                                        concat_axis, split_axis))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, devices, axis, tiled, *xs):
+        ctx.args = (groups, devices, axis, tiled, [x.shape[axis] if tiled
+                                                   else 1 for x in xs])
+        out = [None] * len(xs)
+        join = torch.cat if tiled else torch.stack
+        for g in groups:
+            for i in g:
+                out[i] = join([xs[r].to(devices[i]) for r in g], dim=axis)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        groups, devices, axis, tiled, sizes = ctx.args
+        out = [None] * len(gs)
+        for g in groups:
+            for j, i in enumerate(g):
+                off = sum(sizes[r] for r in g[:j])
+                parts = [gs[r].narrow(axis, off, sizes[i]) for r in g]
+                s = _sum_to(parts, devices[i])
+                out[i] = s if tiled else s.squeeze(axis)
+        return (None,) * 4 + tuple(out)
+
+
+def _run_psum(runner, axes, opts, xs):
+    if isinstance(xs[0], list):             # a tree's leaves, one at a time
+        per_leaf = [_run_psum(runner, axes, opts, [x[j] for x in xs])
+                    for j in range(len(xs[0]))]
+        return [[leaf[i] for leaf in per_leaf] for i in range(len(xs))]
+    if not all(isinstance(x, torch.Tensor) for x in xs):
+        n = prod(runner.mesh.shape[a] for a in axes)
+        return [x * n for x in xs]
+    # each member's operand reaches the n - 1 others
+    TRAFFIC["psum"] += sum(_nbytes(xs[i]) * (len(g) - 1)
+                           for g in runner.groups(axes) for i in g)
+    return list(_PSum.apply(runner.groups(axes), runner.devices, *xs))
+
+
+def _run_a2a(runner, axes, opts, xs):
+    if not opts["tiled"]:
+        raise NotImplementedError("all_to_all is ported with repro's "
+                                  "tiled=True semantics only")
+    sa, ca = opts["split_axis"], opts["concat_axis"]
+    sa, ca = sa % xs[0].ndim, ca % xs[0].ndim
+    # of each operand's n chunks, n - 1 leave their position
+    TRAFFIC["all_to_all"] += sum(_nbytes(xs[i]) * (len(g) - 1) // len(g)
+                                 for g in runner.groups(axes) for i in g)
+    return list(_AllToAll.apply(runner.groups(axes), runner.devices, sa, ca,
+                                *xs))
+
+
+def _run_gather(runner, axes, opts, xs):
+    TRAFFIC["all_gather"] += sum(_nbytes(xs[i]) * (len(g) - 1)
+                                 for g in runner.groups(axes) for i in g)
+    axis = opts["axis"] % (xs[0].ndim + (0 if opts["tiled"] else 1))
+    return list(_AllGather.apply(runner.groups(axes), runner.devices, axis,
+                                 opts["tiled"], *xs))
+
+
+_COLLECTIVES = {"psum": _run_psum, "all_to_all": _run_a2a,
+                "all_gather": _run_gather,
+                # every body ends here, so a position that returns while
+                # another waits at a collective fails the call
+                "done": lambda runner, axes, opts, xs: [None] * len(xs)}
+
+
+# ---------------------------------------------------------------------------
+# the collectives, by axis name
+# ---------------------------------------------------------------------------
+
+def psum(x, axis_name):
+    """Sum over the positions along ``axis_name`` (a name or a tuple of
+    names); every position gets the sum. ``psum(1, axes)`` is the number
+    of positions along the axes. A tensor, a number, or a dict, list or
+    tuple of them (one rendezvous for the whole tree)."""
+    if isinstance(x, dict):
+        return dict(zip(x, psum(list(x.values()), axis_name)))
+    if isinstance(x, tuple):
+        return tuple(psum(list(x), axis_name))
+    if isinstance(x, list):
+        if any(isinstance(v, (dict, list, tuple)) for v in x):
+            return [psum(v, axis_name) for v in x]
+        return _collective("psum", list(x), axis_name)
+    return _collective("psum", x, axis_name)
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+               concat_axis: int, tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_to_all`` with ``tiled=True``: position r splits ``x``
+    into n chunks along ``split_axis``, chunk j goes to the position at
+    index j along ``axis_name``, and each position concatenates what it
+    receives along ``concat_axis`` in order of the sender's index."""
+    return _collective("all_to_all", x, axis_name, split_axis=split_axis,
+                       concat_axis=concat_axis, tiled=tiled)
+
+
+def all_gather(x: torch.Tensor, axis_name, axis: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """Every position's ``x`` along ``axis_name``, in index order: stacked
+    on a new dimension ``axis``, or concatenated along it when
+    ``tiled``."""
+    return _collective("all_gather", x, axis_name, axis=axis, tiled=tiled)
+
+
+def axis_index(axis_name) -> int:
+    """This position's index along ``axis_name`` (a tuple of axes counts
+    with the first one slowest)."""
+    pos = _position()
+    mesh = pos.runner.mesh
+    return linear_index(mesh, _axes(mesh, axis_name), pos.coords)
+
+
+def axis_size(axis_name) -> int:
+    pos = _position()
+    mesh = pos.runner.mesh
+    return prod(mesh.shape[a] for a in _axes(mesh, axis_name))
+
+
+# ---------------------------------------------------------------------------
+# checkpointing inside a body
+# ---------------------------------------------------------------------------
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint(fn, *args, use_reentrant=False)``; inside a
+    body the region's collectives are logged in the forward and replayed
+    when the backward recomputes it."""
+    pos = getattr(_local, "pos", None)
+    if pos is None:
+        return _torch_checkpoint(fn, *args, use_reentrant=False)
+    start = {}
+
+    @contextmanager
+    def forward_ctx():
+        start["at"] = pos.calls
+        pos.recording += 1
+        try:
+            yield
+        finally:
+            pos.recording -= 1
+
+    @contextmanager
+    def recompute_ctx():
+        prev = getattr(_local, "replay", None)
+        _local.replay = _Replay(pos, start["at"])
+        try:
+            yield
+        finally:
+            _local.replay = prev
+
+    return _torch_checkpoint(fn, *args, use_reentrant=False,
+                             context_fn=lambda: (forward_ctx(),
+                                                 recompute_ctx()))
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+def _is_leaf_spec(s) -> bool:
+    return isinstance(s, PartitionSpec)
+
+
+def _split_arg(x, spec, mesh) -> list:
+    """One argument (a tensor, or a dict, list or tuple of them, with a
+    spec or a matching tree of specs) as per-position values; anything
+    else goes to every position as it is."""
+    n = mesh.size
+    if isinstance(x, dict):
+        specs = spec if isinstance(spec, dict) else {k: spec for k in x}
+        parts = {k: _split_arg(v, specs[k], mesh) for k, v in x.items()}
+        return [{k: parts[k][i] for k in x} for i in range(n)]
+    if isinstance(x, (list, tuple)) and not isinstance(x, torch.Tensor):
+        specs = (spec if isinstance(spec, (list, tuple))
+                 and not _is_leaf_spec(spec) else [spec] * len(x))
+        parts = [_split_arg(v, s, mesh) for v, s in zip(x, specs)]
+        return [type(x)(p[i] for p in parts) for i in range(n)]
+    if not isinstance(x, torch.Tensor):
+        return [x] * n
+    if not _is_leaf_spec(spec):
+        raise TypeError(f"in_specs entry {spec!r} for a tensor: use P(...)")
+    return list(split(x, mesh, spec))
+
+
+class _Assemble(torch.autograd.Function):
+    """Every position's block of one output -> the whole output on
+    ``dev``; the cotangent goes back to each position's block divided by
+    the number of positions along the axes the spec leaves out."""
+
+    @staticmethod
+    def forward(ctx, mesh, spec, dev, *blocks):
+        coords = mesh_coords(mesh)
+        named = {a for e in spec for a in axes_of(e)}
+        rest = [a for a in mesh.axis_names if a not in named]
+        ctx.args = (mesh, spec, coords, [b.device for b in blocks],
+                    prod(mesh.shape[a] for a in rest))
+        shape = list(blocks[0].shape)
+        for d, e in enumerate(spec):
+            shape[d] *= prod(mesh.shape[a] for a in axes_of(e))
+        out = blocks[0].new_empty(shape, device=dev)
+        for c, b in zip(coords, blocks):
+            if all(c[a] == 0 for a in rest):
+                if tuple(b.shape) != tuple(blocks[0].shape):
+                    raise ValueError(f"positions returned blocks of shapes "
+                                     f"{tuple(b.shape)} and "
+                                     f"{tuple(blocks[0].shape)}")
+                block(out, mesh, spec, c).copy_(b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spec, coords, devs, n_rest = ctx.args
+        grads = []
+        for c, d in zip(coords, devs):
+            b = block(g, mesh, spec, c)
+            grads.append((b / n_rest if n_rest > 1 else b.clone()).to(d))
+        return (None, None, None) + tuple(grads)
+
+
+def _assemble(outs: list, spec, mesh):
+    first = outs[0]
+    if isinstance(first, dict):
+        specs = spec if isinstance(spec, dict) else {k: spec for k in first}
+        return {k: _assemble([o[k] for o in outs], specs[k], mesh)
+                for k in first}
+    if isinstance(first, (list, tuple)) and not _is_leaf_spec(first):
+        specs = (spec if isinstance(spec, (list, tuple))
+                 and not _is_leaf_spec(spec) else [spec] * len(first))
+        return type(first)(_assemble([o[i] for o in outs], specs[i], mesh)
+                           for i in range(len(first)))
+    if not isinstance(first, torch.Tensor):
+        return first
+    if not _is_leaf_spec(spec):
+        raise TypeError(f"out_specs entry {spec!r} for a tensor: use P(...)")
+    check_spec(mesh, spec, first.ndim)
+    return _Assemble.apply(mesh, spec, mesh.devices.flat[0], *outs)
+
+
+def _thread_state(mesh):
+    """A function that puts the caller's grad mode, autocast state and
+    current CUDA streams into a position's thread (all per thread)."""
+    grad = torch.is_grad_enabled()
+    inference = torch.is_inference_mode_enabled()
+    casts = [(dt, torch.get_autocast_dtype(dt)) for dt in ("cuda", "cpu")
+             if torch.is_autocast_enabled(dt)]
+    streams = {d: torch.cuda.current_stream(d) for d in set(mesh.devices.flat)
+               if d.type == "cuda"}
+
+    def enter(stack: ExitStack, device):
+        stack.enter_context(torch.inference_mode(inference))
+        stack.enter_context(torch.set_grad_enabled(grad))
+        for dt, dtype in casts:
+            stack.enter_context(torch.autocast(dt, dtype=dtype))
+        if device.type == "cuda":
+            stack.enter_context(torch.cuda.device(device))
+            stack.enter_context(torch.cuda.stream(streams[device]))
+    return enter
+
+
+def shard_map(body, mesh, in_specs, out_specs):
+    """``body`` as a function of whole tensors over ``mesh``: each call
+    splits its arguments by ``in_specs`` (one spec per argument, or a
+    tree of specs matching a dict/list argument; ``P()`` replicates),
+    runs ``body`` on every position's blocks in lockstep, and assembles
+    the results by ``out_specs`` on ``mesh.devices.flat[0]``. A mesh of
+    CUDA devices runs every position on its card; nothing falls back to
+    the CPU or to an unsharded function."""
+    single = _is_leaf_spec(in_specs)
+    in_specs = (in_specs,) if single else tuple(in_specs)
+
+    def call(*args):
+        if in_shard_map():
+            raise RuntimeError("shard_map inside a shard_map body")
+        if len(args) != len(in_specs):
+            raise TypeError(f"{len(args)} arguments for {len(in_specs)} "
+                            "in_specs")
+        per_arg = [_split_arg(a, s, mesh) for a, s in zip(args, in_specs)]
+        runner = _Runner(mesh)
+        n = mesh.size
+        outs, errors = [None] * n, [None] * n
+        enter = _thread_state(mesh)
+
+        def run(i):
+            pos = _Position(runner, i, runner.coords[i], runner.devices[i])
+            _local.pos = pos
+            try:
+                runner.wait_turn(i)
+                with ExitStack() as stack:
+                    enter(stack, pos.device)
+                    outs[i] = body(*[a[i] for a in per_arg])
+                    runner.call(pos, ("done", (), ()), None)
+                    # after the last rendezvous, hand the turn on
+                    if i + 1 < n:
+                        runner.go[i + 1].set()
+            except BaseException as e:          # noqa: BLE001 - rethrown
+                errors[i] = e
+                runner.abort()
+            finally:
+                _local.pos = None
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        real = [e for e in errors if e is not None
+                and not isinstance(e, threading.BrokenBarrierError)]
+        if real:
+            raise real[0]
+        if any(e is not None for e in errors):
+            raise RuntimeError("shard_map: a position left the lockstep "
+                               "(a collective it waited at was broken)")
+        return _assemble(outs, out_specs, mesh)
+
+    return call

@@ -1,4 +1,4 @@
-"""Logical-axis sharding policy, the mapping half (the port of
+"""Logical-axis sharding policy and placement (the port of
 ``repro.distributed.sharding``): model code names logical axes, the
 policy maps them to mesh axes. ``mesh=None`` maps every axis to size 1,
 so the same code runs on one device.
@@ -9,13 +9,24 @@ Logical axes:
   sp     sequence parallel (long-context KV / activations)
   flat   everything (node/edge/candidate sharding over all devices)
 
-``spec`` returns the per-dimension tuple a ``jax.sharding.PartitionSpec``
-holds (None, one mesh axis name, or a tuple of two or more). The
-placement half (``named``, ``constrain``, ``tree_shardings``) belongs to
-the model sharding and is not ported: the retrieval mesh path places its
-slabs itself (``retrieval.store.split_slabs``).
+``PartitionSpec`` (``P``) holds one entry per dimension: None, one mesh
+axis name, or a tuple of two or more, as ``jax.sharding.PartitionSpec``
+stores it. A ``NamedSharding`` is a mesh plus a spec, and ``device_put``
+places a tensor by one: it splits the tensor into one slab per mesh
+position (``split``), each on that position's device. ``split`` is the
+one splitting rule of the port: ``shard_map`` splits its arguments by it
+and the retrieval store lays its slabs out by it.
+
+``repro``'s ``constrain`` (``with_sharding_constraint``) belongs to the
+XLA-partitioned half of the model sharding, which the port does not have
+yet; nothing in the port calls it.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from math import prod
+
+import torch
 
 DEFAULT_RULES = {
     "dp": ("data",),
@@ -25,12 +36,51 @@ DEFAULT_RULES = {
 }
 
 
+def _canonical(entry):
+    """One dimension's entry as ``PartitionSpec`` stores it: a 1-tuple of
+    axis names as its name, an empty tuple as None."""
+    if isinstance(entry, list):
+        entry = tuple(entry)
+    if isinstance(entry, tuple) and len(entry) <= 1:
+        return entry[0] if entry else None
+    return entry
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axes of a tensor (``jax.sharding.PartitionSpec``):
+    a tuple, so it compares equal to the plain tuple of its entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_canonical(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}".replace(",)", ")")
+
+
+P = PartitionSpec
+
+
+def axes_of(entry) -> tuple:
+    """The mesh axes of one spec entry, as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def rules_for_mesh(mesh) -> dict:
     rules = {k: tuple(v) for k, v in DEFAULT_RULES.items()}
     if mesh is not None and "pod" in mesh.axis_names:
         rules["dp"] = ("pod", "data")
         rules["flat"] = ("pod", "data", "model")
     return rules
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout on a mesh: ``spec`` names the mesh axes each
+    dimension is split over (``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
 
 
 class ShardingPolicy:
@@ -58,8 +108,13 @@ class ShardingPolicy:
             return got if len(got) != 1 else got[0]
         return got
 
-    def spec(self, *axes) -> tuple:
-        return tuple(_canonical(self._resolve(a)) for a in axes)
+    def spec(self, *axes) -> PartitionSpec:
+        return PartitionSpec(*[self._resolve(a) for a in axes])
+
+    def named(self, *axes) -> NamedSharding | None:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, self.spec(*axes))
 
     def axis_size(self, logical: str) -> int:
         if self.mesh is None:
@@ -74,14 +129,138 @@ class ShardingPolicy:
             n *= self.mesh.shape[a]
         return n
 
+    def tree_shardings(self, tree_of_specs):
+        """Map a tree (dicts and lists) of logical-axis tuples to
+        ``NamedSharding``s, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        return map_specs(lambda axes: self.named(*axes), tree_of_specs)
 
-def _canonical(entry):
-    """One dimension's entry as ``PartitionSpec`` stores it: a 1-tuple of
-    axis names as its name, an empty tuple as None."""
-    if isinstance(entry, tuple) and len(entry) <= 1:
-        return entry[0] if entry else None
-    return entry
+
+def is_spec(x) -> bool:
+    """A leaf of a spec tree: a tuple of None, names and tuples of names."""
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, (str, tuple, list)) for a in x)
+
+
+def map_specs(fn, tree):
+    """``fn`` over every spec leaf of a tree of dicts and lists."""
+    if is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(fn, v) for v in tree]
+    return fn(tree)
 
 
 def divisible(n: int, k: int) -> bool:
     return k > 0 and n % k == 0
+
+
+# ---------------------------------------------------------------------------
+# placement: one slab per mesh position
+# ---------------------------------------------------------------------------
+
+def mesh_coords(mesh) -> list:
+    """Every mesh position's coordinates, {axis name: index}, in mesh
+    order (``mesh.devices.flat``)."""
+    names, sizes = mesh.axis_names, tuple(mesh.devices.shape)
+    out = []
+    for flat in range(prod(sizes)):
+        c, rem = {}, flat
+        for a, s in zip(reversed(names), reversed(sizes)):
+            c[a] = rem % s
+            rem //= s
+        out.append({a: c[a] for a in names})
+    return out
+
+
+def linear_index(mesh, axes: tuple, coords: dict) -> int:
+    """The position's index along the axes ``axes`` taken together, the
+    first one slowest (``jax.lax.axis_index`` over a tuple)."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + coords[a]
+    return i
+
+
+def group_size(mesh, axes: tuple) -> int:
+    return prod(mesh.shape[a] for a in axes)
+
+
+def check_spec(mesh, spec, ndim: int) -> None:
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec!r} has {len(spec)} entries for a "
+                         f"{ndim}-d tensor")
+    seen = []
+    for e in spec:
+        for a in axes_of(e):
+            if a not in mesh.axis_names:
+                raise ValueError(f"spec {spec!r} names axis {a!r}, the "
+                                 f"mesh has {mesh.axis_names}")
+            if a in seen:
+                raise ValueError(f"spec {spec!r} names axis {a!r} twice")
+            seen.append(a)
+
+
+def block(x: torch.Tensor, mesh, spec, coords: dict) -> torch.Tensor:
+    """The slab of ``x`` that the position at ``coords`` holds under
+    ``spec`` (a view of ``x``): each dimension split evenly over its axes,
+    the block at the position's index along them."""
+    for d, e in enumerate(spec):
+        axes = axes_of(e)
+        if not axes:
+            continue
+        n = group_size(mesh, axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of size {x.shape[d]} does not "
+                             f"split over {n} positions ({spec!r})")
+        size = x.shape[d] // n
+        x = x.narrow(d, linear_index(mesh, axes, coords) * size, size)
+    return x
+
+
+def split(x: torch.Tensor, mesh, spec, copy: bool = False) -> tuple:
+    """``x`` laid out over ``mesh`` by ``spec``: one slab per position in
+    mesh order, on that position's device (a view when ``x`` is already
+    there and ``copy`` is False). Differentiable: a slab's gradient flows
+    back into ``x``, summed over the positions that hold the same slab."""
+    spec = PartitionSpec(*spec)
+    check_spec(mesh, spec, x.ndim)
+    return tuple(block(x, mesh, spec, c).to(dev, copy=copy)
+                 for c, dev in zip(mesh_coords(mesh), mesh.devices.flat))
+
+
+@dataclass
+class Sharded:
+    """A tensor placed on a mesh (``device_put``'s result): its sharding,
+    its global shape and its slabs in mesh order."""
+    sharding: NamedSharding
+    shape: tuple
+    slabs: tuple
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the mesh's first device, assembled from the
+        slabs (each block taken from the first position that holds it)."""
+        mesh, spec = self.sharding.mesh, self.sharding.spec
+        first = mesh.devices.flat[0]
+        out = self.slabs[0].new_empty(self.shape, device=first)
+        done = set()
+        for c, slab in zip(mesh_coords(mesh), self.slabs):
+            key = tuple(linear_index(mesh, axes_of(e), c) for e in spec)
+            if key in done:
+                continue
+            done.add(key)
+            block(out, mesh, spec, c).copy_(slab)
+        return out
+
+
+def device_put(x, sharding: NamedSharding | None, copy: bool = False):
+    """``x`` placed by ``sharding``: a ``Sharded`` of its slabs (``split``),
+    or ``x`` itself when ``sharding`` is None."""
+    if sharding is None:
+        return x
+    x = torch.as_tensor(x)
+    return Sharded(sharding, tuple(x.shape),
+                   split(x, sharding.mesh, sharding.spec, copy=copy))

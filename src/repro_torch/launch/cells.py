@@ -1,5 +1,5 @@
-"""Single-device cells: (arch x shape) -> a step and its inputs (the port
-of ``repro.launch.cells``).
+"""Cells: (arch x shape [x mesh]) -> a step and its inputs (the port of
+``repro.launch.cells``).
 
 For every cell of ``configs.get_cells(ALL_ARCHS)`` and each variant this
 module builds:
@@ -23,12 +23,22 @@ no sequence-parallel constraint and 8 checkpointed microbatches for the
 LMs, the fused rotation for the GNN, the 2-stage candidate search for
 recsys, an int8 scan stage for the retrievers; ``stage1``: the retrievers'
 exact 1-stage search), the notes, and ``donate``, which here names the
-arguments that ``fn`` updates in place. ``repro``'s ``in_shardings`` has
-no meaning on one device and is dropped; its mesh cuts are those of one
-device: the minibatch cell's two-level dp x tp layout is dp = tp = 1, the
-vertex-cut cell is one shard of ``ShardedEdges`` (``repro``'s psum over
-one device is the identity), and no corpus or candidate list is padded
-to a shard multiple.
+arguments that ``fn`` updates in place. ``repro``'s ``in_shardings`` is
+dropped. Without a mesh the mesh cuts are those of one device: the
+minibatch cell's two-level dp x tp layout is dp = tp = 1, the vertex-cut
+cell is one shard of ``ShardedEdges`` (``repro``'s psum over one device is
+the identity), and no corpus or candidate list is padded to a shard
+multiple.
+
+With ``mesh=`` (``launch.mesh``, one controller) a cell runs ``repro``'s
+explicit per-shard bodies on it (``distributed.shard_map``): the GNN
+minibatch cell's two-level dp x tp body and the vertex-cut body over the
+flat axis, the recsys ``opt`` candidate search's two-level top-k, a MoE
+LM's ``opt`` train step with the expert-parallel ``ragged_ep`` over
+(dp, tp), and the retriever search over the sharded corpus. Its arguments
+live on the mesh's first device and the bodies split them. Every other
+cell is one that ``repro`` runs only through XLA partitioning, which the
+port does not have yet: given a mesh, it raises.
 
 Also kept: ``repro``'s search ``model_flops`` counts the 2-stage rerank
 for the 1-stage (``stage1``) variant too.
@@ -40,6 +50,7 @@ pass a smaller shape (``dataclasses.replace(shape, dims=...)``).
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -49,7 +60,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import get_config, get_shapes
-from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.distributed import shard_map as SM
+from repro_torch.distributed.sharding import ShardingPolicy
+from repro_torch.launch.mesh import home_device, n_devices
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_loop import make_train_step
 
@@ -148,11 +161,13 @@ class _Fill:
         return out
 
 
-def _setup(device, generator) -> tuple:
+def _setup(device, generator, mesh=None) -> tuple:
     """(device, model generator, input filler): a meta cell draws
     nothing; otherwise ``generator`` (default: one seeded 0 on the
-    device) draws the weights and then the inputs."""
-    dev = resolve_device(device)
+    device) draws the weights and then the inputs. The device defaults
+    to the card, or with a mesh to its first device (where a cell's
+    arguments live)."""
+    dev = home_device(mesh, device)
     if dev.type == "meta":
         return dev, None, _Fill(dev, None)
     gen = generator if generator is not None else \
@@ -165,6 +180,17 @@ def _building(dev):
     call without a device lands there too, so nothing is allocated."""
     return torch.device("meta") if dev.type == "meta" \
         else contextlib.nullcontext()
+
+
+def partitioned(arch: str, shape, variant: str):
+    """The error a cell that ``repro`` runs only through XLA partitioning
+    raises when it is given a mesh."""
+    return NotImplementedError(
+        f"{arch} x {shape.name} ({variant}) runs sharded in repro only "
+        "through XLA partitioning (param_specs and sharding constraints), "
+        "which the port does not have yet: it waits for the next slice, "
+        "the partitioned half of the model sharding (ROADMAP.md section "
+        "1). Build it without a mesh for one device.")
 
 
 def _train_state(model, oc) -> tuple:
@@ -184,13 +210,13 @@ def _lm_batch_flops(cfg, tokens: int, train: bool) -> float:
     return per_tok * tokens * (1.0 if train else 1.0 / 3.0)
 
 
-def _micro_loss(model, tokens, labels):
+def _micro_loss(model, tokens, labels, shard=None):
     from repro_torch.models import transformer as T
-    return T.loss_fn(model, {"tokens": tokens, "labels": labels})
+    return T.loss_fn(model, {"tokens": tokens, "labels": labels}, shard)
 
 
-def build_lm_cell(arch: str, shape, device="cuda", variant: str = "base",
-                  generator=None) -> Cell:
+def build_lm_cell(arch: str, shape, device=None, variant: str = "base",
+                  generator=None, mesh=None) -> Cell:
     from repro_torch.models import kv_cache as KV
     from repro_torch.models import transformer as T
 
@@ -202,7 +228,13 @@ def build_lm_cell(arch: str, shape, device="cuda", variant: str = "base",
                 cfg, moe=dataclasses.replace(cfg.moe, impl="ragged_ep"))
         cfg = dataclasses.replace(cfg, sp_activations=False)
         micro = 8
-    dev, gen, fill = _setup(device, generator)
+    if mesh is not None and not (variant == "opt" and cfg.moe is not None
+                                 and shape.kind == "train"):
+        raise partitioned(arch, shape, variant)
+    # the MoE's ragged_ep runs its expert-parallel body over the mesh; the
+    # rest of the step runs on the mesh's first device
+    pol = ShardingPolicy(mesh) if mesh is not None else None
+    dev, gen, fill = _setup(device, generator, mesh)
     with _building(dev):
         model = T.init_params(cfg, gen, dev)
     B, S = shape.global_batch, shape.seq_len
@@ -213,7 +245,7 @@ def build_lm_cell(arch: str, shape, device="cuda", variant: str = "base",
 
         def loss(m, b):
             if micro <= 1:
-                return T.loss_fn(m, b)
+                return T.loss_fn(m, b, pol)
             # gradient accumulation as ``repro``'s checkpointed scan: the
             # microbatch losses summed in order, then averaged; each
             # microbatch's activations are recomputed in the backward
@@ -222,7 +254,7 @@ def build_lm_cell(arch: str, shape, device="cuda", variant: str = "base",
             lb = b["labels"].reshape(micro, n // micro, s)
             tot = torch.zeros((), dtype=torch.float32, device=tk.device)
             for t, l in zip(tk, lb):
-                tot = tot + checkpoint(_micro_loss, m, t, l,
+                tot = tot + checkpoint(_micro_loss, m, t, l, pol,
                                        use_reentrant=False)
             return tot / micro
 
@@ -270,33 +302,137 @@ def _gnn_flops(cfg, n_edges: float, train: bool) -> float:
 
 
 def _sharded_batch(fill: _Fill, lead: tuple, n_local: int, n_pad: int,
-                   cap: int) -> dict:
-    """One shard's ``ShardedEdges`` arrays [*lead, cap]: at one shard the
-    receive side is the send side (rdst = edstg, rsrcg = esrc)."""
+                   cap: int, consistent: bool) -> dict:
+    """``ShardedEdges`` arrays [*lead, cap]: local src and dst ids in [0,
+    n_local), global ones in [0, n_pad). At one shard (``consistent``)
+    the receive side is the send side (rdst = edstg, rsrcg = esrc); over
+    a mesh both sides are drawn apart, every id inside its range."""
     esrc = fill.ids(lead + (cap,), n_local)
     edstg = fill.ids(lead + (cap,), n_pad)
     emask = fill.ones(lead + (cap,))
+    if consistent:
+        return {"esrc": esrc, "edstg": edstg, "emask": emask,
+                "rdst": edstg.clone(), "rsrcg": esrc.clone(),
+                "rmask": emask.clone()}
     return {"esrc": esrc, "edstg": edstg, "emask": emask,
-            "rdst": edstg.clone(), "rsrcg": esrc.clone(),
-            "rmask": emask.clone()}
+            "rdst": fill.ids(lead + (cap,), n_local),
+            "rsrcg": fill.ids(lead + (cap,), n_pad),
+            "rmask": fill.ones(lead + (cap,))}
 
 
-def _shard_plan(b: dict, idx: tuple, n_local: int):
+_EDGE_KEYS = ("esrc", "edstg", "emask", "rdst", "rsrcg", "rmask")
+
+
+def _shard_plan(b: dict, idx: tuple, n_local: int, offset: int = 0,
+                axis_names: tuple = ()):
     from repro_torch.models.gnn.graph import ShardedEdges
-    return ShardedEdges(**{k: b[k][idx] for k in ("esrc", "edstg", "emask",
-                                                  "rdst", "rsrcg", "rmask")},
-                        n_local=n_local, shard_offset=0)
+    return ShardedEdges(**{k: b[k][idx] for k in _EDGE_KEYS},
+                        n_local=n_local, shard_offset=offset,
+                        axis_names=axis_names)
 
 
-def build_gnn_cell(arch: str, shape, device="cuda", variant: str = "base",
-                   generator=None) -> Cell:
+def sharded_ce_loss(cfg, model, plan, feat, pos, labels, lmask, axes):
+    """``repro``'s per-shard node loss: the shard's summed cross-entropy
+    over its labelled nodes and its label count, each ``psum``'d over
+    ``axes``, their quotient (the same on every position)."""
+    from repro_torch.models.gnn import equiformer_v2 as E
+    logits = E.forward(cfg, model, plan, feat, pos)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    m = lmask.to(torch.float32)
+    num = SM.psum(torch.sum((logz - gold) * m), axes)
+    den = SM.psum(torch.sum(m), axes)
+    return num / torch.clamp(den, min=1.0)
+
+
+def bind_params(module: nn.Module, params: dict) -> nn.Module:
+    """A shallow copy of ``module`` (and of each submodule) whose
+    parameters are ``params``, by ``named_parameters()`` name. A body
+    takes the model's parameters as a ``P()`` argument, so each position
+    reads its own copy on its own device and their gradients sum back
+    into the model; ``module`` itself is not touched, so the positions,
+    which take turns, never see each other's tensors."""
+    def bound(mod, prefix):
+        new = copy.copy(mod)
+        new.__dict__["_parameters"] = {
+            k: None if v is None else params[prefix + k]
+            for k, v in mod._parameters.items()}
+        new.__dict__["_modules"] = {
+            k: None if sub is None else bound(sub, f"{prefix}{k}.")
+            for k, sub in mod._modules.items()}
+        return new
+    return bound(module, "")
+
+
+def minibatch_loss(cfg, mesh, n_local: int, dp_axes: tuple, tp_axes: tuple):
+    """``repro``'s two-level minibatch loss over ``mesh``: one sampled
+    subgraph per dp position, each vertex-cut over tp. Each position
+    takes its [1, n_local] block of the nodes (``P(dp, tp)``) and its
+    subgraph's whole [1, tp, tp, cap] edge arrays (``P(dp)``), and builds
+    its plan from bucket row [0, 0] of them, as ``repro``'s body does."""
+    P = SM.P
+
+    def loss(m, b):
+        def body(params, feat, pos, labels_, lmask, esrc, edstg, emask,
+                 rdst, rsrcg, rmask):
+            e = dict(zip(_EDGE_KEYS, (esrc, edstg, emask, rdst, rsrcg,
+                                      rmask)))
+            plan = _shard_plan(e, (0, 0), n_local,
+                               SM.axis_index(tp_axes) * n_local, tp_axes)
+            return sharded_ce_loss(cfg, bind_params(m, params), plan,
+                                   feat[0], pos[0], labels_[0], lmask[0],
+                                   dp_axes + tp_axes)
+
+        return SM.shard_map(
+            body, mesh,
+            in_specs=(P(), P(dp_axes, tp_axes), P(dp_axes),
+                      P(dp_axes, tp_axes), P(dp_axes, tp_axes))
+            + (P(dp_axes),) * 6,
+            out_specs=P(),
+        )(dict(m.named_parameters()), b["feat"], b["pos"], b["labels"],
+          b["lmask"], *[b[k] for k in _EDGE_KEYS])
+    return loss
+
+
+def vertex_cut_loss(cfg, mesh, n_local: int, flat_axes: tuple):
+    """``repro``'s vertex-cut loss over every mesh axis: each position
+    holds n_local nodes and row s of the [S, S, cap] buckets; positions
+    are replicated (``P()``)."""
+    P = SM.P
+
+    def loss(m, b):
+        def body(params, feat, pos, labels_, lmask, esrc, edstg, emask,
+                 rdst, rsrcg, rmask):
+            e = dict(zip(_EDGE_KEYS, (esrc, edstg, emask, rdst, rsrcg,
+                                      rmask)))
+            plan = _shard_plan(e, (0,), n_local,
+                               SM.axis_index(flat_axes) * n_local, flat_axes)
+            return sharded_ce_loss(cfg, bind_params(m, params), plan, feat,
+                                   pos, labels_, lmask, flat_axes)
+
+        return SM.shard_map(
+            body, mesh,
+            in_specs=(P(), P(flat_axes), P()) + (P(flat_axes),) * 8,
+            out_specs=P(),
+        )(dict(m.named_parameters()), b["feat"], b["pos"], b["labels"],
+          b["lmask"], *[b[k] for k in _EDGE_KEYS])
+    return loss
+
+
+def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
+                   generator=None, mesh=None) -> Cell:
     from repro_torch.models.gnn import equiformer_v2 as E
     from repro_torch.models.gnn.graph import LocalEdges
 
     base = get_config(arch)
     cfg = dataclasses.replace(base, msg_dtype="bfloat16",
                               fused_rotation=(variant == "opt"))
-    dev, gen, fill = _setup(device, generator)
+    if mesh is not None and not (
+            shape.kind == "minibatch" or (shape.kind == "full_graph"
+                                          and shape.n_edges > 2_000_000)):
+        raise partitioned(arch, shape, variant)
+    pol = ShardingPolicy(mesh)
+    dev, gen, fill = _setup(device, generator, mesh)
     oc = OPT.OptConfig()
 
     def model_of(d_feat: int, n_out: int):
@@ -331,29 +467,37 @@ def build_gnn_cell(arch: str, shape, device="cuda", variant: str = "base",
 
     if shape.kind == "minibatch":
         # ``repro``: one sampled subgraph per data shard, each vertex-cut
-        # over the model axis; on one device dp = tp = 1
+        # over the model axis (dp = tp = 1 without a mesh)
         from repro_torch.models.gnn.sampler import max_subgraph_shape
         NN, EE = max_subgraph_shape(shape.batch_nodes, tuple(shape.fanout))
-        F, G, n_cls, tp = shape.d_feat, 1, 41, 1
+        F, G, n_cls = shape.d_feat, pol.axis_size("dp"), 41
+        tp = max(pol.axis_size("tp"), 1)
         n_local = -(-NN // tp)
         N_pad = n_local * tp
         cap = max(8, int(np.ceil(EE / (tp * tp) * 2.0 / 8)) * 8)
         model = model_of(F, n_cls)
 
-        def loss(m, b):
-            plan = _shard_plan(b, (0, 0), n_local)
-            return E.node_ce_loss(cfg, m, plan, b["feat"][0], b["pos"][0],
-                                  b["labels"][0], b["lmask"][0])
+        if mesh is None:
+            def loss(m, b):
+                plan = _shard_plan(b, (0, 0), n_local)
+                return E.node_ce_loss(cfg, m, plan, b["feat"][0],
+                                      b["pos"][0], b["labels"][0],
+                                      b["lmask"][0])
+        else:
+            loss = minibatch_loss(cfg, mesh, n_local, pol.rules["dp"],
+                                  ("model",))
 
         batch = {"feat": fill.normal((G, N_pad, F)),
                  "pos": fill.uniform((G, N_pad, 3), -2.0, 2.0),
                  "labels": fill.ids((G, N_pad), n_cls),
                  "lmask": fill.ones((G, N_pad)),
-                 **_sharded_batch(fill, (G, tp, tp), n_local, N_pad, cap)}
+                 **_sharded_batch(fill, (G, tp, tp), n_local, N_pad, cap,
+                                  mesh is None)}
         return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True),
                           note=f"two-level dp={G} x tp={tp}, cap={cap}")
 
-    # full_graph: small -> one edge list; large -> one vertex-cut shard
+    # full_graph: small -> one edge list; large -> the vertex cut over
+    # every mesh position (one shard without a mesh)
     NN, EE, F = shape.n_nodes, shape.n_edges, shape.d_feat
     n_cls = 47
     model = model_of(F, n_cls)
@@ -372,22 +516,26 @@ def build_gnn_cell(arch: str, shape, device="cuda", variant: str = "base",
                  "lmask": fill.ones((NN,))}
         return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True))
 
-    # ogbn-products scale: ``repro``'s vertex cut over every device, S = 1
-    S = 1
+    # ogbn-products scale: ``repro``'s vertex cut over every device
+    S = n_devices(mesh) if mesh is not None else 1
     n_local = -(-NN // S)
     N_pad = n_local * S
     cap = max(8, int(np.ceil(EE / (S * S) * 1.25 / 8.0)) * 8)
 
-    def loss(m, b):
-        plan = _shard_plan(b, (0,), n_local)
-        return E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"], b["labels"],
-                              b["lmask"])
+    if mesh is None:
+        def loss(m, b):
+            plan = _shard_plan(b, (0,), n_local)
+            return E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"],
+                                  b["labels"], b["lmask"])
+    else:
+        loss = vertex_cut_loss(cfg, mesh, n_local, tuple(mesh.axis_names))
 
     batch = {"feat": fill.normal((N_pad, F)),
              "pos": fill.uniform((N_pad, 3), -2.0, 2.0),
              "labels": fill.ids((N_pad,), n_cls),
              "lmask": fill.ones((N_pad,)),
-             **_sharded_batch(fill, (S, S), n_local, N_pad, cap)}
+             **_sharded_batch(fill, (S, S), n_local, N_pad, cap,
+                              mesh is None)}
     return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True),
                       note=f"vertex-cut S={S} cap={cap}")
 
@@ -425,14 +573,19 @@ def _recsys_dense_flops(cfg, batch: float) -> float:
     return f * batch
 
 
-def build_recsys_cell(arch: str, shape, device="cuda", variant: str = "base",
-                      generator=None) -> Cell:
+def build_recsys_cell(arch: str, shape, device=None, variant: str = "base",
+                      generator=None, mesh=None) -> Cell:
     from repro_torch.models.recsys import nets as R
 
     cfg = get_config(arch)
-    dev, gen, fill = _setup(device, generator)
+    if mesh is not None and not (shape.kind == "retrieval"
+                                 and variant == "opt"):
+        raise partitioned(arch, shape, variant)
+    pol = ShardingPolicy(mesh) if mesh is not None else None
+    dev, gen, fill = _setup(device, generator, mesh)
     with _building(dev):
-        model = R.init_params(cfg, gen, dev)
+        model = R.init_params(cfg, gen, dev,
+                              pol.axis_size("tp") if pol is not None else 1)
     item_rows = cfg.n_items if cfg.name == "bert4rec" else \
         cfg.vocab_sizes[R._item_field(cfg)]
 
@@ -473,8 +626,10 @@ def build_recsys_cell(arch: str, shape, device="cuda", variant: str = "base",
                     (model, batch),
                     model_flops=_recsys_dense_flops(cfg, B))
 
-    # retrieval_cand: one device, so the candidate list is not padded
-    N = shape.n_candidates
+    # retrieval_cand: the candidate list padded to shard over every mesh
+    # position (not padded on one device)
+    ndev = n_devices(mesh) if mesh is not None else 1
+    N = -(-shape.n_candidates // ndev) * ndev
     if cfg.name == "bert4rec":
         batch = {"seq": fill.ids((1, cfg.seq_len), cfg.n_items),
                  "seq_mask": fill.ones((1, cfg.seq_len)),
@@ -492,7 +647,9 @@ def build_recsys_cell(arch: str, shape, device="cuda", variant: str = "base",
     def fn(m, b):
         # ``repro``'s opt adds its two-level top-k merge, which over one
         # device selects what ``lax.top_k`` selects
-        return R.retrieval_step(cfg, m, b, stages=n_stages)
+        return R.retrieval_step(cfg, m, b, stages=n_stages,
+                                two_level_topk=(variant == "opt"),
+                                shard=pol)
 
     flops = _recsys_dense_flops(cfg, N if n_stages == 1 else 256)
     return Cell(arch, shape.name, fn, (model, batch), model_flops=flops,
@@ -534,12 +691,15 @@ def search_stages(shape, variant: str) -> tuple:
         MST.with_scan_policy(stages, use_kernel=True), rerank_kernel=True)
 
 
-def build_retriever_cell(arch: str, shape, device="cuda",
-                         variant: str = "base", generator=None) -> Cell:
+def build_retriever_cell(arch: str, shape, device=None,
+                         variant: str = "base", generator=None,
+                         mesh=None) -> Cell:
     from repro_torch.models import late_interaction as LI
 
     cfg = get_config(arch)
-    dev, gen, fill = _setup(device, generator)
+    if mesh is not None and shape.kind != "search":
+        raise partitioned(arch, shape, variant)
+    dev, gen, fill = _setup(device, generator, mesh)
     n_raw = cfg.n_patches * (4 if cfg.geometry == "dynamic" else 1)
 
     def model_of():
@@ -573,13 +733,15 @@ def build_retriever_cell(arch: str, shape, device="cuda",
                     (model, fill.normal((B, n_raw, LI.D_PATCH))),
                     model_flops=flops / 3.0)
 
-    # search over the corpus on one device
+    # search over the corpus on one device, or split over the mesh's
+    # positions (the corpus padded to a multiple of them)
     # variants: "stage1" = pre-paper exact-scan baseline; "base" = the
     # paper's 2-stage cascade; "opt" = 2-stage + int8 scan storage.
     from repro_torch.kernels.maxsim.ops import quantize_int8
     from repro_torch.retrieval.engine import make_search_fn
     from repro_torch.retrieval.store import codes_key, mask_key, scale_key
-    N, Bq = shape.corpus, shape.query_batch
+    ndev = n_devices(mesh) if mesh is not None else 1
+    N, Bq = -(-shape.corpus // ndev) * ndev, shape.query_batch
     stages = search_stages(shape, variant)
     Dfull, Dp, d = cfg.n_patches, cfg.n_pooled, cfg.out_dim
     store = {
@@ -604,7 +766,8 @@ def build_retriever_cell(arch: str, shape, device="cuda",
     qm = fill.ones((Bq, 32), torch.float32)
     # stage-1 madds + rerank madds (Eq. 1)
     flops = 2.0 * Bq * 32 * d * (N * Dp + shape.prefetch_k * Dfull)
-    return Cell(arch, shape.name, make_search_fn(stages, N), (store, q, qm),
+    return Cell(arch, shape.name, make_search_fn(stages, N, mesh),
+                (store, q, qm),
                 model_flops=flops,
                 note=f"stages={[s.vector for s in stages]}")
 
@@ -624,25 +787,24 @@ def variants(arch: str, shape_name: str) -> tuple:
     return SEARCH_VARIANTS if kind == "search" else VARIANTS
 
 
-def build_cell(arch: str, shape_name: str, device="cuda",
-               variant: str = "base", generator=None) -> Cell:
+def build_cell(arch: str, shape_name: str, device=None,
+               variant: str = "base", generator=None, mesh=None) -> Cell:
     """variant="base": the paper-faithful step.
     variant="opt": ``repro``'s beyond-baseline set:
       - MoE archs: ragged sorted dispatch instead of dense all-experts
       - equiformer: fused rotate+truncate / expand+rotate-back
       - recsys retrieval_cand: the paper's 2-stage prefetch->rerank
       - retriever search: int8 scan stage (+ the 2-stage cascade)
-    ``device`` defaults to the card (and raises without one); ``meta``
-    sizes a cell without allocating it."""
+    ``device`` defaults to the card (and raises without one), or with
+    ``mesh`` to the mesh's first device; ``meta`` sizes a cell without
+    allocating it. ``mesh`` runs the cell's per-shard bodies over it, and
+    raises for a cell that ``repro`` shards only through XLA."""
     cfg = get_config(arch)
     shape = get_shapes(arch)[shape_name]
     fam = cfg.family
-    if fam == "lm":
-        return build_lm_cell(arch, shape, device, variant, generator)
-    if fam == "gnn":
-        return build_gnn_cell(arch, shape, device, variant, generator)
-    if fam == "recsys":
-        return build_recsys_cell(arch, shape, device, variant, generator)
-    if fam == "retriever":
-        return build_retriever_cell(arch, shape, device, variant, generator)
+    by_family = {"lm": build_lm_cell, "gnn": build_gnn_cell,
+                "recsys": build_recsys_cell,
+                "retriever": build_retriever_cell}
+    if fam in by_family:
+        return by_family[fam](arch, shape, device, variant, generator, mesh)
     raise ValueError(fam)

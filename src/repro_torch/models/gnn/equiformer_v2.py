@@ -24,10 +24,12 @@ the radial gains of the edge pipeline (node features, norms and the head
 stay float32); attention logits are float32; SiLU and sigmoid follow
 ``jax.nn`` op for op (``models.layers``), so bfloat16 rounds where JAX
 rounds; zero-length edges are masked out of attention and aggregation.
-``cfg.remat`` checkpoints each layer (``torch.utils.checkpoint``), as
-``jax.checkpoint`` does under ``repro``'s scan. Float32 products run with
-TF32 off (``full_f32``). ``repro``'s ``param_specs`` is sharding and
-waits for the sharded mesh code.
+``cfg.remat`` checkpoints each layer (``distributed.shard_map.checkpoint``:
+``torch.utils.checkpoint``, replaying the vertex cut's exchange when the
+layer runs inside a ``shard_map`` body), as ``jax.checkpoint`` does under
+``repro``'s scan. Float32 products run with TF32 off (``full_f32``).
+``param_specs`` is ``repro``'s: the parameters are replicated on every
+mesh position.
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ from functools import partial
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.shard_map import checkpoint
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 from repro_torch.models.gnn import so3
 from repro_torch.models.gnn.graph import LocalEdges
@@ -277,6 +279,12 @@ class EquiformerV2(nn.Module):
                 p.copy_(v)
 
 
+def param_specs(cfg) -> str:
+    """``repro``'s layout of the GNN parameters (under 1 GB): replicated
+    on every mesh position."""
+    return "replicated"
+
+
 def init_params(cfg, d_feat: int, n_out: int,
                 generator: torch.Generator | None = None,
                 device="cuda") -> EquiformerV2:
@@ -487,7 +495,7 @@ def forward(cfg, model, plan, feat: torch.Tensor, pos: torch.Tensor):
     for p in model.layers:
         body = partial(_layer, cfg, p, plan, pos)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, use_reentrant=False)
+            x = checkpoint(body, x)
         else:
             x = body(x)
     x = eq_layernorm(x, model.ln_f, cfg)

@@ -12,9 +12,13 @@ Two plans expose the same interface to the model:
 - ``LocalEdges``: a plain COO edge list (small graphs, sampled
   minibatches, a batch of molecules as one disjoint union).
 - ``ShardedEdges``: the vertex-cut layout of ``partition_edges``, edges
-  bucketed by (src shard, dst shard). At one shard its ``exchange`` is the
-  identity; across shards it needs the ``all_to_all`` of the sharded mesh
-  code, which the port does not have yet, and raises.
+  bucketed by (src shard, dst shard), one shard's buckets inside a
+  ``shard_map`` body (``distributed.shard_map``): src gathers are local,
+  messages cross between positions once per layer through ``exchange``
+  (an ``all_to_all`` over the plan's ``axis_names``), dst aggregation is
+  a local segment sum. Positions are replicated, so both sides rebuild
+  the edge direction. At one shard with no axis names ``exchange`` is the
+  identity (the single-device cells).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import shard_map as SM
 
 NEG = -1e30
 
@@ -117,7 +123,7 @@ class LocalEdges:
 @dataclass
 class ShardedEdges:
     """Vertex-cut bucketed edges of one shard (``partition_edges``' arrays
-    at that shard's index).
+    at that shard's index), inside ``shard_map``.
 
     Send side (this shard owns the SRC nodes):
       esrc  [D, CAP] local src index, bucket row = dst shard
@@ -128,7 +134,9 @@ class ShardedEdges:
       rdst  [D, CAP] local dst index, bucket row = src shard
       rsrcg [D, CAP] global src id
       rmask [D, CAP]
-    D, the number of shards, must be 1: ``exchange`` across shards raises.
+    ``shard_offset`` is the global id of this shard's first node (the
+    body's ``axis_index(axis_names) * n_local``); ``axis_names`` the mesh
+    axes that form the flat shard axis (empty: one shard, no mesh).
     """
     esrc: torch.Tensor
     edstg: torch.Tensor
@@ -138,6 +146,7 @@ class ShardedEdges:
     rmask: torch.Tensor
     n_local: int              # nodes on this shard
     shard_offset: int         # global id of this shard's first node
+    axis_names: tuple = ()    # mesh axes forming the flat shard axis
 
     def gather_src(self, x):
         return x[self.esrc]
@@ -150,13 +159,21 @@ class ShardedEdges:
 
     def exchange(self, msgs):
         """[D, CAP, ...] bucket row=dst shard -> bucket row=src shard: the
-        identity at one shard."""
-        if self.esrc.shape[0] != 1:
-            raise NotImplementedError(
-                f"ShardedEdges.exchange across {self.esrc.shape[0]} shards "
-                "needs an all_to_all between devices, which belongs to the "
-                "sharded mesh code the port does not have yet (ROADMAP.md "
-                "section 1, 'Sharded engine and the mesh code')")
+        ``all_to_all`` over ``axis_names`` inside ``shard_map`` (the
+        identity at one shard without axis names)."""
+        d = self.esrc.shape[0]
+        if self.axis_names:
+            if not SM.in_shard_map():
+                raise RuntimeError(
+                    f"ShardedEdges.exchange across {d} shards is an "
+                    f"all_to_all over {self.axis_names}: call it inside a "
+                    "shard_map body (distributed.shard_map)")
+            return SM.all_to_all(msgs, self.axis_names, 0, 0, tiled=True)
+        if d != 1:
+            raise RuntimeError(
+                f"ShardedEdges.exchange across {d} shards needs the mesh "
+                "axes of its all_to_all (axis_names) and a shard_map body "
+                "(distributed.shard_map) to run in")
         return msgs
 
     def recv_mask(self):

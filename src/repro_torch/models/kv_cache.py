@@ -6,9 +6,10 @@ pattern (``transformer.segment_plan``). Sliding-window slots allocate only
 ``min(window, seq)`` positions: a ring buffer, which attention reads in
 any order because RoPE is applied to K before it is cached; unlike
 ``repro``'s, every window slot gets its ring (``repro``'s ``windowed=False``
-full-length variant has no caller). ``repro``'s ``cache_specs`` and
-``cache_logical_axes`` (dry-run and sharding helpers) wait for the sharded
-engine.
+full-length variant has no caller). ``cache_specs`` describes the caches
+without allocating them (meta tensors, the counterpart of ``repro``'s
+``ShapeDtypeStruct`` tree) and ``cache_logical_axes`` gives each cache
+leaf its logical sharding axes, as ``repro``'s do.
 """
 from __future__ import annotations
 
@@ -36,3 +37,29 @@ def init_cache(cfg, plan, batch: int, seq_len: int, dtype=torch.bfloat16,
                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
         segs.append(slots)
     return segs
+
+
+def cache_specs(cfg, plan, batch: int, seq_len: int,
+                dtype=torch.bfloat16) -> list:
+    """``init_cache``'s tree as storage-free ``meta`` tensors."""
+    segs = []
+    for reps, windows in plan:
+        slots = []
+        for w in windows:
+            sc = cache_len(w, seq_len)
+            shape = (reps, batch, sc, cfg.n_kv_heads, cfg.head_dim)
+            s = torch.empty(shape, dtype=dtype, device="meta")
+            slots.append({"k": s, "v": s})
+        segs.append(slots)
+    return segs
+
+
+def cache_logical_axes(cfg, plan, batch: int) -> list:
+    """Logical sharding axes per cache leaf: batch -> dp when shardable,
+    sequence -> sp ('model'); batch==1 long-context shards seq over
+    flat."""
+    batch_ax = "dp" if batch > 1 else None
+    seq_ax = "sp" if batch > 1 else "flat"
+    axes = (None, batch_ax, seq_ax, None, None)
+    return [[{"k": axes, "v": axes} for _ in windows]
+            for _, windows in plan]

@@ -1,6 +1,7 @@
 """Decoder-LM layers: RMSNorm, RoPE, GQA attention (sliding window and
 logit soft-capping, train / prefill / ring-buffer decode), the gated MLP
-and MoE (the dense all-expert baseline and the sorted ragged dispatch).
+and MoE (the dense all-expert baseline, the sorted ragged dispatch, and
+its expert-parallel body over a mesh, ``moe_ragged_ep``).
 
 The port of ``repro.models.layers``. Functions are plain functions on
 tensors; ``p`` is a mapping of parameter name to tensor (a layer's
@@ -323,13 +324,103 @@ def moe_params(cfg, gen=None, device="cpu") -> dict:
     }
 
 
-def ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
+# assignments the expert-parallel body was routed and kept: "assigned"
+# counts the (token, expert) pairs each position owns, "kept" those within
+# its capacity (the rest are dropped, GShard-style); host ints, summed
+# over calls until a caller zeroes them
+EP_STATS = {"assigned": 0, "kept": 0}
+
+
+def moe_ragged_ep(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Expert-parallel ragged dispatch (``repro``'s MoE hillclimb).
+
+    Inside ``shard_map`` over (dp x tp): each position routes its LOCAL
+    tokens, keeps only the (token, expert) assignments owned by its tp
+    shard (experts are tp-sharded), compacts them stably to a fixed
+    capacity (1.25x the expected local count; overflow drops), parks the
+    capacity padding in the last group (zeroed rows, weight 0), runs one
+    grouped product per projection over its local experts, scatters back
+    per token and ``psum``s the partial outputs over tp. ``shard`` is a
+    ``ShardingPolicy``; without a mesh this is ``moe_ragged``, as in
+    ``repro``. The group sizes are read on the host (one sync a layer and
+    position)."""
+    from repro_torch.distributed import shard_map as SM
+
+    mesh = shard.mesh if shard is not None else None
+    if mesh is None:
+        return moe_ragged(cfg, p, x)
+    moe = cfg.moe
+    act = _act(cfg.act)
+    B, S, D = x.shape
+    dp_axes = shard.rules["dp"]
+    tp_axes = shard.rules["tp"]
+    tp_ax = tp_axes[0] if isinstance(tp_axes, tuple) else tp_axes
+    tp_size = shard.axis_size("tp")
+    dp_size = shard.axis_size("dp")
+    if moe.n_experts % max(tp_size, 1):
+        raise ValueError(f"{moe.n_experts} experts do not split over tp = "
+                         f"{tp_size}")
+    e_loc = moe.n_experts // max(tp_size, 1)
+    t_loc = (B // max(dp_size, 1)) * S
+    cap = max(8, int(math.ceil(t_loc * moe.top_k * e_loc / moe.n_experts
+                               * 1.25 / 8.0)) * 8)
+
+    def body(xb, router, w1, w3, w2):
+        Bb, Ss, Dd = xb.shape
+        T = Bb * Ss
+        x2 = xb.reshape(T, Dd)
+        logits = x2 @ router.to(x2.dtype)
+        topv, topi = top_k(logits, moe.top_k)
+        topw = torch.softmax(topv.float(), dim=-1).to(x2.dtype)
+        my = SM.axis_index(tp_ax)
+        flat_e = topi.reshape(-1)
+        local = torch.div(flat_e, e_loc, rounding_mode="floor") == my
+        le = torch.where(local, flat_e % e_loc, e_loc)  # e_loc = not mine
+        order = torch.argsort(le, stable=True)[:cap]
+        le_sel = le.index_select(0, order)
+        valid = le_sel < e_loc
+        tok = torch.div(order, moe.top_k, rounding_mode="floor")
+        xs = x2.index_select(0, tok) * valid[:, None].to(x2.dtype)
+        counts = torch.bincount(le, minlength=e_loc + 1).tolist()[:e_loc]
+        # ``order`` is sorted by group and cut at ``cap``: group e keeps
+        # what of its count still fits after the groups before it
+        sizes, before = [], 0
+        for c in counts:
+            sizes.append(min(c, max(0, cap - before)))
+            before += c
+        EP_STATS["assigned"] += sum(counts)
+        EP_STATS["kept"] += sum(sizes)
+        # park the capacity padding in the last group
+        sizes[-1] += order.shape[0] - sum(sizes)
+        h = act(_ragged_dot(xs, w1.to(xs.dtype), sizes))
+        g = _ragged_dot(xs, w3.to(xs.dtype), sizes)
+        y = _ragged_dot(h * g, w2.to(xs.dtype), sizes)
+        w = topw.reshape(-1).index_select(0, order) * valid.to(x2.dtype)
+        out = torch.zeros((T, Dd), dtype=x2.dtype, device=x2.device
+                          ).index_add(0, tok, y * w[:, None])
+        out = SM.psum(out, tp_ax)
+        return out.reshape(Bb, Ss, Dd)
+
+    P = SM.P
+    return SM.shard_map(
+        body, mesh,
+        in_specs=(P(dp_axes, None, None), P(None, None),
+                  P(tp_ax, None, None), P(tp_ax, None, None),
+                  P(tp_ax, None, None)),
+        out_specs=P(dp_axes, None, None),
+    )(x, p["router"], p["w1"], p["w3"], p["w2"])
+
+
+def ffn(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """The layer's feed-forward: the gated MLP, or the MoE of
+    ``cfg.moe.impl``; ``ragged_ep`` runs its expert-parallel body when
+    ``shard`` (a ``ShardingPolicy``) has a mesh, ``moe_ragged`` without
+    one, as ``repro`` does."""
     if cfg.moe is None:
         return mlp(cfg, p, x)
-    if cfg.moe.impl in ("ragged", "ragged_ep"):
-        # "ragged_ep" is ``repro``'s expert-parallel shard_map body; on one
-        # device ``repro`` runs moe_ragged for it too. The body waits for
-        # the sharded engine.
+    if cfg.moe.impl == "ragged_ep":
+        return moe_ragged_ep(cfg, p, x, shard)
+    if cfg.moe.impl == "ragged":
         return moe_ragged(cfg, p, x)
     return moe_dense(cfg, p, x)
 

@@ -3,10 +3,12 @@
 
 Fields with a vocabulary of at least ``row_shard_threshold`` rows are
 concatenated into ONE table (``big``), the others into a second one
-(``small``), as ``repro`` lays them out; ``repro`` row-shards ``big`` over
-its model axis, the port runs on one device and keeps both whole.
-``repro``'s ``embedding_specs`` and ``lookup_shardmap`` are sharding and
-wait for the sharded engine.
+(``small``), as ``repro`` lays them out. ``big`` is row-sharded over the
+tp axis (``embedding_specs``; ``init_embedding(n_shards=)`` pads its rows
+to a multiple of the shards, as ``layout.padded_rows`` does), ``small`` is
+replicated. ``lookup_shardmap`` is the explicit per-shard lookup into the
+row-sharded table: a masked local take on each tp position's rows, then a
+``psum`` over tp (``distributed.shard_map``).
 
 Rows are taken with ``take_rows``, which gives ``jnp.take``'s results:
 negative ids wrap once, ids past either end give a row of NaN.
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import shard_map as SM
 from repro_torch.models.layers import _normal
 
 
@@ -71,7 +74,8 @@ class Embedding(nn.Module):
     host."""
 
     def __init__(self, layout: EmbeddingLayout,
-                 generator: torch.Generator | None = None, device="cpu"):
+                 generator: torch.Generator | None = None, device="cpu",
+                 n_shards: int = 1):
         super().__init__()
         self.layout = layout
         for part, fields in (("big", layout.big_fields),
@@ -79,12 +83,15 @@ class Embedding(nn.Module):
             if not fields:
                 continue
             offs, total = layout.offsets(fields)
+            if part == "big":
+                total = layout.padded_rows(max(total, 1), n_shards)
             setattr(self, part, nn.Parameter(_normal(
                 generator, (total, layout.dim), layout.dim ** -0.5, device)))
             self.register_buffer(f"{part}_fields", torch.tensor(
                 fields, dtype=torch.int64), persistent=False)
             self.register_buffer(f"{part}_offsets", torch.from_numpy(offs),
                                  persistent=False)
+        self.to(generator.device if generator is not None else device)
 
     def tables(self) -> list:
         """[(table, fields, offsets)] of the tables that exist."""
@@ -95,11 +102,22 @@ class Embedding(nn.Module):
 
 def init_embedding(layout: EmbeddingLayout,
                    generator: torch.Generator | None = None,
-                   device="cpu") -> Embedding:
-    """``repro``'s ``init_embedding`` on one device (no row padding for
-    shards): each table normal x ``dim ** -0.5``, drawn from
-    ``generator``, not from a JAX key."""
-    return Embedding(layout, generator, device)
+                   device="cpu", n_shards: int = 1) -> Embedding:
+    """``repro``'s ``init_embedding``: each table normal x ``dim ** -0.5``,
+    drawn from ``generator``, not from a JAX key; ``big``'s rows padded
+    to a multiple of ``n_shards``."""
+    return Embedding(layout, generator, device, n_shards)
+
+
+def embedding_specs(layout: EmbeddingLayout) -> dict:
+    """Logical axes of the tables: ``big`` row-sharded over tp, ``small``
+    replicated."""
+    out = {}
+    if layout.big_fields:
+        out["big"] = ("tp", None)
+    if layout.small_fields:
+        out["small"] = (None, None)
+    return out
 
 
 def lookup(emb: Embedding, idx: torch.Tensor) -> torch.Tensor:
@@ -111,6 +129,40 @@ def lookup(emb: Embedding, idx: torch.Tensor) -> torch.Tensor:
     out = tables[0][0].new_zeros((B, nf, emb.layout.dim))
     for table, fields, offs in tables:
         out[:, fields] = take_rows(table, idx[:, fields] + offs)
+    return out
+
+
+def lookup_shardmap(emb: Embedding, idx: torch.Tensor, shard) -> torch.Tensor:
+    """``lookup`` with the big table row-sharded over the policy's tp axis:
+    inside ``shard_map`` each tp position takes the rows it holds
+    (``clip``ped local ids, rows outside its slab zeroed) and the partial
+    rows are ``psum``'d over tp; ``small`` is taken whole. An id outside
+    every slab gives a zero row (``repro``'s masked take)."""
+    layout = emb.layout
+    B, nf = idx.shape
+    tables = emb.tables()
+    out = tables[0][0].new_zeros((B, nf, layout.dim))
+    tp_axes = shard.rules["tp"]
+    tp_ax = tp_axes[0] if isinstance(tp_axes, tuple) else tp_axes
+
+    def local(table_loc, gids):
+        rows = table_loc.shape[0]
+        loc = gids - SM.axis_index(tp_ax) * rows
+        ok = (loc >= 0) & (loc < rows)
+        got = F.embedding(loc.clamp(0, rows - 1), table_loc)
+        got = torch.where(ok[..., None], got, 0.0)
+        return SM.psum(got, tp_ax)
+
+    for part, (table, fields, offs) in zip(
+            [p for p in ("big", "small") if hasattr(emb, f"{p}_fields")],
+            tables):
+        gid = idx[:, fields] + offs
+        if part == "big":
+            out[:, fields] = SM.shard_map(
+                local, shard.mesh, in_specs=(SM.P(tp_ax, None), SM.P()),
+                out_specs=SM.P())(table, gid)
+        else:
+            out[:, fields] = take_rows(table, gid)
     return out
 
 

@@ -12,13 +12,18 @@ embedding tables in ``emb`` (``big``, ``small``), bert4rec's item table in
 row-wise Adagrad, as ``repro``'s does; lists of layers are
 ``nn.ModuleList``s of ``nn.ParameterDict``s (``cross.0.w``). The forward
 functions keep ``repro``'s names and take the model in place of the
-params tree; there is no ``shard`` argument (one device). ``repro``'s
-``param_specs`` is sharding and waits for the sharded engine.
+params tree. ``param_specs`` gives each parameter the logical axes
+``repro``'s cells place it by (the big embedding table and bert4rec's
+item table row-sharded over tp, the rest replicated).
 
 ``retrieval_step`` is the paper's multi-stage search on 10^6 candidates:
 a truncated-dim (Matryoshka-style) proxy prefetches ``prefetch_k``
 candidates, the full model reranks them exactly; ``stages=1`` scores every
-candidate with the full model. Selection is ``top_k``'s stable sort (equal
+candidate with the full model. With ``two_level_topk`` and a ``shard``
+policy whose mesh has more than one position along ``flat``, each
+selection over the candidates is ``repro``'s two-level top-k: a top-k per
+position over its slab of the scores inside ``shard_map``, then a merge of
+the S x k (score, id) pairs on the mesh's first device. Selection is ``top_k``'s stable sort (equal
 scores keep the lower index first, ``jax.lax.top_k``'s order). Products
 run in float32 with TF32 off (``full_f32``).
 """
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import shard_map as SM
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 from repro_torch.kernels.maxsim.ref import top_k as sorted_top_k
 from repro_torch.models.layers import _gelu, _normal
@@ -103,13 +109,13 @@ class RecsysModel(nn.Module):
     zero. ``device`` defaults to the card and raises without one."""
 
     def __init__(self, cfg, generator: torch.Generator | None = None,
-                 device="cuda"):
+                 device="cuda", n_shards: int = 1):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         g = generator
         if cfg.name == "dcn-v2":
-            self.emb = EMB.init_embedding(layout_of(cfg), g, dev)
+            self.emb = EMB.init_embedding(layout_of(cfg), g, dev, n_shards)
             d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
             self.cross = nn.ModuleList(
                 nn.ParameterDict({"w": _dense(g, (d0, d0), dev),
@@ -118,7 +124,7 @@ class RecsysModel(nn.Module):
             self.mlp = mlp_params(g, (d0,) + tuple(cfg.mlp), dev)
             self.out = mlp_params(g, (cfg.mlp[-1], 1), dev)
         elif cfg.name == "autoint":
-            self.emb = EMB.init_embedding(layout_of(cfg), g, dev)
+            self.emb = EMB.init_embedding(layout_of(cfg), g, dev, n_shards)
             d, da, H = cfg.embed_dim, cfg.d_attn, cfg.n_heads
             layers, din = [], d
             for _ in range(cfg.n_attn_layers):
@@ -146,7 +152,7 @@ class RecsysModel(nn.Module):
             }) for _ in range(cfg.n_blocks))
             self.ln_f = _zeros(d, dev)
         elif cfg.name == "dlrm-mlperf":
-            self.emb = EMB.init_embedding(layout_of(cfg), g, dev)
+            self.emb = EMB.init_embedding(layout_of(cfg), g, dev, n_shards)
             n_vec = cfg.n_sparse + 1
             top_in = n_vec * (n_vec - 1) // 2 + cfg.embed_dim
             self.bot = mlp_params(g, (cfg.n_dense,) + tuple(cfg.bot_mlp), dev)
@@ -202,10 +208,24 @@ class RecsysModel(nn.Module):
 
 
 def init_params(cfg, generator: torch.Generator | None = None,
-                device="cuda") -> RecsysModel:
+                device="cuda", n_shards: int = 1) -> RecsysModel:
     """A randomly initialised model (``repro``'s ``init_params``; the draws
-    come from ``generator``, not from a JAX key)."""
-    return RecsysModel(cfg, generator, device)
+    come from ``generator``, not from a JAX key); the big embedding
+    table's rows padded to a multiple of ``n_shards``."""
+    return RecsysModel(cfg, generator, device, n_shards)
+
+
+def _row_sharded(cfg, name: str) -> bool:
+    keys = name.split(".")
+    return "big" in keys or (cfg.name == "bert4rec" and "items" in keys)
+
+
+def param_specs(cfg, model) -> dict:
+    """Logical axes of each parameter of ``model`` by name, as ``repro``'s
+    cells place its params: the big embedding table (and bert4rec's item
+    table) row-sharded over tp, every other leaf replicated (``()``)."""
+    return {n: (("tp",) + (None,) * (p.ndim - 1) if _row_sharded(cfg, n)
+                else ()) for n, p in model.named_parameters()}
 
 
 def _tree_get(tree, name: str):
@@ -405,17 +425,40 @@ def _item_field(cfg) -> int:
 CAND_CHUNK = 32768
 
 
-def _topk(scores: torch.Tensor, k: int) -> tuple:
-    """Top-k over the candidates' scores: on one device ``repro``'s
-    ``_topk`` is ``lax.top_k`` with or without its two-level merge, which
-    waits for the sharded engine."""
-    return sorted_top_k(scores, k)
+def _topk(scores: torch.Tensor, k: int, shard=None,
+          two_level: bool = False) -> tuple:
+    """Top-k over the candidates' scores.
+
+    two_level=False: ``top_k`` over the whole score vector.
+    two_level=True (over a mesh with S > 1 positions along ``flat`` that
+    divide the N scores): inside ``shard_map`` each position takes the
+    top min(k, N/S) of its slab with global ids, and the S x k (score,
+    id) pairs are merged on the mesh's first device; equal scores keep
+    the lower id, as ``jax.lax.top_k`` keeps them.
+    """
+    n = scores.shape[0]
+    s = shard.axis_size("flat") if shard is not None else 1
+    if not two_level or s <= 1 or n % s:
+        return sorted_top_k(scores, k)
+    flat = shard._resolve("flat")
+    kk = min(k, n // s)
+
+    def local(seg):
+        v, i = sorted_top_k(seg, kk)
+        return v[None], (i + SM.axis_index(flat) * (n // s))[None]
+
+    P = SM.P
+    v, gid = SM.shard_map(local, shard.mesh, in_specs=P(flat),
+                          out_specs=(P(flat, None), P(flat, None)))(scores)
+    v2, j = sorted_top_k(v.reshape(-1), k)
+    return v2, gid.reshape(-1)[j]
 
 
 @torch.no_grad()
 def retrieval_step(cfg, model, batch, *, stages: int = 2,
                    prefetch_k: int = 256, top_k: int = 100,
-                   d_proxy: int = 16) -> tuple:
+                   d_proxy: int = 16, two_level_topk: bool = False,
+                   shard=None) -> tuple:
     """Score 1 query against N candidates; return (scores, ids) of top_k.
 
     stages=1: exact full-model scoring of every candidate (baseline).
@@ -424,6 +467,8 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
               ``batch["cand_proxy"]`` [N, d_proxy], when given, is the
               stage-1 proxy table in place of the item rows' prefixes.
     The CTR models score candidates ``CAND_CHUNK`` at a time.
+    ``two_level_topk`` selects over the candidates with the two-level
+    top-k over ``shard``'s mesh (``_topk``).
     """
     full_f32()
     cand = batch["candidates"]                         # [N] item ids
@@ -435,12 +480,13 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
             return take_rows(model.items, ids) @ q
 
         if stages == 1:
-            return _topk(exact(cand), top_k)
+            return _topk(exact(cand), top_k, shard, two_level_topk)
         if "cand_proxy" in batch:
             vec_p = batch["cand_proxy"]
         else:
             vec_p = take_rows(model.items, cand)[:, :d_proxy]
-        _, pre = _topk(vec_p @ q[:d_proxy], prefetch_k)
+        _, pre = _topk(vec_p @ q[:d_proxy], prefetch_k, shard,
+                       two_level_topk)
         sc, ix = sorted_top_k(exact(cand[pre]), top_k)
         return sc, pre[ix]
 
@@ -461,7 +507,7 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
                           for i in range(0, ids.shape[0], CAND_CHUNK)])
 
     if stages == 1:
-        return _topk(full_scores(cand), top_k)
+        return _topk(full_scores(cand), top_k, shard, two_level_topk)
     # stage 1: truncated-dim dot between user-context proxy and item embeds
     uvec = EMB.lookup(model.emb, base_sparse[None])[0]
     uq = uvec.mean(dim=0)[:d_proxy]                    # [d_proxy]
@@ -469,7 +515,7 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
         ivecs = batch["cand_proxy"]
     else:
         ivecs = _field_embedding(model.emb, fld, cand)[:, :d_proxy]
-    _, pre = _topk(ivecs @ uq, prefetch_k)
+    _, pre = _topk(ivecs @ uq, prefetch_k, shard, two_level_topk)
     sc, ix = sorted_top_k(full_scores(cand[pre]), top_k)
     return sc, pre[ix]
 

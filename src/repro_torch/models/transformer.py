@@ -17,10 +17,15 @@ scaled by ``d_model ** 0.5`` rounded to that dtype; the logits are the
 hidden states times the tied embedding, soft-capped, with the padded
 vocabulary masked to -1e30; the loss takes its chunks' logits to float32
 before the logsumexp. With ``dtype="float32"`` the products run in full
-float32 (``full_f32``: TF32 off). ``repro``'s ``param_specs``,
-``param_shardings`` and ``_layer_specs`` are sharding and wait for the
-sharded engine; the port runs on one device and has no ``shard``
-argument.
+float32 (``full_f32``: TF32 off).
+
+``param_specs``, ``param_shardings`` and ``_layer_specs`` are ``repro``'s
+logical axes of its params tree (``segments/<s>/<slot>`` stacks
+prepended with a rep axis). ``forward`` and ``loss_fn`` take a ``shard``
+policy as ``repro``'s do: the MoE's ``ragged_ep`` runs its
+expert-parallel body over the policy's mesh; the rest of the step runs
+on the model's device (``repro`` partitions it through XLA, which the
+port does not have yet).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import map_specs
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 from repro_torch.models import kv_cache as KV
 from repro_torch.models import layers as L
@@ -69,6 +75,72 @@ def padded_vocab(cfg, mult: int = 256) -> int:
 
 def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# logical sharding axes of ``repro``'s params tree
+# ---------------------------------------------------------------------------
+
+def _layer_specs(cfg, tp: int, dp: int) -> dict:
+    """Logical sharding axes per layer param (leading rep axis prepended).
+
+    Preference order per leaf:
+      1. tensor-parallel on the natural axis (heads / kv-heads / experts /
+         d_ff) when it divides tp;
+      2. otherwise ZeRO-style sharding over dp on the leading (d_model)
+         axis (``wo``: its last, d_model, axis);
+      3. otherwise replicated (norms).
+    """
+    tp, dp = max(tp, 1), max(dp, 1)
+    D = cfg.d_model
+
+    def zero(ndim):
+        return (None,) + ("dp",) + (None,) * (ndim - 1) \
+            if D % dp == 0 else (None,) * (ndim + 1)
+
+    heads_ok = cfg.n_heads % tp == 0
+    kv_ok = cfg.n_kv_heads % tp == 0
+    wo_zero = ((None, None, None, "dp") if D % dp == 0 else (None,) * 4)
+    attn = {
+        "wq": (None, None, "tp", None) if heads_ok else zero(3),
+        "wk": (None, None, "tp", None) if kv_ok else zero(3),
+        "wv": (None, None, "tp", None) if kv_ok else zero(3),
+        "wo": (None, "tp", None, None) if heads_ok else wo_zero,
+    }
+    if cfg.moe is not None:
+        ok = cfg.moe.n_experts % tp == 0
+        ffn = {"router": (None, None, None),
+               "w1": (None, "tp", None, None) if ok else (None,) * 4,
+               "w3": (None, "tp", None, None) if ok else (None,) * 4,
+               "w2": (None, "tp", None, None) if ok else (None,) * 4}
+    else:
+        ok = cfg.d_ff % tp == 0
+        ffn = {"w1": (None, None, "tp") if ok else zero(2),
+               "w3": (None, None, "tp") if ok else zero(2),
+               "w2": (None, "tp", None) if ok else (None, None, None)}
+    return {"ln1": (None, None), "attn": attn, "ln2": (None, None),
+            "ffn": ffn}
+
+
+def param_specs(cfg, tp: int = 1, dp: int = 1) -> dict:
+    """Logical axes of every leaf of ``repro``'s params tree (the tree of
+    ``DecoderLM.to_jax_leaves``' names: ``embed``, ``segments/<s>/<slot>``,
+    ``final_norm``)."""
+    per_layer = _layer_specs(cfg, tp, dp)
+    return {"embed": ("tp", None),
+            "segments": [[per_layer for _ in windows]
+                         for _, windows in segment_plan(cfg)],
+            "final_norm": (None,)}
+
+
+def param_shardings(cfg, shard):
+    """``param_specs`` at the policy's tp and dp as ``NamedSharding``s;
+    None without a mesh."""
+    if shard.mesh is None:
+        return None
+    return map_specs(lambda axes: shard.named(*axes),
+                     param_specs(cfg, shard.axis_size("tp"),
+                                 shard.axis_size("dp")))
 
 
 # ---------------------------------------------------------------------------
@@ -222,17 +294,17 @@ def params_from_jax(cfg, tree: dict, device="cuda") -> DecoderLM:
 # forward
 # ---------------------------------------------------------------------------
 
-def _block(cfg, p: Block, x, positions, cache=None, pos=None):
+def _block(cfg, p: Block, x, positions, cache=None, pos=None, shard=None):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     y, new_cache = L.attention(cfg, p.attn, h, positions, p.window,
                                kv_cache=cache, decode_pos=pos)
     x = x + y
     h = L.rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + L.ffn(cfg, p.ffn, h), new_cache
+    return x + L.ffn(cfg, p.ffn, h, shard), new_cache
 
 
-def _block_train(cfg, p: Block, x, positions):
-    return _block(cfg, p, x, positions)[0]
+def _block_train(cfg, p: Block, x, positions, shard=None):
+    return _block(cfg, p, x, positions, shard=shard)[0]
 
 
 def _embed(model, tokens: torch.Tensor) -> torch.Tensor:
@@ -251,11 +323,12 @@ def _layer_cache(caches, s: int, k: int, r: int) -> dict:
 
 
 def forward(model: DecoderLM, tokens: torch.Tensor,
-            caches: list | None = None):
+            caches: list | None = None, shard=None):
     """Train/prefill forward. tokens [B,S] -> hidden [B,S,D].
 
     When ``caches`` is given (prefill), each layer persists its K/V into
     its cache (in place); returns (hidden, caches), else hidden only.
+    ``shard`` (a ``ShardingPolicy``) reaches the MoE (``L.ffn``).
     """
     cfg = model.cfg
     x = _embed(model, tokens)
@@ -264,12 +337,12 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
     for blk, (s, k, r, _) in zip(model.layers, layer_order(cfg)):
         if caches is not None:
             x, _ = _block(cfg, blk, x, positions,
-                          cache=_layer_cache(caches, s, k, r))
+                          cache=_layer_cache(caches, s, k, r), shard=shard)
         elif remat:
-            x = checkpoint(_block_train, cfg, blk, x, positions,
+            x = checkpoint(_block_train, cfg, blk, x, positions, shard,
                            use_reentrant=False)
         else:
-            x = _block_train(cfg, blk, x, positions)
+            x = _block_train(cfg, blk, x, positions, shard)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if caches is not None:
         return x, caches
@@ -328,8 +401,8 @@ def lm_loss(model: DecoderLM, hidden: torch.Tensor,
 # step functions
 # ---------------------------------------------------------------------------
 
-def loss_fn(model: DecoderLM, batch: dict) -> torch.Tensor:
-    h = forward(model, batch["tokens"])
+def loss_fn(model: DecoderLM, batch: dict, shard=None) -> torch.Tensor:
+    h = forward(model, batch["tokens"], shard=shard)
     return lm_loss(model, h, batch["labels"])
 
 

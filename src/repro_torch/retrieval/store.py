@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import split
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.maxsim.ops import quantize_int8
 
@@ -255,19 +256,13 @@ def split_slabs(vectors: dict, mesh, copy: bool = False) -> tuple:
     n_local, (r + 1) * n_local)`` of every row-split tensor on the r-th
     device, with ``n_local = N // S``; a replicated tensor goes whole to
     every shard. ``copy`` gives every slab its own storage; a slab on the
-    tensor's own device is otherwise a view."""
+    tensor's own device is otherwise a view. The rows split by
+    ``distributed.sharding.split``, the rule ``shard_map`` splits by."""
     specs = store_shardings(mesh, vectors)
-    devices = tuple(mesh.devices.flat)
-    s = len(devices)
-    n = next(v.shape[0] for k, v in vectors.items() if specs[k])
-    if n % s:
-        raise ValueError(f"{n} rows do not split over {s} shards")
-    n_local = n // s
-    return tuple(
-        {k: (v[r * n_local:(r + 1) * n_local] if specs[k] else v
-             ).to(dev, copy=copy)
-         for k, v in vectors.items()}
-        for r, dev in enumerate(devices))
+    per_key = {k: split(v, mesh, specs[k], copy=copy)
+               for k, v in vectors.items()}
+    return tuple({k: slabs[r] for k, slabs in per_key.items()}
+                 for r in range(mesh.size))
 
 
 # ---------------------------------------------------------------------------

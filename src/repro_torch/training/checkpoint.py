@@ -42,6 +42,8 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import device_put
+
 _SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
            np.dtype(np.uint64): np.int64}
 
@@ -177,11 +179,15 @@ def load_meta(ckpt_dir: str, step: int | None = None) -> dict:
 
 
 def restore(ckpt_dir: str, step: int | None = None,
-            device="cpu") -> tuple:
+            device="cpu", shardings=None) -> tuple:
     """Load a checkpoint step (default: LATEST): ``(leaves, meta)`` with
     ``leaves`` a list of tensors on ``device`` in save order. Leaves are
     read one at a time and their CRC32 verified before use; a mismatch
-    raises ``CheckpointCorrupt`` naming the leaf."""
+    raises ``CheckpointCorrupt`` naming the leaf. ``shardings``, a list
+    of ``NamedSharding`` or None per leaf, places each leaf on its mesh as
+    it is read (``distributed.sharding.device_put``: a ``Sharded`` of
+    slabs, each its own copy on its position's device), the restart onto
+    another topology."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -190,6 +196,9 @@ def restore(ckpt_dir: str, step: int | None = None,
         meta = json.load(f)
     sums = meta.get("checksums")
     names = meta.get("leaf_names") or []
+    if shardings is not None and len(shardings) != len(meta["shapes"]):
+        raise ValueError(f"{len(shardings)} shardings for "
+                         f"{len(meta['shapes'])} leaves")
     dev = torch.device(device)
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -213,5 +222,11 @@ def restore(ckpt_dir: str, step: int | None = None,
                 raise CheckpointCorrupt(
                     f"checkpoint {path}: leaf {i} has shape {a.shape}, "
                     f"meta records {tuple(shape)}")
-            out.append(_as_tensor(a, dtype_name, dev))
+            sh = shardings[i] if shardings is not None else None
+            if sh is None:
+                out.append(_as_tensor(a, dtype_name, dev))
+            else:
+                out.append(device_put(_as_tensor(a, dtype_name,
+                                                 torch.device("cpu")), sh,
+                                      copy=True))
     return out, meta

@@ -111,6 +111,18 @@ def init_opt_state(params: dict, labels: dict | None = None) -> dict:
                          for n, p in params.items()}}
 
 
+def opt_state_specs(param_specs: dict, labels: dict) -> dict:
+    """Logical axes of ``init_opt_state``'s tree from each parameter's
+    (``param_specs``, a dict by name like ``labels``): adamw moments take
+    the parameter's axes, a row-wise accumulator its first axis."""
+    def leaf_spec(spec, lab):
+        if lab == "rowwise":
+            return {"acc": tuple(spec)[:1]}
+        return {"m": spec, "v": spec}
+    return {"step": (), "per_leaf": {n: leaf_spec(s, labels[n])
+                                     for n, s in param_specs.items()}}
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor (float32)."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))

@@ -351,7 +351,8 @@ def test_sharded_edges_one_shard_match_local():
     """``tests/test_archs.py``'s check on the port: the vertex-cut plan of
     one shard gives the plain COO plan's forward; ``partition_edges``'
     arrays equal ``repro``'s at 1, 2 and 3 shards (a cap that drops
-    edges included); ``exchange`` across 2 shards raises."""
+    edges included); ``exchange`` across 2 shards raises outside a
+    ``shard_map`` body, with or without the plan's axis names."""
     rng = np.random.default_rng(6)
     n, e = 16, 60
     src = rng.integers(0, n, e).astype(np.int64)
@@ -386,12 +387,15 @@ def test_sharded_edges_one_shard_match_local():
                                jnp.ones(e, bool), n), f, ps))(jp, feat, pos),
           "local vs repro")
     two = G.partition_edges(src, dst, n, 2)
-    sh2 = G.ShardedEdges(
-        **{k: torch.as_tensor(two[k][0]) for k in
-           ("esrc", "edstg", "emask", "rdst", "rsrcg", "rmask")},
-        n_local=8, shard_offset=0)
-    with pytest.raises(NotImplementedError, match="2 shards"):
-        sh2.exchange(torch.zeros(2, two["cap"], 3))
+    for axes, msg in (((), "2 shards needs the mesh axes"),
+                      (("data",), "2 shards is an all_to_all over "
+                                  r"\('data',\): call it inside a shard_map")):
+        sh2 = G.ShardedEdges(
+            **{k: torch.as_tensor(two[k][0]) for k in
+               ("esrc", "edstg", "emask", "rdst", "rsrcg", "rmask")},
+            n_local=8, shard_offset=0, axis_names=axes)
+        with pytest.raises(RuntimeError, match=msg):
+            sh2.exchange(torch.zeros(2, two["cap"], 3))
 
 
 # ---------------------------------------------------------------------------
