@@ -332,6 +332,33 @@ line) at the first phase that goes wrong:
             ``shardings=``: every slab equals its slice bit for bit.
             Nothing here launches a hand-written kernel (the bodies are
             ``repro``'s einsum, take and segment work);
+4r. part   the partitioned cells (``repro``'s ``jax.jit(...,
+            in_shardings=...)`` cells: every argument placed as per-position
+            slabs by its sharding, the step on the slabs with explicit
+            collectives) on 4 positions of this one card, after 4q: (a) at
+            the CPU tests' sizes in f32 on ``["cuda:0"] * 4`` against
+            ``["cpu"] * 4``: minicpm-2b train base on (2, 2), the 3-head
+            1-kv-head ZeRO + ``seq`` configuration train on (2, 2) (loss
+            rtol 1e-5, every moment, 0.1 x the clip-scaled gradient, rtol
+            1e-3, atol 1e-7), gemma3-4b (windows of 8) prefill and 4 decode
+            steps (logits rtol 1e-5, atol 1e-5), ``molecule`` on (4, 1) with
+            f32 messages, colpali train on (4, 1), colpali index on (4, 1)
+            (each position's f32 pooled vectors rtol 1e-5, atol 1e-5); (b)
+            at full width beside the one-device cell on the same weights
+            and batch (ms per step or call, each position's parameter and
+            optimizer-state bytes beside the whole, bytes between positions
+            per collective, peak memory): minicpm-2b ``train_4k`` base on
+            (2, 2) at 16 of its 40 layers (the placed state of 4 positions
+            on one card), batch 2 x 4096, bf16 (first-step loss within rtol
+            2e-3 of the one-device step); granite-moe base (``moe_dense``,
+            experts over tp = 4) f32 at 4l (d)'s batch; colpali
+            ``train_contrastive`` on (4, 1) at batch 16; ``molecule`` on (4,
+            1) at its full shape; gemma3-4b f32 prefill 2 x 2048 on (1, 4)
+            (last logits rtol 1e-5, atol 1e-5) and 16 decode steps on (2, 2)
+            fed the one-device greedy tokens (the same greedy token apart
+            from near-ties within 1e-4); colpali ``index_1m`` on (4, 1), 256
+            pages, ``pool.cu`` launched once a position and call (its
+            launches join the kernels line);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -5754,6 +5781,509 @@ def shard_path(args, dev, lm) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 4r. the partitioned cells (placed slabs, a partitioned train step)
+# ---------------------------------------------------------------------------
+
+PART_SIZES = dict(timed=2, lm_layers=16, lm_batch=2, lm_seq=4096,
+                  moe_batch=(4, 256), gemma_batch=2, gemma_seq=2048,
+                  n_dec=16, colpali_batch=16, index_pages=256)
+# the CPU tests' LM configs (``tests/test_torch_partitioned_lm.py``)
+PART_LM = {"minicpm": ("minicpm-2b", {}),
+           "gemma3": ("gemma3-4b", {"attn_pattern": (8,) * 5 + (0,)}),
+           "zero_seq": ("gemma2-9b", {"n_heads": 3, "n_kv_heads": 1,
+                                      "d_ff": 255, "attn_pattern": (8, 0)})}
+
+
+def part_lm_cfg(name: str):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    arch, over = PART_LM[name]
+    return dataclasses.replace(TR.reduced_lm(get_config(arch)),
+                               vocab_size=500, **over)
+
+
+class patched_config:
+    """``launch/cells.py``'s ``get_config`` returning ``cfg`` inside."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def __enter__(self):
+        from repro_torch.launch import cells as C
+        self.old, C.get_config = C.get_config, lambda arch: self.cfg
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import cells as C
+        C.get_config = self.old
+
+
+def part_shape(kind: str, **dims):
+    from repro_torch.configs import ShapeSpec
+    name = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k", "index": "index_1m",
+            "batched_graphs": "molecule"}.get(kind, kind)
+    return ShapeSpec(name, kind, dims)
+
+
+def part_step_close(what, card, cpu, lr):
+    """(a) a train cell's step on the card against the CPU mesh: loss
+    (rtol 1e-5), grad_norm, every moment (0.1 x the clip-scaled
+    gradient: rtol 1e-3, atol 1e-7) and parameter (rtol 1e-5, atol 2
+    lr: Adam's first step is a sign)."""
+    (mg, pg, og), (mc, pc, oc_) = card, cpu
+    lg, lc = float(mg["loss"]), float(mc["loss"])
+    check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+          f"(a) {what}: card loss {lg!r} != CPU mesh {lc!r} (rtol 1e-5)")
+    worst = 0.0
+    for n in pg:
+        worst = max(worst, close(og["per_leaf"][n]["m"].gather(),
+                                 oc_["per_leaf"][n]["m"].gather(), 1e-3,
+                                 1e-7, f"(a) {what} moment {n}"))
+        close(pg[n].gather(), pc[n].gather(), 1e-5, 2 * lr,
+              f"(a) {what} parameter {n}")
+    return dict(loss_rel=abs(lg - lc) / abs(lc), moment_abs=worst,
+                gn=(float(mg["grad_norm"]), float(mc["grad_norm"])))
+
+
+def part_card_vs_cpu(args) -> dict:
+    """(a) each partitioned cell at the CPU tests' sizes in f32 on
+    ``["cuda:0"] * 4`` against ``["cpu"] * 4``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import device_put
+    from repro_torch.kernels import pooling as POPS
+    from repro_torch.launch import cells as C
+    from repro_torch.models.gnn import equiformer_v2 as E
+
+    out = {}
+    m22 = shard_meshes((2, 2), ("data", "model"))
+    m41 = shard_meshes((4, 1), ("data", "model"))
+
+    def gen():
+        return torch.Generator().manual_seed(args.seed)
+
+    def train(what, build, meshes):
+        res = []
+        for mesh in meshes:
+            c = build(mesh)
+            m = c.fn(*c.args)
+            res.append((m, c.args[0], c.args[1]))
+        r = part_step_close(what, res[0], res[1], float(res[1][0]["lr"]))
+        log(f"[partitioned] (a) {what}: loss {float(res[0][0]['loss']):.7f}"
+            f" vs CPU mesh {float(res[1][0]['loss']):.7f} (rel err "
+            f"{r['loss_rel']:.2e}, rtol 1e-5), grad_norm {r['gn'][0]:.7f} "
+            f"vs {r['gn'][1]:.7f}; every moment within rtol 1e-3, atol 1e-7"
+            f" (max abs err {r['moment_abs']:.2e}), parameters rtol 1e-5")
+        return r
+
+    for name in ("minicpm", "zero_seq"):
+        cfg = part_lm_cfg(name)
+        with patched_config(cfg):
+            out[name] = train(
+                f"{name} train base on (2, 2), batch 32 x 16",
+                lambda mesh: C.build_lm_cell(
+                    PART_LM[name][0], part_shape("train", seq_len=16,
+                                                 global_batch=32),
+                    variant="base", generator=gen(), mesh=mesh), m22)
+    # prefill + 4 decode steps (gemma3, windows of 8: the ring wraps),
+    # both meshes fed the same tokens
+    cfg = part_lm_cfg("gemma3")
+    toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (4, 4, 1)).astype(np.int32))
+    res = []
+    with patched_config(cfg):
+        for mesh in m22:
+            p = C.build_lm_cell("gemma3-4b", part_shape(
+                "prefill", seq_len=12, global_batch=4), generator=gen(),
+                mesh=mesh)
+            logits, caches = p.fn(*p.args)
+            d = C.build_lm_cell("gemma3-4b", part_shape(
+                "decode", seq_len=12, global_batch=4), generator=gen(),
+                mesh=mesh)
+            caches = device_put([[{k: v.gather() for k, v in s.items()}
+                                  for s in seg] for seg in caches],
+                                [[{k: v.sharding for k, v in s.items()}
+                                  for s in seg] for seg in d.args[1]],
+                                copy=True)
+            steps = [logits]
+            for i in range(4):
+                steps.append(d.fn(d.args[0], caches, device_put(
+                    toks[i], d.args[2].sharding, copy=True), device_put(
+                    torch.tensor(12 + i, dtype=torch.int32),
+                    d.args[3].sharding, copy=True)))
+            res.append(steps)
+    worst = max(close(g, c, 1e-5, 1e-5, f"(a) gemma3 prefill/decode {i}")
+                for i, (g, c) in enumerate(zip(*res)))
+    out["decode"] = worst
+    log(f"[partitioned] (a) gemma3 reduced (windows of 8) prefill 4 x 12 "
+        f"on (2, 2) + 4 decode steps (ring slots 4-7): logits within rtol "
+        f"1e-5, atol 1e-5 of the CPU mesh, max abs err {worst:.2e}")
+    # molecule, f32 messages
+    gcfg = gnn_reduced()
+    msg = E._msg_dtype
+    E._msg_dtype = lambda c: torch.float32
+    try:
+        with patched_config(gcfg):
+            out["molecule"] = train(
+                "molecule on (4, 1), 8 graphs, f32 messages",
+                lambda mesh: C.build_gnn_cell(
+                    "equiformer-v2", part_shape(
+                        "batched_graphs", n_nodes=6, n_edges=12, batch=8,
+                        d_feat=4), generator=gen(), mesh=mesh), m41)
+    finally:
+        E._msg_dtype = msg
+    # colpali train and index (the encoder tests' small config)
+    rcfg = dataclasses.replace(
+        get_config("colpali"), d_model=64, n_layers=2, n_heads=4, d_ff=128,
+        grid_h=8, grid_w=8, n_tiles=3, tile_patches=16, max_rows=8,
+        query_vocab=128)
+    with patched_config(rcfg):
+        out["colpali"] = train(
+            "colpali train_contrastive on (4, 1), batch 8",
+            lambda mesh: C.build_retriever_cell(
+                "colpali", part_shape("train", global_batch=8),
+                generator=gen(), mesh=mesh), m41)
+        pooled = []
+        fused = POPS.pool_pages_fused
+
+        def keep(*a):
+            y = fused(*a)
+            pooled.append(y.detach().float().cpu())
+            return y
+        POPS.pool_pages_fused = keep
+        try:
+            outs = []
+            for mesh in m41:
+                c = C.build_retriever_cell("colpali", part_shape(
+                    "index", pages_per_step=8, corpus=100), generator=gen(),
+                    mesh=mesh)
+                with torch.inference_mode():
+                    outs.append(c.fn(*c.args))
+        finally:
+            POPS.pool_pages_fused = fused
+    check(len(pooled) == 8, f"(a) index: {len(pooled)} pooling calls, want "
+          "one per position on each mesh")
+    worst = max(close(g, c, 1e-5, 1e-5, f"(a) index pooled, position {i}")
+                for i, (g, c) in enumerate(zip(pooled[:4], pooled[4:])))
+    vg, vc = outs[0][0].float().cpu(), outs[1][0].float()
+    step = float(((vg - vc).abs() / (vc.abs() * 2.0 ** -7 + 1e-6)).max())
+    check(step <= 1.0, "(a) index vectors: the card's bf16 vectors are more "
+          "than one bf16 step from the CPU mesh's")
+    out["index"] = worst
+    log(f"[partitioned] (a) colpali index_1m on (4, 1), 8 pages: each "
+        f"position's f32 pooled vectors (pool.cu on the card) within rtol "
+        f"1e-5, atol 1e-5 of the CPU mesh's, max abs err {worst:.2e}; the "
+        f"bf16 vectors within one bf16 step ({step:.2f} of one)")
+    return out
+
+
+def part_state_line(params, opt=None) -> str:
+    from repro_torch.distributed import placement as PL
+    line = (f"per position params {PL.slab_bytes(params) / 1e9:.3f} GB of "
+            f"{PL.whole_bytes(params) / 1e9:.3f} GB whole")
+    if opt is not None:
+        line += (f", optimizer state {PL.slab_bytes(opt) / 1e9:.3f} of "
+                 f"{PL.whole_bytes(opt) / 1e9:.3f} GB")
+    return line
+
+
+def part_traffic_line(steps: int) -> str:
+    from repro_torch.distributed import shard_map as SM
+    return "bytes between positions a call: " + (", ".join(
+        f"{k} {v / steps / 1e6:.1f} MB" for k, v in SM.TRAFFIC.items() if v)
+        or "none")
+
+
+def part_timed(fn, n: int) -> tuple:
+    """(outputs, ms of the timed calls): one warm-up call, then ``n``
+    calls timed by CUDA events; TRAFFIC counts the timed calls."""
+    from repro_torch.distributed import shard_map as SM
+    outs = [fn()]
+    torch.cuda.synchronize()
+    for k in SM.TRAFFIC:
+        SM.TRAFFIC[k] = 0
+    times = []
+    for _ in range(n):
+        o, ms = event_ms(fn)
+        outs.append(o)
+        times.append(ms)
+    return outs, times
+
+
+def part_train_pair(what, build, schedule, mesh, rtol, n) -> dict:
+    """A train cell on one device, then partitioned over ``mesh`` from the
+    same generator seed (the same weights and batch): ms per step of
+    each, the first step's losses within ``rtol``, every loss finite."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    c = build(None)
+    outs, t1 = part_timed(lambda: c.fn(*c.args), n)
+    l1 = [float(m["loss"]) for m in outs]
+    del c, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = build(mesh)
+    outs, tp = part_timed(lambda: c.fn(*c.args), n)
+    lp = [float(m["loss"]) for m in outs]
+    lrs = [float(m["lr"]) for m in outs]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(lp + l1)), f"(b) {what}: non-finite loss")
+    gap = abs(lp[0] - l1[0]) / abs(l1[0])
+    check(gap <= rtol, f"(b) {what}: partitioned loss {lp[0]!r} vs one "
+          f"device {l1[0]!r} (rel gap {gap:.2e} > {rtol})")
+    want_lr = [float(x) for x in schedule(torch.arange(
+        1, len(lrs) + 1, dtype=torch.int32))]
+    check(np.allclose(lrs, want_lr, rtol=1e-6), f"(b) {what}: lr {lrs} "
+          f"!= the schedule's {want_lr}")
+    ms, one = statistics.median(tp), statistics.median(t1)
+    log(f"[partitioned] (b) {what}: {ms:.1f} ms/step (median of {n}; one "
+        f"device {one:.1f}, ratio {ms / one:.2f}); first-step loss "
+        f"{lp[0]:.6f} vs one device {l1[0]:.6f} (rel gap {gap:.2e}, limit "
+        f"{rtol}); losses " + " ".join(f"{x:.5f}" for x in lp)
+        + f", lr the schedule's; {part_state_line(c.args[0], c.args[1])}; "
+        f"{part_traffic_line(n)}; peak {peak:.2f} GB; "
+        f"{time.perf_counter() - t0:.1f}s")
+    del c, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=ms, one_ms=one, gap=gap, peak_gb=peak)
+
+
+def part_full(args, dev) -> dict:
+    """(b) the partitioned cells at full width against the one-device
+    cells on the same weights and inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch as DSP
+    from repro_torch.launch import cells as C
+    from repro_torch.training import optimizer as OPT
+
+    card22, _ = shard_meshes((2, 2), ("data", "model"))
+    card14, _ = shard_meshes((1, 4), ("data", "model"))
+    card41, _ = shard_meshes((4, 1), ("data", "model"))
+    n = PART_SIZES["timed"]
+    out = {}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(args.seed)
+
+    cosine = OPT.make_schedule(OPT.OptConfig())
+
+    # minicpm-2b train_4k base on (2, 2), one sequence per dp position
+    cfg = dataclasses.replace(get_config("minicpm-2b"),
+                              n_layers=PART_SIZES["lm_layers"])
+    shape = part_shape("train", seq_len=PART_SIZES["lm_seq"],
+                       global_batch=PART_SIZES["lm_batch"])
+    with patched_config(cfg):
+        out["minicpm"] = part_train_pair(
+            f"minicpm-2b train_4k base, {cfg.n_layers} of 40 layers, batch "
+            f"{shape.global_batch} x {shape.seq_len}, bf16, on (2, 2)",
+            lambda mesh: C.build_lm_cell("minicpm-2b", shape, dev,
+                                         generator=gen(), mesh=mesh),
+            OPT.make_schedule(OPT.OptConfig(schedule="wsd")), card22, 2e-3,
+            n)
+    # granite-moe base (moe_dense, experts over tp = 4), f32, 4l (d)'s batch
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              dtype="float32")
+    B, S = PART_SIZES["moe_batch"]
+    shape = part_shape("train", seq_len=S, global_batch=B)
+    with patched_config(cfg):
+        out["granite"] = part_train_pair(
+            f"granite-moe-1b-a400m train base (moe_dense, experts over tp "
+            f"= 4), f32, batch {B} x {S}, on (1, 4)",
+            lambda mesh: C.build_lm_cell("granite-moe-1b-a400m", shape, dev,
+                                         generator=gen(), mesh=mesh),
+            cosine, card14, 1e-5, n)
+    # colpali train_contrastive on (4, 1) at batch 16
+    shape = part_shape("train", global_batch=PART_SIZES["colpali_batch"])
+    out["colpali"] = part_train_pair(
+        f"colpali train_contrastive ({get_config('colpali').n_layers} "
+        f"layers, f32), batch "
+        f"{shape.global_batch}, on (4, 1)",
+        lambda mesh: C.build_retriever_cell("colpali", shape, dev,
+                                            generator=gen(), mesh=mesh),
+        cosine, card41, 1e-4, n)
+    # molecule at its full shape on (4, 1)
+    shape = get_shape("equiformer-v2", "molecule")
+    out["molecule"] = part_train_pair(
+        f"equiformer-v2 molecule ({shape.batch} graphs of "
+        f"{shape.n_nodes} nodes, bf16 messages) on (4, 1)",
+        lambda mesh: C.build_gnn_cell("equiformer-v2", shape, dev,
+                                      generator=gen(), mesh=mesh),
+        cosine, card41, 2.0 ** -8, n)
+    out["gemma3"] = part_gemma(args, dev, card14, card22)
+    # colpali index_1m on (4, 1): pool.cu on every position
+    torch.cuda.empty_cache()
+    shape = part_shape("index", pages_per_step=PART_SIZES["index_pages"],
+                       corpus=1_000_000)
+    one = C.build_retriever_cell("colpali", shape, dev, generator=gen())
+    with torch.inference_mode():
+        o1, t1 = part_timed(lambda: one.fn(*one.args), n)
+    del one
+    c = C.build_retriever_cell("colpali", shape, dev, generator=gen(),
+                               mesh=card41)
+    DSP.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        op, tp = part_timed(lambda: c.fn(*c.args), n)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool_launches = DSP.launch_count("pooling")
+    check(pool_launches == 4 * (1 + n), f"(b) index: pool.cu launched "
+          f"{pool_launches} times, want one per position and call "
+          f"({4 * (1 + n)})")
+    same_bits(op[0][0], o1[0][0], "(b) index vectors (mesh vs one device)")
+    off = (op[0][1].float() - o1[0][1].float()).abs()
+    check(bool((off <= 2.0 ** -7 * o1[0][1].float().abs() + 1e-6).all()),
+          "(b) index: pooled vectors more than one bf16 step from the "
+          "one-device cell's")
+    ms, ms1 = statistics.median(tp), statistics.median(t1)
+    log(f"[partitioned] (b) colpali index_1m, {shape.pages_per_step} pages "
+        f"on (4, 1): {ms:.1f} ms a call (median of {n}; one device "
+        f"{ms1:.1f}, ratio {ms / ms1:.2f}), "
+        f"{shape.pages_per_step / (ms / 1e3):.1f} pages/s; pool.cu launched "
+        f"{pool_launches} times ({1 + n} calls x 4 positions); vectors bit "
+        f"for bit and pooled within one bf16 step of the one-device cell "
+        f"(max {float(off.max()):.2e}); {part_traffic_line(n)}; peak "
+        f"{peak:.2f} GB")
+    out["index"] = dict(ms=ms, one_ms=ms1, launches=pool_launches)
+    del c, op, o1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def part_gemma(args, dev, card14, card22) -> dict:
+    """gemma3-4b at full width in f32: prefill on (1, 4) against the
+    one-device prefill (last logits), then 16 decode steps on (2, 2) from
+    the one-device prefill's caches, fed the one-device greedy tokens:
+    the partitioned greedy token equals the one-device one apart from
+    near-ties within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shard_map as SM
+    from repro_torch.distributed.sharding import ShardingPolicy, device_put
+    from repro_torch.launch import cells as C
+    from repro_torch.models import kv_cache as KV
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32")
+    B, S, n_dec = (PART_SIZES["gemma_batch"], PART_SIZES["gemma_seq"],
+                   PART_SIZES["n_dec"])
+    n = PART_SIZES["timed"]
+    torch.cuda.empty_cache()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(args.seed)
+    with patched_config(cfg):
+        one = C.build_lm_cell("gemma3-4b", part_shape(
+            "prefill", seq_len=S, global_batch=B), dev, generator=gen())
+        model, batch = one.args
+        with torch.no_grad():
+            o1, t1 = part_timed(lambda: T.prefill_step(
+                model, batch, decode_budget=n_dec), n)
+        logits1, caches1 = o1[0]
+        del o1
+        p = C.build_lm_cell("gemma3-4b", part_shape(
+            "prefill", seq_len=S, global_batch=B), dev, generator=gen(),
+            mesh=card14)
+        torch.cuda.reset_peak_memory_stats()
+        op, tp = part_timed(lambda: p.fn(*p.args), n)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        near_pf = greedy_match(op[0][0], logits1, "(b) gemma3 prefill")
+        err = float((op[0][0].float() - logits1.float()).abs().max())
+        pf = (statistics.median(tp), statistics.median(t1))
+        log(f"[partitioned] (b) gemma3-4b prefill {B} x {S}, f32, on "
+            f"(1, 4) (Megatron-SP residual): {pf[0]:.1f} ms (median of {n};"
+            f" one device {pf[1]:.1f}, ratio {pf[0] / pf[1]:.2f}); the last "
+            f"position's greedy tokens equal the one-device prefill's "
+            f"({near_pf} near-ties within 1e-4), logits max abs err "
+            f"{err:.2e}; "
+            f"{part_state_line(p.args[0])}; {part_traffic_line(n)}; "
+            f"peak {peak:.2f} GB")
+        del p, op
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the prefill's caches placed on (2, 2) before the one-device
+        # greedy decode writes them; then the same tokens on (2, 2)
+        pol = ShardingPolicy(card22)
+        caches = device_put(caches1, KV.cache_shardings(
+            cfg, T.segment_plan(cfg), B, pol), copy=True)
+        with torch.no_grad():
+            tok = logits1.argmax(-1)
+            ones, steps1, t_one = [], [], []
+            for i in range(n_dec):
+                (lg, _), ms = event_ms(lambda: T.decode_step(
+                    model, caches1, tok, S + i))
+                steps1.append(lg)
+                ones.append(tok)
+                t_one.append(ms)
+                tok = lg.argmax(-1)
+        del caches1
+        d = C.build_lm_cell("gemma3-4b", part_shape(
+            "decode", seq_len=S + n_dec, global_batch=B), dev,
+            generator=gen(), mesh=card22)
+        check(all(a.sharding == b.sharding for sa, sb in zip(caches, d.args[1])
+                  for xa, xb in zip(sa, sb) for a, b in
+                  ((xa["k"], xb["k"]), (xa["v"], xb["v"]))),
+              "(b) gemma3: the placed caches' shardings are not the decode "
+              "cell's")
+        near, t_part, worst = 0, [], 0.0
+        for k in SM.TRAFFIC:
+            SM.TRAFFIC[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_dec):
+            lg, ms = event_ms(lambda: d.fn(d.args[0], caches, device_put(
+                ones[i].to(torch.int32), d.args[2].sharding, copy=True),
+                device_put(torch.tensor(S + i, dtype=torch.int32),
+                           d.args[3].sharding, copy=True)))
+            t_part.append(ms)
+            worst = max(worst, float((lg.float() - steps1[i].float()
+                                      ).abs().max()))
+            near += greedy_match(lg, steps1[i], f"(b) gemma3 decode step {i}")
+        dm = (statistics.median(t_part[1:]), statistics.median(t_one[1:]))
+        log(f"[partitioned] (b) gemma3-4b {n_dec} decode steps on (2, 2) "
+            f"(batch {B} over dp, caches of {S + n_dec} slots over sp), "
+            f"f32: {dm[0]:.2f} ms/step (median; one device {dm[1]:.2f}, "
+            f"ratio {dm[0] / dm[1]:.2f}); greedy tokens equal the one-device"
+            f" run's ({near} near-ties within 1e-4), logits max abs err "
+            f"{worst:.2e}; {part_state_line(d.args[0])}; "
+            f"{part_traffic_line(n_dec)}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del d, model, batch, one, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(prefill_ms=pf[0], prefill_one_ms=pf[1], decode_ms=dm[0],
+                decode_one_ms=dm[1], near=near + near_pf, logits_err=worst)
+
+
+def greedy_match(got, want, what: str) -> int:
+    """Each row's greedy token of ``got`` [B, 1, V] equals ``want``'s apart
+    from near-ties: where they differ, ``want``'s logit of its own token
+    exceeds its logit of ``got``'s by at most 1e-4. Returns the near-ties."""
+    got, want = got.float().cpu(), want.float().cpu()
+    g, w = got.argmax(-1), want.argmax(-1)
+    near = 0
+    for r, c in zip(*torch.nonzero(g != w, as_tuple=True)):
+        gap = float(want[r, c, w[r, c]] - want[r, c, g[r, c]])
+        check(gap <= 1e-4, f"{what} row {int(r)}: greedy {int(g[r, c])} != "
+              f"one device {int(w[r, c])} (logit gap {gap:.3e} > 1e-4)")
+        near += 1
+    return near
+
+
+def part_path(args, dev) -> dict:
+    """Phase 4r: the partitioned cells on 4 positions of this one card:
+    (a) against the CPU mesh at the tests' sizes, (b) at full width
+    beside the one-device cells."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = {"a": part_card_vs_cpu(args)}
+    log(f"[partitioned] (a) {time.perf_counter() - t0:.1f}s")
+    res["b"] = part_full(args, dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[partitioned] phase 4r {res['seconds']:.1f}s")
+    return res
+
+
 def kernel_times(args, dev, main) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.maxsim import ops as KOPS
@@ -6155,6 +6685,7 @@ def main() -> None:
     cells_res = cells_path(args, dev, recsys_res, gnn_res)
     train_res = train_path(args, dev)
     shard_res = shard_path(args, dev, lm_res)
+    part_res = part_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
@@ -6162,11 +6693,13 @@ def main() -> None:
     cm = mesh_res["counts"]
     # the main paths' launches, each path driven with the counts zeroed
     # before it and read after: phase 4 (float), 4b (int8), 4p (mesh)
+    # (and 4r's partitioned index cell, one pooling launch a position)
     launches = {"maxsim_scan": main_res["counts"]["maxsim_scan"]
                 + cm["maxsim_scan"],
                 "maxsim_rerank": main_res["counts"]["maxsim_rerank"]
                 + cm["maxsim_rerank"],
-                "pool": main_res["counts"]["pooling"] + cm["pooling"],
+                "pool": main_res["counts"]["pooling"] + cm["pooling"]
+                + part_res["b"]["index"]["launches"],
                 "maxsim_scan_db": c8["maxsim_scan_db"] + cm["maxsim_scan_db"],
                 "maxsim_scan_int8": c8["maxsim_scan_int8"]
                 + cm["maxsim_scan_int8"],
@@ -6189,7 +6722,8 @@ def main() -> None:
                 f"{n}-stage {res['per_call'][k]:.0f}"
                 for n, res in main_res["results"].items()))
     log(f"[times] pool: {launches['pool']} launches on the main path, one "
-        "per 256-page index batch")
+        "per 256-page index batch (4r's partitioned index cell: "
+        f"{part_res['b']['index']['launches']}, one a position and call)")
     log(f"[times] int8 path launches: maxsim_scan_db {c8['maxsim_scan_db']}"
         f" (one per chunked scan), maxsim_scan_int8 "
         f"{c8['maxsim_scan_int8']} (one per scan_topk chunk), "
@@ -6333,6 +6867,21 @@ def main() -> None:
         f"{sq['e']['ms']:.2f} ms (one-level {sq['e']['one_ms']:.2f}); "
         f"psum_compressed {sq['f']['gbs']:.1f} GB/s; phase 4q "
         f"{sq['seconds']:.1f}s")
+    pa, pb = part_res["a"], part_res["b"]
+    log("[summary] partitioned (4r), 4 positions on one card (not a "
+        "multi-card figure): card vs CPU mesh loss rel err <= "
+        f"{max(pa[k]['loss_rel'] for k in ('minicpm', 'zero_seq', 'molecule', 'colpali')):.2e}"
+        f", decode logits {pa['decode']:.2e}, pooled {pa['index']:.2e}; "
+        + "; ".join(f"{k} {pb[k]['ms']:.1f} ms/step (one device "
+                    f"{pb[k]['one_ms']:.1f})"
+                    for k in ("minicpm", "granite", "colpali", "molecule"))
+        + f"; gemma3-4b prefill {pb['gemma3']['prefill_ms']:.1f} ms (one "
+        f"device {pb['gemma3']['prefill_one_ms']:.1f}), decode "
+        f"{pb['gemma3']['decode_ms']:.2f} ms/step (one device "
+        f"{pb['gemma3']['decode_one_ms']:.2f}); index "
+        f"{pb['index']['ms']:.1f} ms (one device {pb['index']['one_ms']:.1f})"
+        f"; minicpm loss gap {pb['minicpm']['gap']:.2e}; phase 4r "
+        f"{part_res['seconds']:.1f}s")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -39,6 +39,19 @@ Sums run in mesh order on the group's first device, the same order on
 every device, so a mesh of ``["cuda:0"] * 4`` gives the bits of
 ``["cpu"] * 4`` wherever the body's own arithmetic does.
 
+An argument that is already placed (a ``sharding.Sharded``) whose spec is
+its in_spec enters as its own slabs, with no copy and no gather (so a
+body may update it in place, and a slab that requires grad gets its
+``.grad``); one with another spec is gathered and split again. An
+out_spec given as ``Placed(...)`` leaves that output placed: a
+``Sharded`` of every position's block, nothing assembled.
+
+``psum_scatter`` is the reduce-scatter (the sum in the same order as
+``psum``'s, each position keeping its block; backward an ``all_gather``),
+``pmax`` the maximum across positions (no gradient: the distributed
+softmax subtracts it), and ``relayout`` the move behind
+``ShardingPolicy.constrain``.
+
 ``TRAFFIC`` counts, per collective, the bytes its forward moves between
 positions (a chunk or operand that stays on its own position is not
 counted); a caller zeroes it and reads it around a call.
@@ -57,17 +70,23 @@ from math import prod
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
-from repro_torch.distributed.sharding import (P, PartitionSpec, axes_of,
-                                              block, check_spec,
-                                              linear_index, mesh_coords,
-                                              split)
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              PartitionSpec, Sharded,
+                                              axes_of, block, check_spec,
+                                              group_size, linear_index,
+                                              mesh_coords, split)
 
-__all__ = ["P", "shard_map", "psum", "all_to_all", "all_gather",
-           "axis_index", "axis_size", "in_shard_map", "checkpoint"]
+__all__ = ["P", "Placed", "shard_map", "psum", "psum_scatter", "pmax",
+           "all_to_all", "all_gather", "axis_index", "axis_size",
+           "relayout", "in_shard_map", "checkpoint"]
 
 _local = threading.local()
 
-TRAFFIC = {"psum": 0, "all_to_all": 0, "all_gather": 0}
+TRAFFIC = {"psum": 0, "psum_scatter": 0, "all_to_all": 0, "all_gather": 0}
+
+
+class Placed(PartitionSpec):
+    """An out_spec that leaves its output placed (a ``Sharded``)."""
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -303,6 +322,41 @@ class _AllGather(torch.autograd.Function):
         return (None,) * 4 + tuple(out)
 
 
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, devices, dim, *xs):
+        ctx.args = (groups, devices, dim)
+        out = [None] * len(xs)
+        for g in groups:
+            n = len(g)
+            if xs[g[0]].shape[dim] % n:
+                raise ValueError(f"psum_scatter: dimension {dim} of size "
+                                 f"{xs[g[0]].shape[dim]} does not split "
+                                 f"into {n}")
+            total = _sum_to([xs[i] for i in g], devices[g[0]])
+            for i, c in zip(g, torch.chunk(total, n, dim)):
+                out[i] = c.to(devices[i], copy=True)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        groups, devices, dim = ctx.args
+        out = [None] * len(gs)
+        for g in groups:
+            for i in g:
+                out[i] = torch.cat([gs[r].to(devices[i]) for r in g],
+                                   dim=dim)
+        return (None,) * 3 + tuple(out)
+
+
+def _run_psum_scatter(runner, axes, opts, xs):
+    dim = opts["dim"] % xs[0].ndim
+    TRAFFIC["psum_scatter"] += sum(_nbytes(xs[i]) * (len(g) - 1) // len(g)
+                                   for g in runner.groups(axes) for i in g)
+    return list(_PSumScatter.apply(runner.groups(axes), runner.devices, dim,
+                                   *xs))
+
+
 def _run_psum(runner, axes, opts, xs):
     if isinstance(xs[0], list):             # a tree's leaves, one at a time
         per_leaf = [_run_psum(runner, axes, opts, [x[j] for x in xs])
@@ -338,7 +392,8 @@ def _run_gather(runner, axes, opts, xs):
                                  opts["tiled"], *xs))
 
 
-_COLLECTIVES = {"psum": _run_psum, "all_to_all": _run_a2a,
+_COLLECTIVES = {"psum": _run_psum, "psum_scatter": _run_psum_scatter,
+                "all_to_all": _run_a2a,
                 "all_gather": _run_gather,
                 # every body ends here, so a position that returns while
                 # another waits at a collective fails the call
@@ -363,6 +418,61 @@ def psum(x, axis_name):
             return [psum(v, axis_name) for v in x]
         return _collective("psum", list(x), axis_name)
     return _collective("psum", x, axis_name)
+
+
+def psum_scatter(x: torch.Tensor, axis_name, scatter_dimension: int = 0,
+                 tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.psum_scatter`` with ``tiled=True``: the sum over the
+    positions along ``axis_name`` (in ``psum``'s order, so its blocks are
+    ``psum``'s bits), split into n blocks along ``scatter_dimension``;
+    the position at index j keeps block j."""
+    if not tiled:
+        raise NotImplementedError("psum_scatter is ported with tiled=True")
+    return _collective("psum_scatter", x, axis_name, dim=scatter_dimension)
+
+
+def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The elementwise maximum over the positions along ``axis_name``,
+    detached (built from ``all_gather``): the shift of a softmax or
+    logsumexp split across positions, whose gradient cancels."""
+    with torch.no_grad():
+        return all_gather(x.detach(), axis_name, axis=0).amax(dim=0)
+
+
+def relayout(x: torch.Tensor, have, want) -> torch.Tensor:
+    """This position's block of a tensor laid out by ``have`` (mesh-axis
+    spec) -> its block under ``want``. Per dimension: split over more
+    axes -> a local slice; over fewer -> ``all_gather`` over the ones
+    dropped; one dimension leaving axes A that another takes up ->
+    ``all_to_all`` over A; anything else gathers whole, then slices."""
+    nd = x.ndim
+    H = [axes_of(e) for e in tuple(have) + (None,) * (nd - len(have))]
+    W = [axes_of(e) for e in tuple(want) + (None,) * (nd - len(want))]
+    for a in range(nd):
+        if H[a] and not W[a]:
+            for b in range(nd):
+                if b != a and not H[b] and W[b] == H[a]:
+                    x = all_to_all(x, H[a], split_axis=b, concat_axis=a,
+                                   tiled=True)
+                    H[a], H[b] = (), W[b]
+                    break
+    for d in range(nd):
+        if H[d] == W[d] or W[d][:len(H[d])] == H[d]:
+            continue
+        drop = (H[d][len(W[d]):] if H[d][:len(W[d])] == W[d] else H[d])
+        x = all_gather(x, drop, axis=d, tiled=True)
+        H[d] = H[d][:len(H[d]) - len(drop)]
+    for d in range(nd):
+        if H[d] == W[d]:
+            continue
+        extra = W[d][len(H[d]):]
+        n = axis_size(extra)
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of size {x.shape[d]} does not "
+                             f"split over {n} positions")
+        size = x.shape[d] // n
+        x = x.narrow(d, axis_index(extra) * size, size)
+    return x
 
 
 def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
@@ -397,6 +507,25 @@ def axis_size(axis_name) -> int:
     return prod(mesh.shape[a] for a in _axes(mesh, axis_name))
 
 
+def mesh_axes() -> tuple:
+    """Every axis of the body's mesh."""
+    return tuple(_position().runner.mesh.axis_names)
+
+
+def replicated_axes(spec) -> tuple:
+    """The mesh axes a leaf laid out by ``spec`` is replicated over (those
+    its spec does not name), in mesh order."""
+    named = {a for e in spec for a in axes_of(e)}
+    return tuple(a for a in mesh_axes() if a not in named)
+
+
+def first_copy(spec) -> bool:
+    """True where this position holds the first copy of its block of a
+    leaf laid out by ``spec`` (index 0 along every replicated axis)."""
+    pos = _position()
+    return all(pos.coords[a] == 0 for a in replicated_axes(spec))
+
+
 # ---------------------------------------------------------------------------
 # checkpointing inside a body
 # ---------------------------------------------------------------------------
@@ -405,14 +534,19 @@ def checkpoint(fn, *args):
     """``torch.utils.checkpoint(fn, *args, use_reentrant=False)``; inside a
     body the region's collectives are logged in the forward and replayed
     when the backward recomputes it."""
-    pos = getattr(_local, "pos", None)
+    rp = getattr(_local, "replay", None)
+    pos = getattr(_local, "pos", None) or (rp.pos if rp is not None
+                                           else None)
     if pos is None:
         return _torch_checkpoint(fn, *args, use_reentrant=False)
     start = {}
 
     @contextmanager
     def forward_ctx():
-        start["at"] = pos.calls
+        # a region nested in one being recomputed starts at the replay's
+        # cursor, not at the forward's count
+        now = getattr(_local, "replay", None)
+        start["at"] = now.next if now is not None else pos.calls
         pos.recording += 1
         try:
             yield
@@ -441,6 +575,19 @@ def _is_leaf_spec(s) -> bool:
     return isinstance(s, PartitionSpec)
 
 
+def in_specs_of(tree):
+    """The mesh-axis specs of a tree of ``NamedSharding``s (or of placed
+    tensors), as ``shard_map``'s in_specs want them."""
+    if isinstance(tree, dict):
+        return {k: in_specs_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_leaf_spec(tree):
+        return type(tree)(in_specs_of(v) for v in tree)
+    if isinstance(tree, (NamedSharding, Sharded)):
+        return PartitionSpec(*tree.spec) if isinstance(
+            tree, NamedSharding) else PartitionSpec(*tree.sharding.spec)
+    return tree
+
+
 def _split_arg(x, spec, mesh) -> list:
     """One argument (a tensor, or a dict, list or tuple of them, with a
     spec or a matching tree of specs) as per-position values; anything
@@ -455,11 +602,27 @@ def _split_arg(x, spec, mesh) -> list:
                  and not _is_leaf_spec(spec) else [spec] * len(x))
         parts = [_split_arg(v, s, mesh) for v, s in zip(x, specs)]
         return [type(x)(p[i] for p in parts) for i in range(n)]
+    if isinstance(x, Sharded):
+        if not _is_leaf_spec(spec):
+            raise TypeError(f"in_specs entry {spec!r} for a placed tensor")
+        if x.sharding.mesh == mesh and _same_spec(x.sharding.spec, spec):
+            return list(x.slabs)
+        x = x.gather()
     if not isinstance(x, torch.Tensor):
         return [x] * n
     if not _is_leaf_spec(spec):
         raise TypeError(f"in_specs entry {spec!r} for a tensor: use P(...)")
     return list(split(x, mesh, spec))
+
+
+def _same_spec(a, b) -> bool:
+    """Specs equal up to trailing whole dimensions."""
+    a, b = list(PartitionSpec(*a)), list(PartitionSpec(*b))
+    while a and a[-1] is None:
+        a.pop()
+    while b and b[-1] is None:
+        b.pop()
+    return a == b
 
 
 class _Assemble(torch.autograd.Function):
@@ -513,6 +676,12 @@ def _assemble(outs: list, spec, mesh):
     if not _is_leaf_spec(spec):
         raise TypeError(f"out_specs entry {spec!r} for a tensor: use P(...)")
     check_spec(mesh, spec, first.ndim)
+    if isinstance(spec, Placed):
+        shape = list(first.shape)
+        for d, e in enumerate(spec):
+            shape[d] *= group_size(mesh, axes_of(e))
+        return Sharded(NamedSharding(mesh, PartitionSpec(*spec)),
+                       tuple(shape), tuple(outs))
     return _Assemble.apply(mesh, spec, mesh.devices.flat[0], *outs)
 
 

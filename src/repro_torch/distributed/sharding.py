@@ -15,17 +15,29 @@ stores it. A ``NamedSharding`` is a mesh plus a spec, and ``device_put``
 places a tensor by one: it splits the tensor into one slab per mesh
 position (``split``), each on that position's device. ``split`` is the
 one splitting rule of the port: ``shard_map`` splits its arguments by it
-and the retrieval store lays its slabs out by it.
+and the retrieval store lays its slabs out by it. ``device_put`` also
+places a whole tree (a tree of shardings beside it), and a numpy array
+block by block from the host, so no device ever holds a whole leaf that
+its sharding splits.
 
-``repro``'s ``constrain`` (``with_sharding_constraint``) belongs to the
-XLA-partitioned half of the model sharding, which the port does not have
-yet; nothing in the port calls it.
+``ShardingPolicy.constrain`` is ``repro``'s ``with_sharding_constraint``
+for the partitioned model code: the identity without a mesh (and outside
+a ``shard_map`` body, where tensors are whole), and inside a body the
+move of this position's block from the layout it ``have``s to the named
+one: a slice where a dimension becomes split, an ``all_gather`` where it
+becomes whole, an ``all_to_all`` where one dimension does each over the
+same axes (Megatron-SP's sequence <-> heads). The backward of each is
+that of ``shard_map``'s collectives (a slice's is local, so a replicated
+value's cotangents add up over the positions, as ``psum``'s transpose
+wants; a gather's is a reduce-scatter; an all_to_all's the inverse one).
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from math import prod
 
+import numpy as np
 import torch
 
 DEFAULT_RULES = {
@@ -84,12 +96,32 @@ class NamedSharding:
 
 
 class ShardingPolicy:
+    """``batch`` and ``sp`` are the context a partitioned body's model code
+    reads (``body``): the global batch (a batch of 1 is not split) and
+    whether the residual stream is sequence-parallel."""
+    batch = None
+    sp = False
+
     def __init__(self, mesh, rules: dict | None = None,
                  overrides: dict | None = None):
         self.mesh = mesh
         self.rules = dict(rules or rules_for_mesh(mesh))
         if overrides:
             self.rules.update(overrides)
+
+    def body(self, batch: int | None = None, sp: bool | None = None):
+        """A copy carrying a body's context: the global ``batch`` and the
+        residual's sequence parallelism ``sp``."""
+        out = copy.copy(self)
+        if batch is not None:
+            out.batch = batch
+        if sp is not None:
+            out.sp = sp
+        return out
+
+    def axes(self, logical) -> tuple:
+        """The mesh axes of a logical axis, as a tuple (() for none)."""
+        return axes_of(self._resolve(logical))
 
     def _resolve(self, axis):
         if axis is None:
@@ -115,6 +147,18 @@ class ShardingPolicy:
         if self.mesh is None:
             return None
         return NamedSharding(self.mesh, self.spec(*axes))
+
+    def constrain(self, x, *axes, have=None):
+        """``x`` laid out as ``axes`` (logical, one per dimension). The
+        identity without a mesh or outside a ``shard_map`` body; inside
+        one, ``x`` is this position's block under ``have`` (logical axes,
+        default every dimension whole) and the result its block under
+        ``axes``."""
+        from repro_torch.distributed import shard_map as SM
+        if self.mesh is None or not SM.in_shard_map():
+            return x
+        have = (None,) * x.ndim if have is None else have
+        return SM.relayout(x, self.spec(*have), self.spec(*axes))
 
     def axis_size(self, logical: str) -> int:
         if self.mesh is None:
@@ -232,6 +276,21 @@ def split(x: torch.Tensor, mesh, spec, copy: bool = False) -> tuple:
                  for c, dev in zip(mesh_coords(mesh), mesh.devices.flat))
 
 
+def shard_shape(sharding: NamedSharding, shape: tuple) -> tuple:
+    """The shape of one slab of a tensor of ``shape`` under ``sharding``
+    (``NamedSharding.shard_shape``); a dimension must split evenly."""
+    mesh, spec = sharding.mesh, PartitionSpec(*sharding.spec)
+    check_spec(mesh, spec, len(shape))
+    out = list(shape)
+    for d, e in enumerate(spec):
+        n = group_size(mesh, axes_of(e))
+        if out[d] % n:
+            raise ValueError(f"dimension {d} of size {out[d]} does not "
+                             f"split over {n} positions ({spec!r})")
+        out[d] //= n
+    return tuple(out)
+
+
 @dataclass
 class Sharded:
     """A tensor placed on a mesh (``device_put``'s result): its sharding,
@@ -239,6 +298,10 @@ class Sharded:
     sharding: NamedSharding
     shape: tuple
     slabs: tuple
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
 
     def gather(self) -> torch.Tensor:
         """The whole tensor on the mesh's first device, assembled from the
@@ -256,11 +319,60 @@ class Sharded:
         return out
 
 
-def device_put(x, sharding: NamedSharding | None, copy: bool = False):
-    """``x`` placed by ``sharding``: a ``Sharded`` of its slabs (``split``),
-    or ``x`` itself when ``sharding`` is None."""
+def _put(x, sharding: NamedSharding | None, copy: bool):
     if sharding is None:
         return x
-    x = torch.as_tensor(x)
+    if isinstance(x, Sharded):
+        if x.sharding == sharding:
+            return x
+        x = x.gather()
+    if isinstance(x, np.ndarray) or not isinstance(x, torch.Tensor):
+        # from the host: each block sliced there and copied to its device
+        x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        copy = True
+    if x.device.type == "meta":               # shapes only
+        return empty_placed(sharding, tuple(x.shape), x.dtype, x.device)
     return Sharded(sharding, tuple(x.shape),
                    split(x, sharding.mesh, sharding.spec, copy=copy))
+
+
+def device_put(x, sharding, copy: bool = False):
+    """``x`` placed by ``sharding``: a ``Sharded`` of its slabs (``split``),
+    or ``x`` itself when ``sharding`` is None. ``x`` may be a tree (dicts,
+    lists and tuples) with a tree of shardings of the same structure
+    beside it, or one sharding for every leaf. A numpy leaf is split on
+    the host and each block copied to its position's device; a
+    ``Sharded`` leaf with another sharding is gathered and split again.
+    ``copy=True`` gives every position storage of its own (placed state
+    that is updated in place must have it: a replicated slab on a mesh
+    that repeats a device would otherwise be one tensor)."""
+    if isinstance(x, dict):
+        return {k: device_put(v, sharding[k] if isinstance(sharding, dict)
+                              else sharding, copy) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not isinstance(x, torch.Tensor):
+        shs = (sharding if isinstance(sharding, (list, tuple))
+               and not isinstance(sharding, NamedSharding)
+               else [sharding] * len(x))
+        return type(x)(device_put(v, s, copy) for v, s in zip(x, shs))
+    return _put(x, sharding, copy)
+
+
+def empty_placed(sharding: NamedSharding, shape: tuple, dtype,
+                 device=None) -> Sharded:
+    """A ``Sharded`` of uninitialised slabs of ``shape``'s shard shape,
+    each on its position's device (or all on ``device``, e.g. ``meta``:
+    shapes only, nothing allocated)."""
+    ss = shard_shape(sharding, tuple(shape))
+    devs = sharding.mesh.devices.flat
+    return Sharded(sharding, tuple(shape), tuple(
+        torch.empty(ss, dtype=dtype, device=device or d) for d in devs))
+
+
+def zeros_placed(sharding: NamedSharding, shape: tuple, dtype,
+                 device=None) -> Sharded:
+    """``empty_placed`` filled with zeros (on ``meta`` only shapes)."""
+    out = empty_placed(sharding, shape, dtype, device)
+    for s in out.slabs:
+        if s.device.type != "meta":
+            s.zero_()
+    return out

@@ -24,21 +24,34 @@ LMs, the fused rotation for the GNN, the 2-stage candidate search for
 recsys, an int8 scan stage for the retrievers; ``stage1``: the retrievers'
 exact 1-stage search), the notes, and ``donate``, which here names the
 arguments that ``fn`` updates in place. ``repro``'s ``in_shardings`` is
-dropped. Without a mesh the mesh cuts are those of one device: the
+no field here: a placed argument carries its own sharding. Without a mesh the mesh cuts are those of one device: the
 minibatch cell's two-level dp x tp layout is dp = tp = 1, the vertex-cut
 cell is one shard of ``ShardedEdges`` (``repro``'s psum over one device is
 the identity), and no corpus or candidate list is padded to a shard
 multiple.
 
-With ``mesh=`` (``launch.mesh``, one controller) a cell runs ``repro``'s
-explicit per-shard bodies on it (``distributed.shard_map``): the GNN
-minibatch cell's two-level dp x tp body and the vertex-cut body over the
-flat axis, the recsys ``opt`` candidate search's two-level top-k, a MoE
-LM's ``opt`` train step with the expert-parallel ``ragged_ep`` over
-(dp, tp), and the retriever search over the sharded corpus. Its arguments
-live on the mesh's first device and the bodies split them. Every other
-cell is one that ``repro`` runs only through XLA partitioning, which the
-port does not have yet: given a mesh, it raises.
+With ``mesh=`` (``launch.mesh``, one controller) a cell runs sharded on
+it. The cells ``repro`` runs through XLA partitioning (``jax.jit(...,
+in_shardings=...)``) are partitioned: every argument is placed exactly by
+``repro``'s ``in_shardings`` (a ``Sharded`` of per-position slabs that
+persists across calls: parameters by ``param_specs``, optimizer moments
+by ``opt_state_specs``, the batch by dp, KV caches by
+``cache_logical_axes``), the step runs on the slabs with explicit
+collectives (``train_loop.make_train_step(mesh=)``, the LM's partitioned
+layers, ``late_interaction``'s global in-batch negatives, the molecule
+batch by dp; the index cell pools through ``pool.cu`` on every position),
+and ``donate`` updates the placed arguments in place. These are the LM
+cells (train, prefill, decode; tensor, ZeRO and sequence sharding), the
+GNN ``molecule`` cell and the retrievers' train and index cells. On
+``meta`` only the slabs' shapes are made. The cells with explicit
+per-shard bodies run them (``distributed.shard_map``): the GNN minibatch
+cell's two-level dp x tp body and the vertex-cut body over the flat
+axis, the recsys ``opt`` candidate search's two-level top-k and the
+retriever search over the sharded corpus; their arguments live on the
+mesh's first device and the bodies split them. The recsys train, serve
+and base candidate cells (tables row-split over tp and gathered by XLA)
+and the small full-graph GNN cell (edges over ``flat``) raise: they wait
+for the last slice of the partitioned half.
 
 Also kept: ``repro``'s search ``model_flops`` counts the 2-stage rerank
 for the 1-stage (``stage1``) variant too.
@@ -50,7 +63,6 @@ pass a smaller shape (``dataclasses.replace(shape, dims=...)``).
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -60,8 +72,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import get_config, get_shapes
+from repro_torch.distributed import placement as PL
 from repro_torch.distributed import shard_map as SM
-from repro_torch.distributed.sharding import ShardingPolicy
+from repro_torch.distributed.placement import bind_params
+from repro_torch.distributed.sharding import (Sharded, ShardingPolicy,
+                                              device_put, zeros_placed)
 from repro_torch.launch.mesh import home_device, n_devices
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_loop import make_train_step
@@ -83,6 +98,8 @@ def arg_tensors(args) -> list:
     leaves of dicts, lists and tuples."""
     if isinstance(args, torch.Tensor):
         return [args]
+    if isinstance(args, Sharded):
+        return list(args.slabs)
     if isinstance(args, nn.Module):
         return list(args.parameters())
     if isinstance(args, dict):
@@ -167,7 +184,11 @@ def _setup(device, generator, mesh=None) -> tuple:
     device) draws the weights and then the inputs. The device defaults
     to the card, or with a mesh to its first device (where a cell's
     arguments live)."""
-    dev = home_device(mesh, device)
+    if mesh is not None and device is not None and \
+            torch.device(device).type == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = home_device(mesh, device)
     if dev.type == "meta":
         return dev, None, _Fill(dev, None)
     gen = generator if generator is not None else \
@@ -183,14 +204,37 @@ def _building(dev):
 
 
 def partitioned(arch: str, shape, variant: str):
-    """The error a cell that ``repro`` runs only through XLA partitioning
+    """The error a cell whose partitioned form the port does not have yet
     raises when it is given a mesh."""
     return NotImplementedError(
-        f"{arch} x {shape.name} ({variant}) runs sharded in repro only "
-        "through XLA partitioning (param_specs and sharding constraints), "
-        "which the port does not have yet: it waits for the next slice, "
-        "the partitioned half of the model sharding (ROADMAP.md section "
-        "1). Build it without a mesh for one device.")
+        f"{arch} x {shape.name} ({variant}) runs sharded in repro through "
+        "XLA partitioning of its embedding tables (row-split over tp) or "
+        "its edge list (split over flat), which waits for the last slice "
+        "of the partitioned half of the model sharding (ROADMAP.md "
+        "section 1). Build it without a mesh for one device.")
+
+
+def _placed_params(tmpl, shardings: dict, fill, make) -> dict:
+    """A model's leaves placed by ``shardings``: storage-free slabs on
+    ``meta``, else ``make()``'s model placed leaf by leaf."""
+    if fill.meta:
+        return PL.empty_model(tmpl, shardings, torch.device("meta"))
+    model = make()
+    placed = PL.place_model(model, shardings)
+    del model
+    return placed
+
+
+def _placed_train(loss, oc, params, batch, bshard, mesh):
+    """(step, (params, opt state, batch)): ``init_opt_state`` of placed
+    parameters and ``make_train_step`` over the mesh."""
+    labels = OPT.default_labels(params)
+    opt_state = OPT.init_opt_state(params, labels)
+    pshard = {n: p.sharding for n, p in params.items()}
+    step = make_train_step(loss, oc, labels=labels, mesh=mesh,
+                           in_specs=(pshard, SM.in_specs_of(opt_state),
+                                     bshard))
+    return step, (params, opt_state, device_put(batch, bshard, copy=True))
 
 
 def _train_state(model, oc) -> tuple:
@@ -228,13 +272,10 @@ def build_lm_cell(arch: str, shape, device=None, variant: str = "base",
                 cfg, moe=dataclasses.replace(cfg.moe, impl="ragged_ep"))
         cfg = dataclasses.replace(cfg, sp_activations=False)
         micro = 8
-    if mesh is not None and not (variant == "opt" and cfg.moe is not None
-                                 and shape.kind == "train"):
-        raise partitioned(arch, shape, variant)
-    # the MoE's ragged_ep runs its expert-parallel body over the mesh; the
-    # rest of the step runs on the mesh's first device
-    pol = ShardingPolicy(mesh) if mesh is not None else None
     dev, gen, fill = _setup(device, generator, mesh)
+    if mesh is not None:
+        return _lm_mesh_cell(arch, shape, cfg, micro, mesh, dev, gen, fill)
+    pol = None
     with _building(dev):
         model = T.init_params(cfg, gen, dev)
     B, S = shape.global_batch, shape.seq_len
@@ -278,6 +319,100 @@ def build_lm_cell(arch: str, shape, device=None, variant: str = "base",
     # decode useful FLOPs: params touched once per token (2*N_active*B)
     flops = 2.0 * cfg.n_active_params() * B
     return Cell(arch, shape.name, T.decode_step, (model, caches, tok, pos),
+                donate=(1,), model_flops=flops)
+
+
+def _lm_mesh_cell(arch, shape, cfg, micro, mesh, dev, gen, fill) -> Cell:
+    """The LM cell partitioned over ``mesh`` (module docstring)."""
+    from repro_torch.models import kv_cache as KV
+    from repro_torch.models import transformer as T
+
+    pol = ShardingPolicy(mesh)
+    tmpl = T.template(cfg)
+    lmap = PL.leaf_map(tmpl)
+    pshard = T.leaf_shardings(cfg, pol)
+    with _building(dev):
+        params = _placed_params(tmpl, pshard, fill,
+                                lambda: T.init_params(cfg, gen, dev))
+    B, S = shape.global_batch, shape.seq_len
+    body_pol = pol.body(batch=B)
+    pspecs = SM.in_specs_of(pshard)
+
+    def local(p):
+        return T.local_model(tmpl, p, lmap)
+
+    if shape.kind == "train":
+        oc = OPT.OptConfig(schedule="wsd" if "minicpm" in arch else "cosine")
+        bshard = {"tokens": pol.named("dp", None),
+                  "labels": pol.named("dp", None)}
+
+        def loss(p, b):
+            m = local(p)
+            if micro <= 1:
+                return T.loss_fn(m, b, body_pol)
+            # ``repro``'s checkpointed microbatches: microbatch i is the
+            # global rows [i B/micro, (i+1) B/micro), split over dp as
+            # GSPMD splits them (an all_to_all from this position's rows),
+            # each its own global mean, averaged
+            n, s = b["tokens"].shape
+            dpn = B // n
+            if micro % dpn or (B // micro) % dpn:
+                raise ValueError(f"{micro} microbatches of a batch of {B} "
+                                 f"do not split over dp = {dpn}")
+            mpol = pol.body(batch=B // micro)
+
+            def microbatches(x):
+                x = x.reshape(micro // dpn, B // micro, s)
+                return pol.constrain(x, None, "dp", None,
+                                     have=("dp", None, None))
+            tk, lb = microbatches(b["tokens"]), microbatches(b["labels"])
+            tot = torch.zeros((), dtype=torch.float32, device=tk.device)
+            for t, l in zip(tk, lb):
+                tot = tot + SM.checkpoint(_micro_loss, m, t, l, mpol)
+            return tot / micro
+
+        batch = {"tokens": fill.ids((B, S), cfg.vocab_size),
+                 "labels": fill.ids((B, S), cfg.vocab_size)}
+        step, args = _placed_train(loss, oc, params, batch, bshard, mesh)
+        return Cell(arch, shape.name, step, args, donate=(0, 1),
+                    model_flops=_lm_batch_flops(cfg, B * S, True))
+
+    logits_spec = pol.spec("dp" if B > 1 else None, None, "tp")
+    plan = T.segment_plan(cfg)
+    cshard = KV.cache_shardings(cfg, plan, B, pol)
+    cspecs = SM.in_specs_of(cshard)
+    if shape.kind == "prefill":
+        bshard = {"tokens": pol.named("dp", None)}
+        placed_caches = [[{k: SM.Placed(*v) for k, v in slot.items()}
+                          for slot in seg] for seg in cspecs]
+        fn_ = SM.shard_map(
+            lambda p, b: T.prefill_step(local(p), b, shard=body_pol), mesh,
+            (pspecs, SM.in_specs_of(bshard)), (logits_spec, placed_caches))
+        batch = device_put({"tokens": fill.ids((B, S), cfg.vocab_size)},
+                           bshard, copy=True)
+        return Cell(arch, shape.name, fn_, (params, batch),
+                    model_flops=_lm_batch_flops(cfg, B * S, False))
+
+    # decode (decode_32k / long_500k): one token against a seq_len KV cache
+    # split over the sequence (over ``flat`` at batch 1)
+    dtype = T.compute_dtype(cfg)
+    caches = [[{k: zeros_placed(cshard[si][ki][k], sd.shape, dtype,
+                                dev if fill.meta else None)
+                for k, sd in slot.items()} for ki, slot in enumerate(seg)]
+              for si, seg in enumerate(KV.cache_specs(cfg, plan, B, S,
+                                                      dtype))]
+    tshard = pol.named("dp", None) if B > 1 else pol.named(None, None)
+    tok = device_put(fill.ids((B, 1), cfg.vocab_size), tshard, copy=True)
+    pos = device_put(torch.full((), S - 1, dtype=torch.int32, device=dev),
+                     pol.named(), copy=True)
+
+    def body(p, c, t, ps):
+        return T.decode_step(local(p), c, t, ps, shard=body_pol)[0]
+
+    fn_ = SM.shard_map(body, mesh, (pspecs, cspecs, SM.in_specs_of(tshard),
+                                    SM.P()), logits_spec)
+    flops = 2.0 * cfg.n_active_params() * B
+    return Cell(arch, shape.name, fn_, (params, caches, tok, pos),
                 donate=(1,), model_flops=flops)
 
 
@@ -345,25 +480,6 @@ def sharded_ce_loss(cfg, model, plan, feat, pos, labels, lmask, axes):
     return num / torch.clamp(den, min=1.0)
 
 
-def bind_params(module: nn.Module, params: dict) -> nn.Module:
-    """A shallow copy of ``module`` (and of each submodule) whose
-    parameters are ``params``, by ``named_parameters()`` name. A body
-    takes the model's parameters as a ``P()`` argument, so each position
-    reads its own copy on its own device and their gradients sum back
-    into the model; ``module`` itself is not touched, so the positions,
-    which take turns, never see each other's tensors."""
-    def bound(mod, prefix):
-        new = copy.copy(mod)
-        new.__dict__["_parameters"] = {
-            k: None if v is None else params[prefix + k]
-            for k, v in mod._parameters.items()}
-        new.__dict__["_modules"] = {
-            k: None if sub is None else bound(sub, f"{prefix}{k}.")
-            for k, sub in mod._modules.items()}
-        return new
-    return bound(module, "")
-
-
 def minibatch_loss(cfg, mesh, n_local: int, dp_axes: tuple, tp_axes: tuple):
     """``repro``'s two-level minibatch loss over ``mesh``: one sampled
     subgraph per dp position, each vertex-cut over tp. Each position
@@ -427,9 +543,8 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
     base = get_config(arch)
     cfg = dataclasses.replace(base, msg_dtype="bfloat16",
                               fused_rotation=(variant == "opt"))
-    if mesh is not None and not (
-            shape.kind == "minibatch" or (shape.kind == "full_graph"
-                                          and shape.n_edges > 2_000_000)):
+    if mesh is not None and shape.kind == "full_graph" and \
+            shape.n_edges <= 2_000_000:
         raise partitioned(arch, shape, variant)
     pol = ShardingPolicy(mesh)
     dev, gen, fill = _setup(device, generator, mesh)
@@ -445,9 +560,12 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
         return Cell(arch, shape.name, step, (model, opt_state, batch),
                     donate=(0, 1), model_flops=flops, note=note)
 
+    if shape.kind == "batched_graphs" and mesh is not None:
+        return _molecule_mesh_cell(arch, shape, cfg, oc, mesh, pol, dev,
+                                   fill, lambda: model_of(shape.d_feat, 1))
+
     if shape.kind == "batched_graphs":          # molecule
-        G, NN, EE, F = shape.batch, shape.n_nodes, shape.n_edges, shape.d_feat
-        model = model_of(F, 1)
+        model = model_of(shape.d_feat, 1)
 
         def loss(m, b):
             # ``repro`` vmaps the graphs; one disjoint union gives the
@@ -456,14 +574,8 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
                 cfg, m, b["feat"], b["pos"], b["src"], b["dst"], b["emask"],
                 b["target"])
 
-        # positions in [-2, 2]^3: every edge inside the 8.0 radial cutoff
-        batch = {"feat": fill.normal((G, NN, F)),
-                 "pos": fill.uniform((G, NN, 3), -2.0, 2.0),
-                 "src": fill.ids((G, EE), NN),
-                 "dst": fill.ids((G, EE), NN),
-                 "emask": fill.ones((G, EE)),
-                 "target": fill.normal((G,))}
-        return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True))
+        return train_cell(model, loss, _molecule_batch(fill, shape),
+                          _gnn_flops(cfg, shape.batch * shape.n_edges, True))
 
     if shape.kind == "minibatch":
         # ``repro``: one sampled subgraph per data shard, each vertex-cut
@@ -538,6 +650,47 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
                               mesh is None)}
     return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True),
                       note=f"vertex-cut S={S} cap={cap}")
+
+
+def _molecule_batch(fill, shape) -> dict:
+    G, NN, EE, F = shape.batch, shape.n_nodes, shape.n_edges, shape.d_feat
+    # positions in [-2, 2]^3: every edge inside the 8.0 radial cutoff
+    return {"feat": fill.normal((G, NN, F)),
+            "pos": fill.uniform((G, NN, 3), -2.0, 2.0),
+            "src": fill.ids((G, EE), NN),
+            "dst": fill.ids((G, EE), NN),
+            "emask": fill.ones((G, EE)),
+            "target": fill.normal((G,))}
+
+
+def _molecule_mesh_cell(arch, shape, cfg, oc, mesh, pol, dev, fill, make):
+    """``molecule`` data-parallel over ``mesh``: parameters and moments
+    replicated (``repro``'s ``_replicated_like``), the graphs split over
+    dp; each position's squared errors summed, ``psum``'d over dp, over
+    the global graph count."""
+    from repro_torch.models.gnn import equiformer_v2 as E
+
+    with torch.device("meta"):
+        tmpl = E.init_params(cfg, shape.d_feat, 1, None, "meta")
+    lmap = PL.leaf_map(tmpl)
+    pshard = {n: pol.named() for n in tmpl.jax_leaf_names()}
+    with _building(dev):
+        params = _placed_params(tmpl, pshard, fill, make)
+    G = shape.batch
+    dp = pol.axes("dp")
+
+    def loss(p, b):
+        sq = E.batched_graph_sq_errors(
+            cfg, PL.local_module(tmpl, p, lmap), b["feat"], b["pos"],
+            b["src"], b["dst"], b["emask"], b["target"])
+        return SM.psum(sq.sum(), dp) / G
+
+    batch = _molecule_batch(fill, shape)
+    bshard = {k: pol.named("dp", *([None] * (v.ndim - 1)))
+              for k, v in batch.items()}
+    step, args = _placed_train(loss, oc, params, batch, bshard, mesh)
+    return Cell(arch, shape.name, step, args, donate=(0, 1),
+                model_flops=_gnn_flops(cfg, G * shape.n_edges, True))
 
 
 # ===========================================================================
@@ -678,6 +831,63 @@ def _index_fn(cfg, pm: torch.Tensor):
     return fn
 
 
+def _retriever_mesh_cell(arch, shape, cfg, mesh, dev, fill, make,
+                         n_raw) -> Cell:
+    """The retriever's train and index cells data-parallel over ``mesh``:
+    the encoder replicated, pages and queries split over dp. Training
+    keeps global in-batch negatives (``ColXEncoder.contrastive_loss``
+    with the policy); indexing pools through ``pool.cu`` on every
+    position."""
+    from repro_torch.models import late_interaction as LI
+
+    pol = ShardingPolicy(mesh)
+    with torch.device("meta"):
+        tmpl = LI.init_params(cfg, None, "meta")
+    lmap = PL.leaf_map(tmpl)
+    pshard = {n: pol.named() for n in tmpl.jax_leaf_names()}
+    with _building(dev):
+        params = _placed_params(tmpl, pshard, fill, make)
+    pspecs = SM.in_specs_of(pshard)
+    dp_spec = pol.spec("dp", None, None)
+
+    if shape.kind == "train":
+        B = shape.global_batch
+        body_pol = pol.body(batch=B)
+
+        def loss(p, b):
+            return PL.local_module(tmpl, p, lmap).contrastive_loss(
+                b, body_pol)
+
+        batch = {"patches": fill.normal((B, n_raw, LI.D_PATCH)),
+                 "query_tokens": fill.ids((B, cfg.max_query_tokens),
+                                          cfg.query_vocab),
+                 "query_mask": fill.ones((B, cfg.max_query_tokens))}
+        bshard = {k: pol.named("dp", *([None] * (v.ndim - 1)))
+                  for k, v in batch.items()}
+        step, args = _placed_train(loss, OPT.OptConfig(), params, batch,
+                                   bshard, mesh)
+        flops = 12.0 * cfg.n_layers * cfg.d_model * cfg.d_model * 3 \
+            * B * cfg.seq_len
+        return Cell(arch, shape.name, step, args, donate=(0, 1),
+                    model_flops=flops)
+
+    from repro_torch.kernels.pooling import pooling_matrix
+    B = shape.pages_per_step
+    pm = torch.as_tensor(pooling_matrix(cfg)).to(dev)
+
+    @torch.no_grad()
+    def body(p, patches, pm_):
+        return _index_fn(cfg, pm_)(PL.local_module(tmpl, p, lmap), patches)
+
+    fn_ = SM.shard_map(body, mesh, (pspecs, dp_spec, SM.P()),
+                       (dp_spec, dp_spec, pol.spec("dp", None)))
+    patches = device_put(fill.normal((B, n_raw, LI.D_PATCH)),
+                         pol.named("dp", None, None), copy=True)
+    flops = 12.0 * cfg.n_layers * cfg.d_model * cfg.d_model * B * cfg.seq_len
+    return Cell(arch, shape.name, lambda p, x: fn_(p, x, pm),
+                (params, patches), model_flops=flops / 3.0)
+
+
 def search_stages(shape, variant: str) -> tuple:
     """The search cell's cascade: ``stage1`` the exact 1-stage search,
     else the paper's 2-stage one, scanning and reranking through the
@@ -697,14 +907,16 @@ def build_retriever_cell(arch: str, shape, device=None,
     from repro_torch.models import late_interaction as LI
 
     cfg = get_config(arch)
-    if mesh is not None and shape.kind != "search":
-        raise partitioned(arch, shape, variant)
     dev, gen, fill = _setup(device, generator, mesh)
     n_raw = cfg.n_patches * (4 if cfg.geometry == "dynamic" else 1)
 
     def model_of():
         with _building(dev):
             return LI.init_params(cfg, gen, dev)
+
+    if mesh is not None and shape.kind != "search":
+        return _retriever_mesh_cell(arch, shape, cfg, mesh, dev, fill,
+                                    model_of, n_raw)
 
     if shape.kind == "train":
         B = shape.global_batch

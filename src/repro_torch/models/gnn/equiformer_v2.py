@@ -521,14 +521,14 @@ def graph_energy_loss(cfg, model, plan, feat, pos, target):
     return (energy - target) ** 2
 
 
-def batched_graph_energy_loss(cfg, model, feat, pos, src, dst, emask,
-                              target):
-    """The mean of ``graph_energy_loss`` over G graphs of NN nodes (feat
-    [G, NN, F], pos [G, NN, 3], src/dst/emask [G, EE], target [G]), which
-    ``repro`` vmaps. Here the graphs run as one disjoint union: node ids
-    offset by g * NN, one forward, each graph's energy the mean of its own
-    nodes' outputs. No edge joins two graphs, so every node sees what it
-    sees alone."""
+def batched_graph_sq_errors(cfg, model, feat, pos, src, dst, emask,
+                            target) -> torch.Tensor:
+    """Each graph's squared energy error [G] over G graphs of NN nodes
+    (feat [G, NN, F], pos [G, NN, 3], src/dst/emask [G, EE], target [G]),
+    which ``repro`` vmaps. Here the graphs run as one disjoint union: node
+    ids offset by g * NN, one forward, each graph's energy the mean of its
+    own nodes' outputs. No edge joins two graphs, so every node sees what
+    it sees alone."""
     G, NN = feat.shape[:2]
     off = (torch.arange(G, device=src.device) * NN)[:, None]
     plan = LocalEdges((src + off).reshape(-1), (dst + off).reshape(-1),
@@ -536,4 +536,12 @@ def batched_graph_energy_loss(cfg, model, feat, pos, src, dst, emask,
     out = forward(cfg, model, plan, feat.reshape((G * NN,) + feat.shape[2:]),
                   pos.reshape(G * NN, 3))
     energy = torch.mean(out[:, 0].reshape(G, NN), dim=1)
-    return torch.mean((energy - target) ** 2)
+    return (energy - target) ** 2
+
+
+def batched_graph_energy_loss(cfg, model, feat, pos, src, dst, emask,
+                              target):
+    """The mean of ``graph_energy_loss`` over the G graphs
+    (``batched_graph_sq_errors``)."""
+    return torch.mean(batched_graph_sq_errors(cfg, model, feat, pos, src,
+                                              dst, emask, target))

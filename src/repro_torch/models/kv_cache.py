@@ -9,7 +9,9 @@ any order because RoPE is applied to K before it is cached; unlike
 full-length variant has no caller). ``cache_specs`` describes the caches
 without allocating them (meta tensors, the counterpart of ``repro``'s
 ``ShapeDtypeStruct`` tree) and ``cache_logical_axes`` gives each cache
-leaf its logical sharding axes, as ``repro``'s do.
+leaf its logical sharding axes, as ``repro``'s do, and ``cache_shardings``
+resolves them on a mesh: a placed cache (``Sharded`` slabs) is what the
+partitioned prefill returns and decode writes in place.
 """
 from __future__ import annotations
 
@@ -23,15 +25,21 @@ def cache_len(window: int, seq_len: int) -> int:
 
 
 def init_cache(cfg, plan, batch: int, seq_len: int, dtype=torch.bfloat16,
-               device="cuda") -> list:
+               device="cuda", seq_shards: int = 1) -> list:
     """Returns [segments][slots] of {"k","v"}: zeros [reps, B, Sc, kv, hd]
-    of ``dtype`` on ``device``."""
+    of ``dtype`` on ``device``. ``seq_shards`` gives one position's slab of
+    a cache split over the sequence (``cache_logical_axes``): Sc /
+    seq_shards slots."""
     dev = resolve_device(device)
     segs = []
     for reps, windows in plan:
         slots = []
         for w in windows:
             sc = cache_len(w, seq_len)
+            if sc % seq_shards:
+                raise ValueError(f"a cache of {sc} slots does not split "
+                                 f"over {seq_shards} positions")
+            sc //= seq_shards
             shape = (reps, batch, sc, cfg.n_kv_heads, cfg.head_dim)
             slots.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
@@ -63,3 +71,9 @@ def cache_logical_axes(cfg, plan, batch: int) -> list:
     axes = (None, batch_ax, seq_ax, None, None)
     return [[{"k": axes, "v": axes} for _ in windows]
             for _, windows in plan]
+
+
+def cache_shardings(cfg, plan, batch: int, shard) -> list:
+    """``cache_logical_axes`` as ``NamedSharding``s of the policy's mesh."""
+    return [[{k: shard.named(*ax) for k, ax in slot.items()}
+             for slot in seg] for seg in cache_logical_axes(cfg, plan, batch)]

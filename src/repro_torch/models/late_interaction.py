@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import hygiene
 from repro_torch.core.maxsim import NEG, maxsim_batched
+from repro_torch.distributed import shard_map as SM
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 
 D_PATCH = 64          # frontend-stub patch embedding dim
@@ -214,23 +215,46 @@ class ColXEncoder(nn.Module):
         vecs = _l2(self._backbone(x, qmask) @ self.out)
         return vecs * qmask[..., None].to(vecs.dtype)
 
-    def contrastive_loss(self, batch: dict) -> torch.Tensor:
+    def contrastive_loss(self, batch: dict, shard=None) -> torch.Tensor:
         """In-batch ColBERT-style contrastive loss over MaxSim scores of
         the visual tokens (hygiene at training time too), scaled by
-        1/sqrt(out_dim): mean(logsumexp - gold)."""
+        1/sqrt(out_dim): mean(logsumexp - gold).
+
+        Inside a ``shard_map`` body (``shard`` a policy on the mesh, the
+        batch split over dp) the negatives stay global, as ``repro``'s
+        [B, B] score matrix spans the global batch under GSPMD: the query
+        vectors are gathered over dp, the local pages scored against all
+        of them, the score columns gathered, and each position sums its
+        own queries' rows; the loss is that sum ``psum``'d over dp over
+        the global batch."""
         cfg = self.cfg
         pages, _ = self.encode_pages(batch["patches"])
         qmask = torch.as_tensor(batch["query_mask"]).to(self.device).bool()
         queries = self.encode_queries(batch["query_tokens"], qmask)
         S = pages.shape[1]
         vis = torch.arange(S, device=pages.device) >= cfg.n_special
+        part = shard is not None and shard.mesh is not None and \
+            SM.in_shard_map()
+        dp = shard.axes("dp") if part else ()
+        r0 = SM.axis_index(dp) * queries.shape[0] if dp else 0
+        if dp:
+            queries = SM.all_gather(queries, dp, axis=0, tiled=True)
+            qmask = SM.all_gather(qmask, dp, axis=0, tiled=True)
         scores = maxsim_batched(queries, pages, q_mask=qmask,
                                 doc_mask=vis[None].expand(pages.shape[0], S))
         scores = scores / math.sqrt(cfg.out_dim)
-        labels = torch.arange(scores.shape[0], device=scores.device)
+        if dp:
+            n = pages.shape[0]
+            scores = SM.all_gather(scores, dp, axis=1, tiled=True)
+            scores = scores[r0:r0 + n]
+        labels = r0 + torch.arange(scores.shape[0], device=scores.device)
         logz = torch.logsumexp(scores, dim=-1)
         gold = scores.gather(-1, labels[:, None])[:, 0]
-        return (logz - gold).mean()
+        if not part:
+            return (logz - gold).mean()
+        total = (logz - gold).sum()
+        B = shard.batch if shard.batch is not None else scores.shape[1]
+        return (SM.psum(total, dp) if dp else total) / B
 
     # ------------------------------------------------------------------
     # ``repro``'s parameter tree

@@ -21,6 +21,32 @@ expert id (``jax.lax.top_k``'s order) and the ragged dispatch sorts
 stably.
 ``F.scaled_dot_product_attention`` is not used: it is a library kernel
 with another arithmetic.
+
+Partitioned (inside a ``shard_map`` body, ``shard`` a ``ShardingPolicy``
+on the body's mesh carrying the global batch and the residual's sequence
+parallelism, ``ShardingPolicy.body``): ``p`` holds this position's slabs,
+laid out by ``transformer.param_specs``, and the counts come from them
+(the local heads, ``d_ff / tp``, the local experts). The layouts are
+``repro``'s constraint sites made explicit:
+
+- attention in ``heads`` mode (``H % tp == 0``): the position's q heads,
+  k/v either tp-split with them or ZeRO leaves gathered whole, each
+  position taking its q heads' kv group; ``wo`` row-split, so the output
+  is a partial sum over tp (``repro``'s ``y`` constraint: reduced to
+  replicated, or reduce-scattered over the sequence under Megatron-SP);
+- attention in ``seq`` mode (``H % tp != 0``): every weight a ZeRO leaf
+  gathered whole, the query rows split over sp (``repro``'s ``qh`` and
+  score constraints), masks and windows on the rows' global positions;
+- decode against a cache split over sp (over ``flat`` at batch 1): the
+  slot's owner writes the new K/V, every position scores its slice of
+  the cache, and the softmax runs across positions (``pmax``, ``psum``);
+- the MLP column-split ``w1``/``w3`` and row-split ``w2`` (its output a
+  partial sum over tp), or ZeRO ``w1``/``w3`` gathered and ``w2`` whole;
+- ``moe_dense`` with the experts over tp and the router replicated; the
+  expert-parallel ``ragged_ep`` body runs in place.
+
+A ZeRO gather happens inside the layer that uses the leaf, so the whole
+leaf lives only there (under remat, ``shard_map.checkpoint`` replays it).
 """
 from __future__ import annotations
 
@@ -28,6 +54,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import shard_map as SM
 
 NEG = -1e30
 
@@ -115,6 +143,8 @@ def _normal(gen, shape: tuple, scale: float, device) -> torch.Tensor:
     """float32 normal draws times ``scale``, on ``gen``'s device (or
     ``device`` without a generator)."""
     dev = gen.device if gen is not None else device
+    if torch.device(dev).type == "meta":      # shapes only: nothing to draw
+        return torch.empty(shape, dtype=torch.float32, device=dev)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=dev) * scale
 
@@ -137,19 +167,22 @@ def _sdpa_block(cfg, qh, k, v, q_pos, kv_pos, window):
     return torch.einsum("bkrst,btkh->bskrh", w, v)
 
 
-def _sdpa(cfg, qh, k, v, positions, window):
-    """Exact attention; q-chunked above ATTN_CHUNK_THRESHOLD."""
+def _sdpa(cfg, qh, k, v, positions, window, q_pos=None):
+    """Exact attention; q-chunked above ATTN_CHUNK_THRESHOLD. ``q_pos``
+    (default ``positions``) are the query rows' positions."""
+    q_pos = positions if q_pos is None else q_pos
     S = qh.shape[1]
     if S <= ATTN_CHUNK_THRESHOLD or S % ATTN_CHUNK:
-        return _sdpa_block(cfg, qh, k, v, positions, positions, window)
+        return _sdpa_block(cfg, qh, k, v, q_pos, positions, window)
     return torch.cat([
         _sdpa_block(cfg, qh[:, c:c + ATTN_CHUNK], k, v,
-                    positions[c:c + ATTN_CHUNK], positions, window)
+                    q_pos[c:c + ATTN_CHUNK], positions, window)
         for c in range(0, S, ATTN_CHUNK)], dim=1)
 
 
 def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, window: int,
-              kv_cache: dict | None = None, decode_pos: int | None = None):
+              kv_cache: dict | None = None, decode_pos: int | None = None,
+              shard=None):
     """GQA attention. x [B,S,D] -> (y [B,S,D], cache or None).
 
     Train: ``kv_cache`` None. Prefill: ``kv_cache`` is a layer's
@@ -157,8 +190,12 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, window: int,
     layout for a window). Decode: S == 1 at position ``decode_pos``; this
     token's K/V go into slot ``pos % Sc`` (window) or ``min(pos, Sc-1)``
     and the query attends to the cache. The cache is written in place and
-    returned.
+    returned. Inside a body (``partitioned(shard)``), see the module
+    docstring: ``x`` is in the residual's layout and so is ``y``.
     """
+    if partitioned(shard):
+        return _attention_part(cfg, p, x, positions, window, shard,
+                               kv_cache, decode_pos)
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = H // KV
@@ -344,13 +381,10 @@ def moe_ragged_ep(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
     ``ShardingPolicy``; without a mesh this is ``moe_ragged``, as in
     ``repro``. The group sizes are read on the host (one sync a layer and
     position)."""
-    from repro_torch.distributed import shard_map as SM
-
     mesh = shard.mesh if shard is not None else None
     if mesh is None:
         return moe_ragged(cfg, p, x)
     moe = cfg.moe
-    act = _act(cfg.act)
     B, S, D = x.shape
     dp_axes = shard.rules["dp"]
     tp_axes = shard.rules["tp"]
@@ -361,45 +395,18 @@ def moe_ragged_ep(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
         raise ValueError(f"{moe.n_experts} experts do not split over tp = "
                          f"{tp_size}")
     e_loc = moe.n_experts // max(tp_size, 1)
-    t_loc = (B // max(dp_size, 1)) * S
+    # inside a body x is already this position's tokens
+    t_loc = (B if SM.in_shard_map() else B // max(dp_size, 1)) * S
     cap = max(8, int(math.ceil(t_loc * moe.top_k * e_loc / moe.n_experts
                                * 1.25 / 8.0)) * 8)
 
+    if SM.in_shard_map():
+        # already inside a body: this position's tokens and experts
+        return _ragged_ep_body(cfg, x, p["router"], p["w1"], p["w3"],
+                               p["w2"], tp_ax, cap)
+
     def body(xb, router, w1, w3, w2):
-        Bb, Ss, Dd = xb.shape
-        T = Bb * Ss
-        x2 = xb.reshape(T, Dd)
-        logits = x2 @ router.to(x2.dtype)
-        topv, topi = top_k(logits, moe.top_k)
-        topw = torch.softmax(topv.float(), dim=-1).to(x2.dtype)
-        my = SM.axis_index(tp_ax)
-        flat_e = topi.reshape(-1)
-        local = torch.div(flat_e, e_loc, rounding_mode="floor") == my
-        le = torch.where(local, flat_e % e_loc, e_loc)  # e_loc = not mine
-        order = torch.argsort(le, stable=True)[:cap]
-        le_sel = le.index_select(0, order)
-        valid = le_sel < e_loc
-        tok = torch.div(order, moe.top_k, rounding_mode="floor")
-        xs = x2.index_select(0, tok) * valid[:, None].to(x2.dtype)
-        counts = torch.bincount(le, minlength=e_loc + 1).tolist()[:e_loc]
-        # ``order`` is sorted by group and cut at ``cap``: group e keeps
-        # what of its count still fits after the groups before it
-        sizes, before = [], 0
-        for c in counts:
-            sizes.append(min(c, max(0, cap - before)))
-            before += c
-        EP_STATS["assigned"] += sum(counts)
-        EP_STATS["kept"] += sum(sizes)
-        # park the capacity padding in the last group
-        sizes[-1] += order.shape[0] - sum(sizes)
-        h = act(_ragged_dot(xs, w1.to(xs.dtype), sizes))
-        g = _ragged_dot(xs, w3.to(xs.dtype), sizes)
-        y = _ragged_dot(h * g, w2.to(xs.dtype), sizes)
-        w = topw.reshape(-1).index_select(0, order) * valid.to(x2.dtype)
-        out = torch.zeros((T, Dd), dtype=x2.dtype, device=x2.device
-                          ).index_add(0, tok, y * w[:, None])
-        out = SM.psum(out, tp_ax)
-        return out.reshape(Bb, Ss, Dd)
+        return _ragged_ep_body(cfg, xb, router, w1, w3, w2, tp_ax, cap)
 
     P = SM.P
     return SM.shard_map(
@@ -411,11 +418,55 @@ def moe_ragged_ep(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
     )(x, p["router"], p["w1"], p["w3"], p["w2"])
 
 
+def _ragged_ep_body(cfg, xb, router, w1, w3, w2, tp_ax, cap):
+    """One position of ``moe_ragged_ep``: its tokens ``xb`` [B, S, D], the
+    router whole, its experts' weights."""
+    moe = cfg.moe
+    act = _act(cfg.act)
+    e_loc = w1.shape[0]
+    Bb, Ss, Dd = xb.shape
+    T = Bb * Ss
+    x2 = xb.reshape(T, Dd)
+    logits = x2 @ router.to(x2.dtype)
+    topv, topi = top_k(logits, moe.top_k)
+    topw = torch.softmax(topv.float(), dim=-1).to(x2.dtype)
+    my = SM.axis_index(tp_ax)
+    flat_e = topi.reshape(-1)
+    local = torch.div(flat_e, e_loc, rounding_mode="floor") == my
+    le = torch.where(local, flat_e % e_loc, e_loc)  # e_loc = not mine
+    order = torch.argsort(le, stable=True)[:cap]
+    le_sel = le.index_select(0, order)
+    valid = le_sel < e_loc
+    tok = torch.div(order, moe.top_k, rounding_mode="floor")
+    xs = x2.index_select(0, tok) * valid[:, None].to(x2.dtype)
+    counts = torch.bincount(le, minlength=e_loc + 1).tolist()[:e_loc]
+    # ``order`` is sorted by group and cut at ``cap``: group e keeps
+    # what of its count still fits after the groups before it
+    sizes, before = [], 0
+    for c in counts:
+        sizes.append(min(c, max(0, cap - before)))
+        before += c
+    EP_STATS["assigned"] += sum(counts)
+    EP_STATS["kept"] += sum(sizes)
+    # park the capacity padding in the last group
+    sizes[-1] += order.shape[0] - sum(sizes)
+    h = act(_ragged_dot(xs, w1.to(xs.dtype), sizes))
+    g = _ragged_dot(xs, w3.to(xs.dtype), sizes)
+    y = _ragged_dot(h * g, w2.to(xs.dtype), sizes)
+    w = topw.reshape(-1).index_select(0, order) * valid.to(x2.dtype)
+    out = torch.zeros((T, Dd), dtype=x2.dtype, device=x2.device
+                      ).index_add(0, tok, y * w[:, None])
+    out = SM.psum(out, tp_ax)
+    return out.reshape(Bb, Ss, Dd)
+
+
 def ffn(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
     """The layer's feed-forward: the gated MLP, or the MoE of
     ``cfg.moe.impl``; ``ragged_ep`` runs its expert-parallel body when
     ``shard`` (a ``ShardingPolicy``) has a mesh, ``moe_ragged`` without
-    one, as ``repro`` does."""
+    one, as ``repro`` does. Inside a body, the partitioned layers."""
+    if partitioned(shard):
+        return _ffn_part(cfg, p, x, shard)
     if cfg.moe is None:
         return mlp(cfg, p, x)
     if cfg.moe.impl == "ragged_ep":
@@ -428,3 +479,245 @@ def ffn(cfg, p, x: torch.Tensor, shard=None) -> torch.Tensor:
 def ffn_params(cfg, gen=None, device="cpu") -> dict:
     return (moe_params(cfg, gen, device) if cfg.moe is not None
             else mlp_params(cfg, gen, device))
+
+
+# ---------------------------------------------------------------------------
+# partitioned: one position's part inside a ``shard_map`` body
+# ---------------------------------------------------------------------------
+
+def partitioned(shard) -> bool:
+    """True inside a ``shard_map`` body given a policy on a mesh: the
+    layers then run on this position's slabs (module docstring)."""
+    return shard is not None and shard.mesh is not None and \
+        SM.in_shard_map()
+
+
+def _size(axes: tuple) -> int:
+    return SM.axis_size(axes) if axes else 1
+
+
+def _index(axes: tuple) -> int:
+    return SM.axis_index(axes) if axes else 0
+
+
+def _batch_axis(shard):
+    """``repro``'s ``"dp" if B > 1 else None`` (a batch of 1 is whole)."""
+    return "dp" if shard.batch is None or shard.batch > 1 else None
+
+
+def _zero(w: torch.Tensor, dim: int, full: int, shard) -> torch.Tensor:
+    """A ZeRO leaf (split over dp along ``dim``) gathered whole for its
+    product; a whole leaf as it is."""
+    if w.shape[dim] == full:
+        return w
+    return SM.all_gather(w, shard.axes("dp"), axis=dim, tiled=True)
+
+
+def rows_whole(x: torch.Tensor, shard) -> torch.Tensor:
+    """The residual's rows [B, S, D] whole: gathered over sp under
+    Megatron-SP, else as they are."""
+    if not shard.sp:
+        return x
+    b = _batch_axis(shard)
+    return shard.constrain(x, b, None, None, have=(b, "sp", None))
+
+
+def rows_local(y: torch.Tensor, shard) -> torch.Tensor:
+    """A complete [B, S, D] -> the residual's layout (this position's rows
+    under Megatron-SP)."""
+    if not shard.sp:
+        return y
+    b = _batch_axis(shard)
+    return shard.constrain(y, b, "sp", None, have=(b, None, None))
+
+
+def _reduce_rows(y: torch.Tensor, shard) -> torch.Tensor:
+    """Partial sums over tp -> the residual's layout: reduce-scattered
+    along the sequence under Megatron-SP, else ``psum``'d."""
+    tp = shard.axes("tp")
+    if _size(tp) == 1:
+        return y
+    if shard.sp:
+        if tp != shard.axes("sp"):
+            raise NotImplementedError("Megatron-SP wants sp on tp's axes")
+        return SM.psum_scatter(y, tp, 1)
+    return SM.psum(y, tp)
+
+
+def _kv_groups(q, k, v, h0: int, kv0: int, rep: int) -> tuple:
+    """(qh, k, v) for this position's q heads [h0, h0 + Hl): their kv
+    groups out of k/v's heads [kv0, ...); a head per group when the local
+    heads do not hold whole groups."""
+    B, S, Hl, hd = q.shape
+    if Hl % rep == 0:
+        lo, n = h0 // rep - kv0, Hl // rep
+        return (q.reshape(B, S, n, rep, hd), k[:, :, lo:lo + n],
+                v[:, :, lo:lo + n])
+    idx = (torch.arange(Hl, device=q.device) + h0) // rep - kv0
+    return (q.reshape(B, S, Hl, 1, hd), k.index_select(2, idx),
+            v.index_select(2, idx))
+
+
+def _seq_axes(shard) -> tuple:
+    """The mesh axes a KV cache's sequence is split over
+    (``kv_cache.cache_logical_axes``: sp, flat at batch 1)."""
+    return shard.axes("sp" if _batch_axis(shard) else "flat")
+
+
+def _attention_part(cfg, p, x, positions, window, shard, kv_cache,
+                    decode_pos):
+    H, KV, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    rep = H // KV
+    tp = shard.axes("tp")
+    t = _index(tp)
+    b = _batch_axis(shard)
+    x = rows_whole(x, shard)
+    B, S, _ = x.shape
+    wq = _zero(p["wq"], 0, D, shard)
+    wk = _zero(p["wk"], 0, D, shard)
+    wv = _zero(p["wv"], 0, D, shard)
+    wo = _zero(p["wo"], 2, D, shard)
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
+    q = rope(q, positions, cfg.rope_theta)
+    q = q * _round(hd ** -0.5, q.dtype)
+    k = rope(k, positions, cfg.rope_theta)
+    Hl, KVl = q.shape[2], k.shape[2]
+    h0 = t * Hl if Hl < H else 0
+    kv0 = t * KVl if KVl < KV else 0
+    if kv_cache is not None:
+        # the cache holds every kv head of a slice of the sequence
+        k_all = k if KVl == KV else SM.all_gather(k, tp, axis=2, tiled=True)
+        v_all = v if KVl == KV else SM.all_gather(v, tp, axis=2, tiled=True)
+    if kv_cache is not None and decode_pos is not None:
+        o = _decode_attention(cfg, q if Hl == H else SM.all_gather(
+            q, tp, axis=2, tiled=True), k_all, v_all, kv_cache, window,
+            int(decode_pos), shard)
+        if Hl < H:
+            y = torch.einsum("bshk,hkd->bsd", o[:, :, h0:h0 + Hl],
+                             wo.to(x.dtype))
+            return SM.psum(y, tp), kv_cache
+        return torch.einsum("bshk,hkd->bsd", o, wo.to(x.dtype)), kv_cache
+    if kv_cache is not None:
+        _write_prefill_cache(kv_cache, k_all, v_all, window, shard)
+    if H % _size(tp):
+        # seq mode: this position's query rows against every key
+        rows = shard.constrain(q, b, "sp", None, None,
+                               have=(b, None, None, None))
+        n = rows.shape[1]
+        s0 = _index(shard.axes("sp")) * n
+        o = _sdpa(cfg, rows.reshape(B, n, KV, rep, hd), k, v, positions,
+                  window, q_pos=positions[s0:s0 + n])
+        y = torch.einsum("bshk,hkd->bsd", o.reshape(B, n, H, hd),
+                         wo.to(x.dtype))
+        if shard.sp:
+            return y, kv_cache
+        return shard.constrain(y, b, None, None, have=(b, "sp", None)), \
+            kv_cache
+    qh, ku, vu = _kv_groups(q, k, v, h0, kv0, rep)
+    o = _sdpa(cfg, qh, ku, vu, positions, window).reshape(B, S, Hl, hd)
+    y = torch.einsum("bshk,hkd->bsd", o, wo.to(x.dtype))
+    return (_reduce_rows(y, shard) if Hl < H else rows_local(y, shard),
+            kv_cache)
+
+
+def _write_prefill_cache(kv_cache, k_all, v_all, window, shard) -> None:
+    """Write this position's slice [off, off + Sc_l) of the prefill cache
+    (the last Sc positions, ring-rolled for a window)."""
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    sx = _seq_axes(shard)
+    Sc_l = ck.shape[1]
+    Sc, off = Sc_l * _size(sx), _index(sx) * Sc_l
+    S = k_all.shape[1]
+    take = min(Sc, S)
+    ks = k_all[:, S - take:].to(ck.dtype)
+    vs = v_all[:, S - take:].to(cv.dtype)
+    if window and S >= Sc:
+        ks = torch.roll(ks, S % Sc, dims=1)
+        vs = torch.roll(vs, S % Sc, dims=1)
+    hi = min(off + Sc_l, take)
+    if hi > off:
+        ck[:, :hi - off] = ks[:, off:hi]
+        cv[:, :hi - off] = vs[:, off:hi]
+
+
+def _decode_attention(cfg, q, k, v, kv_cache, window, pos, shard):
+    """One token against a cache split over the sequence: the slot's
+    owner writes K/V, each position scores its slice, the softmax runs
+    across positions. q [B,1,H,hd], k/v [B,1,KV,hd] -> o [B,1,H,hd]."""
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    sx = _seq_axes(shard)
+    n_s = _size(sx)
+    Sc_l = ck.shape[1]
+    Sc, off = Sc_l * n_s, _index(sx) * Sc_l
+    slot = pos % Sc if window else min(pos, Sc - 1)
+    if off <= slot < off + Sc_l:
+        ck[:, slot - off:slot - off + 1] = k.to(ck.dtype)
+        cv[:, slot - off:slot - off + 1] = v.to(cv.dtype)
+    j = off + torch.arange(Sc_l, device=q.device)
+    valid = (torch.ones_like(j, dtype=torch.bool)
+             if window and pos + 1 >= Sc else j <= pos)
+    qh = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bskrh,bjkh->bkrsj", qh, ck.to(q.dtype))
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(valid, scores, NEG).float()
+    if n_s > 1:
+        e = torch.exp(scores - SM.pmax(scores.amax(-1, keepdim=True), sx))
+        w = (e / SM.psum(e.sum(-1, keepdim=True), sx)).to(q.dtype)
+    else:
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+    o = torch.einsum("bkrsj,bjkh->bskrh", w, cv.to(q.dtype))
+    if n_s > 1:
+        o = SM.psum(o, sx)
+    return o.reshape(B, 1, H, hd)
+
+
+def _mlp_part(cfg, p, x, shard):
+    act = _act(cfg.act)
+    w1 = p["w1"]
+    if w1.shape[1] < cfg.d_ff:
+        # column-split w1/w3, row-split w2: a partial sum over tp
+        x = rows_whole(x, shard)
+        h = act(torch.einsum("bsd,df->bsf", x, w1.to(x.dtype)))
+        g = torch.einsum("bsd,df->bsf", x, p["w3"].to(x.dtype))
+        y = torch.einsum("bsf,fd->bsd", h * g, p["w2"].to(x.dtype))
+        return _reduce_rows(y, shard)
+    # ZeRO w1/w3 gathered, w2 whole: every row complete where it lies
+    D = cfg.d_model
+    return mlp(cfg, {"w1": _zero(w1, 0, D, shard),
+                     "w3": _zero(p["w3"], 0, D, shard), "w2": p["w2"]}, x)
+
+
+def _moe_dense_part(cfg, p, x, shard):
+    E = cfg.moe.n_experts
+    El = p["w1"].shape[0]
+    if El == E:
+        return moe_dense(cfg, p, x)
+    act = _act(cfg.act)
+    x = rows_whole(x, shard)
+    B, S, D = x.shape
+    e0 = _index(shard.axes("tp")) * El
+    x2 = x.reshape(B * S, D)
+    gates, _, _ = moe_router(p, x2, cfg.moe.top_k)
+    h = act(torch.einsum("td,edf->tef", x2, p["w1"].to(x.dtype)))
+    g = torch.einsum("td,edf->tef", x2, p["w3"].to(x.dtype))
+    hg = h * g * gates[:, e0:e0 + El, None]         # this position's experts
+    y = torch.einsum("tef,efd->td", hg, p["w2"].to(x.dtype))
+    return _reduce_rows(y.reshape(B, S, D), shard)
+
+
+def _ffn_part(cfg, p, x, shard):
+    if cfg.moe is None:
+        return _mlp_part(cfg, p, x, shard)
+    if cfg.moe.impl == "dense":
+        return _moe_dense_part(cfg, p, x, shard)
+    if p["w1"].shape[0] == cfg.moe.n_experts:
+        return moe_ragged(cfg, p, x)            # whole experts, local rows
+    if cfg.moe.impl != "ragged_ep":
+        raise NotImplementedError("a ragged MoE with its experts over tp "
+                                  "runs as ragged_ep")
+    return rows_local(moe_ragged_ep(cfg, p, rows_whole(x, shard), shard),
+                      shard)

@@ -22,18 +22,36 @@ float32 (``full_f32``: TF32 off).
 ``param_specs``, ``param_shardings`` and ``_layer_specs`` are ``repro``'s
 logical axes of its params tree (``segments/<s>/<slot>`` stacks
 prepended with a rep axis). ``forward`` and ``loss_fn`` take a ``shard``
-policy as ``repro``'s do: the MoE's ``ragged_ep`` runs its
-expert-parallel body over the policy's mesh; the rest of the step runs
-on the model's device (``repro`` partitions it through XLA, which the
-port does not have yet).
+policy as ``repro``'s do. Called on a whole model, the MoE's
+``ragged_ep`` runs its expert-parallel body over the policy's mesh.
+
+Partitioned: ``place_params``/``params_from_jax(mesh=)`` place the
+leaves by ``param_specs`` (a dict of ``Sharded`` by leaf name), and the
+step functions run inside a ``shard_map`` body on a position's slabs
+(``local_model`` binds them; ``shard`` carries the global batch,
+``ShardingPolicy.body``). There: the embedding is split over vocab (a
+masked local take, ``psum`` over tp); under ``cfg.sp_activations`` (batch
+and sequence above 1) the residual stream lives split over the sequence
+(Megatron-SP), each layer gathering its rows and reduce-scattering its
+partial sums; ``lm_loss`` takes vocab-split logits chunk by chunk,
+soft-capped, the padded vocabulary masked by global index, the max and
+the sum of exponentials taken across tp, the gold logit from its owner,
+and returns the global mean (its sum ``psum``'d over dp); prefill fills
+caches laid out by ``cache_logical_axes`` and decode attends to them
+split over the sequence. A checkpointed region replays its collectives
+(``shard_map.checkpoint``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import placement as PL
+from repro_torch.distributed import shard_map as SM
 from repro_torch.distributed.sharding import map_specs
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 from repro_torch.models import kv_cache as KV
@@ -141,6 +159,32 @@ def param_shardings(cfg, shard):
     return map_specs(lambda axes: shard.named(*axes),
                      param_specs(cfg, shard.axis_size("tp"),
                                  shard.axis_size("dp")))
+
+
+def leaf_shardings(cfg, shard) -> dict:
+    """``param_shardings`` by leaf name (``DecoderLM.jax_leaf_names``)."""
+    tree = param_shardings(cfg, shard)
+    return {n: _tree_get(tree, n) for n in template(cfg).jax_leaf_names()}
+
+
+@functools.lru_cache(maxsize=16)
+def template(cfg) -> "DecoderLM":
+    """A storage-free model of ``cfg`` (meta): the structure a position's
+    slabs are bound to (built once per config; never modified)."""
+    with torch.device("meta"):
+        return DecoderLM(cfg, None, "meta")
+
+
+def place_params(model: "DecoderLM", shard) -> dict:
+    """The model's leaves placed by ``param_specs`` at the policy's tp and
+    dp (a dict of ``Sharded`` by leaf name), one leaf at a time."""
+    return PL.place_model(model, leaf_shardings(model.cfg, shard))
+
+
+def local_model(tmpl: "DecoderLM", leaves: dict, lmap=None) -> "DecoderLM":
+    """``tmpl``'s structure holding one position's slabs (a dict by leaf
+    name; a segment stack's rep r is that layer's parameter)."""
+    return PL.local_module(tmpl, leaves, lmap)
 
 
 # ---------------------------------------------------------------------------
@@ -281,9 +325,15 @@ def _tree_get(tree, name: str):
     return tree
 
 
-def params_from_jax(cfg, tree: dict, device="cuda") -> DecoderLM:
+def params_from_jax(cfg, tree: dict, device="cuda", shard=None):
     """A model holding ``repro``'s params ``tree`` (nested dicts and lists
-    of numpy arrays, segment slots stacked [reps, ...]) bit for bit."""
+    of numpy arrays, segment slots stacked [reps, ...]) bit for bit. With
+    ``shard`` (a ``ShardingPolicy`` on a mesh) the leaves are placed
+    straight into slabs by ``param_specs`` instead (a dict of ``Sharded``
+    by leaf name), each block copied from the host."""
+    if shard is not None and shard.mesh is not None:
+        sh = leaf_shardings(cfg, shard)
+        return PL.place_leaves({n: _tree_get(tree, n) for n in sh}, sh)
     model = DecoderLM(cfg, torch.Generator().manual_seed(0), device)
     model.load_jax_leaves([_tree_get(tree, n)
                            for n in model.jax_leaf_names()])
@@ -297,7 +347,7 @@ def params_from_jax(cfg, tree: dict, device="cuda") -> DecoderLM:
 def _block(cfg, p: Block, x, positions, cache=None, pos=None, shard=None):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     y, new_cache = L.attention(cfg, p.attn, h, positions, p.window,
-                               kv_cache=cache, decode_pos=pos)
+                               kv_cache=cache, decode_pos=pos, shard=shard)
     x = x + y
     h = L.rms_norm(x, p.ln2, cfg.norm_eps)
     return x + L.ffn(cfg, p.ffn, h, shard), new_cache
@@ -328,8 +378,12 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
 
     When ``caches`` is given (prefill), each layer persists its K/V into
     its cache (in place); returns (hidden, caches), else hidden only.
-    ``shard`` (a ``ShardingPolicy``) reaches the MoE (``L.ffn``).
+    ``shard`` (a ``ShardingPolicy``) reaches the MoE (``L.ffn``). Inside a
+    body the hidden states come back in the residual's layout (split over
+    the sequence under Megatron-SP, ``_sp``).
     """
+    if L.partitioned(shard):
+        return _forward_part(model, tokens, caches, shard)
     cfg = model.cfg
     x = _embed(model, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -349,14 +403,16 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
     return x
 
 
-def _logits_of(cfg, emb: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def _logits_of(cfg, emb: torch.Tensor, h: torch.Tensor,
+               off: int = 0) -> torch.Tensor:
     """``h @ emb.T``, soft-capped, padded vocabulary masked; ``emb`` is the
-    embedding already in ``h``'s dtype."""
+    embedding already in ``h``'s dtype, rows [off, off + V) of the
+    vocabulary (a tp slab: the mask is by global index)."""
     logits = torch.einsum("...d,vd->...v", h, emb)
     logits = L.softcap(logits, cfg.final_softcap)
     vp = emb.shape[0]
-    if vp != cfg.vocab_size:                      # mask vocab padding
-        pad_mask = torch.arange(vp, device=h.device) < cfg.vocab_size
+    if off + vp > cfg.vocab_size:                 # mask vocab padding
+        pad_mask = off + torch.arange(vp, device=h.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     return logits
 
@@ -373,10 +429,12 @@ def _chunk_loss(cfg, emb, h, y):
 
 
 def lm_loss(model: DecoderLM, hidden: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
+            labels: torch.Tensor, shard=None) -> torch.Tensor:
     """Chunked cross-entropy over token chunks, so [tokens, V] never
     materialises at once. hidden [B,S,D], labels [B,S] -> scalar mean CE
-    (float32)."""
+    (float32). Inside a body (``shard``), see ``_lm_loss_part``."""
+    if L.partitioned(shard):
+        return _lm_loss_part(model, hidden, labels, shard)
     cfg = model.cfg
     B, S, D = hidden.shape
     T = B * S
@@ -403,18 +461,21 @@ def lm_loss(model: DecoderLM, hidden: torch.Tensor,
 
 def loss_fn(model: DecoderLM, batch: dict, shard=None) -> torch.Tensor:
     h = forward(model, batch["tokens"], shard=shard)
-    return lm_loss(model, h, batch["labels"])
+    return lm_loss(model, h, batch["labels"], shard)
 
 
 @torch.no_grad()
 def prefill_step(model: DecoderLM, batch: dict,
-                 decode_budget: int = 0) -> tuple:
+                 decode_budget: int = 0, shard=None) -> tuple:
     """Prefill: build KV caches + last-position logits. batch: tokens [B,S].
 
     ``decode_budget`` reserves extra cache capacity for subsequent decode
     steps (global-attention slots grow by it; ring windows don't need to).
-    Returns (logits [B,1,Vp], caches).
+    Returns (logits [B,1,Vp], caches). Inside a body: this position's
+    vocab slice of the logits and its cache slabs (``cache_logical_axes``).
     """
+    if L.partitioned(shard):
+        return _prefill_part(model, batch, decode_budget, shard)
     cfg = model.cfg
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
@@ -426,10 +487,13 @@ def prefill_step(model: DecoderLM, batch: dict,
 
 @torch.no_grad()
 def decode_step(model: DecoderLM, caches: list, token: torch.Tensor,
-                pos: int) -> tuple:
+                pos: int, shard=None) -> tuple:
     """One decode step. token [B,1] int; ``pos`` its position; caches from
     ``prefill_step`` (written in place). Returns (logits [B,1,Vp],
-    caches)."""
+    caches). Inside a body: this position's vocab slice of the logits,
+    its cache slabs written in place."""
+    if L.partitioned(shard):
+        return _decode_part(model, caches, token, pos, shard)
     cfg = model.cfg
     x = _embed(model, token)
     positions = torch.full((1,), int(pos), dtype=torch.long, device=x.device)
@@ -438,3 +502,147 @@ def decode_step(model: DecoderLM, caches: list, token: torch.Tensor,
                       cache=_layer_cache(caches, s, k, r), pos=pos)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(model, x), caches
+
+
+# ---------------------------------------------------------------------------
+# partitioned: one position's part inside a ``shard_map`` body
+# ---------------------------------------------------------------------------
+
+def _sp(cfg, shard, B: int, S: int) -> bool:
+    """``repro``'s Megatron-SP residual: on with ``sp_activations`` when
+    batch and sequence are above 1 (and sp has more than one position)."""
+    return bool(cfg.sp_activations and B > 1 and S > 1
+                and L._size(shard.axes("sp")) > 1)
+
+
+def _vocab_slab(model: DecoderLM, shard) -> tuple:
+    """(this position's embedding rows, their first row's index, tp
+    axes): the embedding is split over vocab along tp."""
+    emb = model.embed
+    tp = shard.axes("tp")
+    vp = padded_vocab(model.cfg)
+    off = L._index(tp) * emb.shape[0] if emb.shape[0] < vp else 0
+    return emb, off, tp if emb.shape[0] < vp else ()
+
+
+def _embed_part(model: DecoderLM, tokens: torch.Tensor, shard):
+    """The masked local take of the vocab slab's rows, ``psum``'d over tp
+    (every other position adds zeros: exact)."""
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        full_f32()
+    emb, off, tp = _vocab_slab(model, shard)
+    ids = torch.as_tensor(tokens).to(emb.device, torch.long) - off
+    inside = (ids >= 0) & (ids < emb.shape[0])
+    rows = F.embedding(ids.clamp(0, emb.shape[0] - 1), emb)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    x = SM.psum(rows, tp) if tp else rows
+    x = x.to(dtype)
+    return x * L._round(cfg.d_model ** 0.5, x.dtype)
+
+
+def _forward_part(model: DecoderLM, tokens, caches, shard):
+    cfg = model.cfg
+    S = tokens.shape[1]
+    B = shard.batch if shard.batch is not None else tokens.shape[0]
+    pol = shard.body(batch=B, sp=_sp(cfg, shard, B, S))
+    x = L.rows_local(_embed_part(model, tokens, pol), pol)
+    positions = torch.arange(S, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk, (s, k, r, _) in zip(model.layers, layer_order(cfg)):
+        if caches is not None:
+            x, _ = _block(cfg, blk, x, positions,
+                          cache=_layer_cache(caches, s, k, r), shard=pol)
+        elif remat:
+            x = SM.checkpoint(_block_train, cfg, blk, x, positions, pol)
+        else:
+            x = _block_train(cfg, blk, x, positions, pol)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if caches is not None:
+        return x, caches
+    return x
+
+
+def _chunk_loss_part(cfg, emb, off, tp, h, y):
+    """One chunk's summed cross-entropy over vocab-split logits."""
+    logits = _logits_of(cfg, emb, h, off).float()
+    if tp:
+        m = SM.pmax(logits.amax(dim=-1), tp)
+        z = SM.psum(torch.exp(logits - m[:, None]).sum(dim=-1), tp)
+        logz = torch.log(z) + m
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    local = y - off
+    inside = (local >= 0) & (local < emb.shape[0])
+    gold = logits.gather(-1, local.clamp(0, emb.shape[0] - 1)[:, None])[:, 0]
+    gold = torch.where(inside, gold, torch.zeros_like(gold))
+    if tp:
+        gold = SM.psum(gold, tp)
+    return (logz - gold).sum()
+
+
+def _lm_loss_part(model: DecoderLM, hidden, labels, shard):
+    """The global mean cross-entropy, the same on every position: this
+    position's tokens (its dp block, every row of it) chunk by chunk, the
+    chunks' sums ``psum``'d over dp and divided by the global count."""
+    cfg = model.cfg
+    labels = torch.as_tensor(labels).to(hidden.device, torch.long)
+    S = labels.shape[1]
+    B = shard.batch if shard.batch is not None else labels.shape[0]
+    pol = shard.body(batch=B, sp=_sp(cfg, shard, B, S))
+    hidden = L.rows_whole(hidden, pol)
+    Bl, _, D = hidden.shape
+    T = Bl * S
+    h2, y2 = hidden.reshape(T, D), labels.reshape(T)
+    n_chunks = cfg.loss_chunks
+    while T % n_chunks:
+        n_chunks -= 1
+    c = T // n_chunks
+    emb, off, tp = _vocab_slab(model, pol)
+    emb = emb.to(hidden.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, c):
+        args = (cfg, emb, off, tp, h2[i:i + c], y2[i:i + c])
+        total = total + (SM.checkpoint(_chunk_loss_part, *args) if remat
+                         else _chunk_loss_part(*args))
+    dp = pol.axes("dp") if L._batch_axis(pol) else ()
+    if dp:
+        total = SM.psum(total, dp)
+    return total / (B * S)
+
+
+def _local_logits(model: DecoderLM, h, shard):
+    emb, off, _ = _vocab_slab(model, shard)
+    return _logits_of(model.cfg, emb.to(h.dtype), h, off)
+
+
+def _prefill_part(model: DecoderLM, batch, decode_budget, shard):
+    cfg = model.cfg
+    tokens = torch.as_tensor(batch["tokens"])
+    Bl, S = tokens.shape
+    B = shard.batch if shard.batch is not None else Bl
+    pol = shard.body(batch=B, sp=_sp(cfg, shard, B, S))
+    caches = KV.init_cache(cfg, segment_plan(cfg), Bl, S + decode_budget,
+                           compute_dtype(cfg), device=model.device,
+                           seq_shards=L._size(L._seq_axes(pol)))
+    h, caches = _forward_part(model, tokens, caches, pol)
+    last = h[:, -1:]
+    if pol.sp:                        # the last row lives on the last block
+        last = SM.all_gather(last, pol.axes("sp"), axis=1, tiled=True)[:, -1:]
+    return _local_logits(model, last, pol), caches
+
+
+def _decode_part(model: DecoderLM, caches, token, pos, shard):
+    cfg = model.cfg
+    pol = shard.body(sp=False)
+    x = _embed_part(model, token, pol)
+    pos = int(pos)
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    for blk, (s, k, r, _) in zip(model.layers, layer_order(cfg)):
+        x, _ = _block(cfg, blk, x, positions,
+                      cache=_layer_cache(caches, s, k, r), pos=pos,
+                      shard=pol)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _local_logits(model, x, pol), caches

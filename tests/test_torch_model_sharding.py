@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs import ShapeSpec, get_config
 from repro_torch.distributed import shard_map as SM
-from repro_torch.distributed.sharding import ShardingPolicy
+from repro_torch.distributed.sharding import ShardingPolicy, device_put
 from repro_torch.launch import cells as TC
 from repro_torch.launch import train as TR
 from repro_torch.launch.mesh import make_mesh
@@ -39,7 +39,8 @@ from repro_torch.models.gnn.graph import LocalEdges, partition_edges
 from repro_torch.models.recsys import embedding as EMB
 from repro_torch.models.recsys import nets as R
 from repro_torch.kernels.maxsim.ref import top_k as sorted_top_k
-from test_torch_cells import _check_step, _gen
+from test_torch_cells import (NOISE_FLOOR, PARAM_LR_FRAC, STEP_RTOL,
+                              _check_step, _gen)
 from test_torch_cells_gnn import GNN_NOISE_REL, GNN_REL
 from test_torch_gnn import reduced as gnn_reduced
 
@@ -750,28 +751,54 @@ def test_gnn_vertex_cut_cell_on_2x2_runs_as_repro(ref, monkeypatch):
 
 def test_lm_opt_cell_on_2x2_runs_as_repro(ref, monkeypatch):
     """granite-moe's ``opt`` train cell (``ragged_ep`` over dp = tp = 2, 8
-    checkpointed microbatches of 2), reduced, batch 16 x 8."""
+    checkpointed microbatches of 2), reduced, batch 16 x 8: partitioned,
+    its arguments placed by ``repro``'s shardings, one step against
+    ``repro``'s cell on a (2, 2) mesh."""
     x, want = ref
-    _patch(monkeypatch, lm_cfg(get_config))
+    cfg = lm_cfg(get_config)
+    _patch(monkeypatch, cfg)
     shape = ShapeSpec("train_4k", "train", dict(seq_len=8, global_batch=16))
     tc = TC.build_lm_cell(MOE_ARCH, shape, variant="opt", generator=_gen(),
                           mesh=port_mesh("2x2"))
-    batch = {"tokens": x["cell_tokens"], "labels": x["cell_labels"]}
-    _check_step(*_cell_run(want, "lm_opt", tc, batch), tc, "lm opt")
+    params, opt, batch = tc.args
+    names = T.template(cfg).jax_leaf_names()
+    for n, leaf in zip(names, leaves_of(want, "cell/lm_opt/params")):
+        placed = device_put(leaf, params[n].sharding, copy=True)
+        with torch.no_grad():
+            for dst, src in zip(params[n].slabs, placed.slabs):
+                dst.copy_(src)
+    b = {"tokens": torch.from_numpy(x["cell_tokens"]),
+         "labels": torch.from_numpy(x["cell_labels"])}
+    m = tc.fn(params, opt, device_put(b, {k: v.sharding for k, v in
+                                          batch.items()}, copy=True))
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(want[f"cell/lm_opt/m/{k}"]),
+                                   rtol=STEP_RTOL, err_msg=k)
+    lr = float(want["cell/lm_opt/m/lr"])
+    np.testing.assert_allclose(float(m["lr"]), lr, rtol=1e-6)
+    for i, (n, jnew) in enumerate(zip(names, leaves_of(want,
+                                                        "cell/lm_opt/new"))):
+        assert set(opt["per_leaf"][n]) == {"m", "v"}, n
+        jm = want[f"cell/lm_opt/state/{i}/m"]
+        noisy = np.abs(jm) / 0.1 < max(NOISE_FLOOR, 0.0)
+        bound = np.where(noisy, 2 * lr, PARAM_LR_FRAC * lr) \
+            + 2 * np.spacing(np.abs(jnew))
+        got = params[n].gather().detach().numpy()
+        assert np.all(np.abs(got - jnew) <= bound), n
 
 
 @pytest.mark.parametrize("arch,shape_name,variant", [
-    ("gemma2-9b", "train_4k", "base"), ("granite-moe-1b-a400m", "decode_32k",
-                                        "opt"),
-    ("equiformer-v2", "molecule", "base"),
+    ("dcn-v2", "serve_p99", "base"), ("dlrm-mlperf", "train_batch", "base"),
+    ("bert4rec", "serve_bulk", "opt"),
     ("equiformer-v2", "full_graph_sm", "opt"),
     ("dcn-v2", "train_batch", "base"), ("dcn-v2", "retrieval_cand", "base"),
-    ("colpali", "train_contrastive", "base")])
+    ("equiformer-v2", "full_graph_sm", "base")])
 def test_partitioned_cells_refuse_a_mesh(arch, shape_name, variant):
-    """A cell that ``repro`` shards only through XLA partitioning raises
-    when given a mesh, naming the next slice; nothing runs it on one
-    device quietly."""
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """A cell whose partitioned form the port does not have yet (recsys
+    tables row-split over tp, the small full graph's edges over flat)
+    raises when given a mesh, naming the last slice; nothing runs it on
+    one device quietly."""
+    with pytest.raises(NotImplementedError, match="last slice"):
         TC.build_cell(arch, shape_name, variant=variant,
                       mesh=port_mesh("2x2"))
 
