@@ -358,7 +358,23 @@ line) at the first phase that goes wrong:
             fed the one-device greedy tokens (the same greedy token apart
             from near-ties within 1e-4); colpali ``index_1m`` on (4, 1), 256
             pages, ``pool.cu`` launched once a position and call (its
-            launches join the kernels line);
+            launches join the kernels line). The recsys cells and
+            ``full_graph_sm`` (their tables row-split over tp, their
+            candidates or edges over ``flat``): (a) the four archs' train
+            step (row-wise accumulators' roots rtol 1e-3), ``serve_p99``,
+            ``serve_bulk`` in chunks of 8 (rtol 1e-5, atol 1e-6) and
+            ``retrieval_cand`` base and opt over 301 candidates (ids equal
+            apart from ties within 1e-5) on (2, 2) and (1, 4), and
+            ``full_graph_sm`` base and opt on (2, 2) with f32 messages;
+            (b) dcn-v2, autoint, bert4rec on (2, 2) and dlrm-mlperf (4m's
+            capped table) on (1, 4): ``serve_p99``, ``serve_bulk``
+            (bert4rec in chunks of 16384), ``retrieval_cand`` base and opt
+            over 10^6 candidates and ``train_batch`` (bert4rec 8192)
+            beside the one-device calls on the same weights (kept on the
+            host) and inputs: first-step loss rtol 1e-5, outputs rtol
+            1e-4, atol 1e-5, ids equal apart from ties within 1e-5; and
+            ``full_graph_sm`` base and opt on (2, 2) at full shape (loss
+            within 2^-8);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -5787,7 +5803,17 @@ def shard_path(args, dev, lm) -> dict:
 
 PART_SIZES = dict(timed=2, lm_layers=16, lm_batch=2, lm_seq=4096,
                   moe_batch=(4, 256), gemma_batch=2, gemma_seq=2048,
-                  n_dec=16, colpali_batch=16, index_pages=256)
+                  n_dec=16, colpali_batch=16, index_pages=256, gnn_timed=1,
+                  b4r_train=8192, bulk_timed=1, b4r_bulk_chunk=16384)
+# bert4rec's partitioned train step at 4m's 16384 peaked at 78.02 GB run
+# alone on an NVIDIA H100 80GB HBM3 at 700 W and ran out of memory after
+# the earlier phases: autograd numbers each position thread's nodes from
+# 0, so the one backward recomputes the positions' checkpointed blocks
+# side by side
+# the recsys cells' meshes at full width: dlrm-mlperf's capped table in 4
+# row slabs (tp = 4, dp = 1), the others 2 slabs and 2 batch halves
+PART_RECSYS = {"dcn-v2": (2, 2), "autoint": (2, 2), "bert4rec": (2, 2),
+               "dlrm-mlperf": (1, 4)}
 # the CPU tests' LM configs (``tests/test_torch_partitioned_lm.py``)
 PART_LM = {"minicpm": ("minicpm-2b", {}),
            "gemma3": ("gemma3-4b", {"attn_pattern": (8,) * 5 + (0,)}),
@@ -5822,24 +5848,31 @@ def part_shape(kind: str, **dims):
     from repro_torch.configs import ShapeSpec
     name = {"train": "train_4k", "prefill": "prefill_32k",
             "decode": "decode_32k", "index": "index_1m",
-            "batched_graphs": "molecule"}.get(kind, kind)
+            "batched_graphs": "molecule",
+            "full_graph": "full_graph_sm"}.get(kind, kind)
     return ShapeSpec(name, kind, dims)
 
 
 def part_step_close(what, card, cpu, lr):
     """(a) a train cell's step on the card against the CPU mesh: loss
     (rtol 1e-5), grad_norm, every moment (0.1 x the clip-scaled
-    gradient: rtol 1e-3, atol 1e-7) and parameter (rtol 1e-5, atol 2
-    lr: Adam's first step is a sign)."""
+    gradient: rtol 1e-3, atol 1e-7; of a row-wise Adagrad leaf the root
+    of its accumulator, each row's mean square gradient: rtol 1e-3, atol
+    1e-6) and parameter (rtol 1e-5, atol 2 lr: Adam's first step is a
+    sign)."""
     (mg, pg, og), (mc, pc, oc_) = card, cpu
     lg, lc = float(mg["loss"]), float(mc["loss"])
     check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
           f"(a) {what}: card loss {lg!r} != CPU mesh {lc!r} (rtol 1e-5)")
     worst = 0.0
     for n in pg:
-        worst = max(worst, close(og["per_leaf"][n]["m"].gather(),
-                                 oc_["per_leaf"][n]["m"].gather(), 1e-3,
-                                 1e-7, f"(a) {what} moment {n}"))
+        sg, sc = og["per_leaf"][n], oc_["per_leaf"][n]
+        if "acc" in sg:
+            close(sg["acc"].gather().sqrt(), sc["acc"].gather().sqrt(), 1e-3,
+                  1e-6, f"(a) {what} row-wise accumulator {n}")
+        else:
+            worst = max(worst, close(sg["m"].gather(), sc["m"].gather(),
+                                     1e-3, 1e-7, f"(a) {what} moment {n}"))
         close(pg[n].gather(), pc[n].gather(), 1e-5, 2 * lr,
               f"(a) {what} parameter {n}")
     return dict(loss_rel=abs(lg - lc) / abs(lc), moment_abs=worst,
@@ -5930,6 +5963,15 @@ def part_card_vs_cpu(args) -> dict:
                     "equiformer-v2", part_shape(
                         "batched_graphs", n_nodes=6, n_edges=12, batch=8,
                         d_feat=4), generator=gen(), mesh=mesh), m41)
+            # the small full graph, its 62 edges padded to 64 over flat
+            for variant in ("base", "opt"):
+                out[f"full_graph_{variant}"] = train(
+                    f"full_graph_sm {variant} on (2, 2), 20 nodes, 62 "
+                    "edges over flat (padded to 64), f32 messages",
+                    lambda mesh: C.build_gnn_cell(
+                        "equiformer-v2", part_shape(
+                            "full_graph", n_nodes=20, n_edges=62, d_feat=5),
+                        variant=variant, generator=gen(), mesh=mesh), m22)
     finally:
         E._msg_dtype = msg
     # colpali train and index (the encoder tests' small config)
@@ -5994,11 +6036,12 @@ def part_traffic_line(steps: int) -> str:
         or "none")
 
 
-def part_timed(fn, n: int) -> tuple:
-    """(outputs, ms of the timed calls): one warm-up call, then ``n``
-    calls timed by CUDA events; TRAFFIC counts the timed calls."""
+def part_timed(fn, n: int, warm: bool = True) -> tuple:
+    """(outputs, ms of the timed calls): one warm-up call (unless not
+    ``warm``), then ``n`` calls timed by CUDA events; TRAFFIC counts the
+    timed calls."""
     from repro_torch.distributed import shard_map as SM
-    outs = [fn()]
+    outs = [fn()] if warm else []
     torch.cuda.synchronize()
     for k in SM.TRAFFIC:
         SM.TRAFFIC[k] = 0
@@ -6044,10 +6087,11 @@ def part_train_pair(what, build, schedule, mesh, rtol, n) -> dict:
         + f", lr the schedule's; {part_state_line(c.args[0], c.args[1])}; "
         f"{part_traffic_line(n)}; peak {peak:.2f} GB; "
         f"{time.perf_counter() - t0:.1f}s")
+    secs = time.perf_counter() - t0
     del c, outs
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(ms=ms, one_ms=one, gap=gap, peak_gb=peak)
+    return dict(ms=ms, one_ms=one, gap=gap, peak_gb=peak, seconds=secs)
 
 
 def part_full(args, dev) -> dict:
@@ -6111,6 +6155,17 @@ def part_full(args, dev) -> dict:
         lambda mesh: C.build_gnn_cell("equiformer-v2", shape, dev,
                                       generator=gen(), mesh=mesh),
         cosine, card41, 2.0 ** -8, n)
+    # full_graph_sm at its full shape on (2, 2): edges over flat
+    shape = get_shape("equiformer-v2", "full_graph_sm")
+    for variant in ("base", "opt"):
+        out[f"full_graph_{variant}"] = part_train_pair(
+            f"equiformer-v2 full_graph_sm {variant} ({shape.n_nodes} nodes, "
+            f"{shape.n_edges} edges over flat, {shape.d_feat} features, "
+            "bf16 messages) on (2, 2)",
+            lambda mesh: C.build_gnn_cell("equiformer-v2", shape, dev,
+                                          variant, generator=gen(),
+                                          mesh=mesh),
+            cosine, card22, 2.0 ** -8, PART_SIZES["gnn_timed"])
     out["gemma3"] = part_gemma(args, dev, card14, card22)
     # colpali index_1m on (4, 1): pool.cu on every position
     torch.cuda.empty_cache()
@@ -6270,6 +6325,297 @@ def greedy_match(got, want, what: str) -> int:
     return near
 
 
+def part_recsys_cfg(arch: str):
+    """``tests/test_torch_partitioned_recsys.py``'s config: the CPU tests'
+    sizes, a CTR arch's item field at 120001 rows (the big table exists,
+    its rows padded to the tp shards), dlrm-mlperf 16 wide."""
+    cfg = recsys_reduced(arch)
+    if arch == "bert4rec":
+        return cfg
+    vocab = list(cfg.vocab_sizes)
+    vocab[2] = 120_001
+    cfg = dataclasses.replace(cfg, vocab_sizes=tuple(vocab))
+    if arch == "dlrm-mlperf":
+        cfg = dataclasses.replace(cfg, embed_dim=16, bot_mlp=(32, 16))
+    return cfg
+
+
+class recsys_small_calls:
+    """The tests' cuts inside: ``serve_step`` chunks of 8, candidates
+    scored 32 at a time, a prefetch of 32 and a top 10 (``small``); or
+    only ``serve_step``'s chunk set to ``chunk``."""
+
+    def __init__(self, small: bool = True, chunk: int = 8):
+        self.small, self.chunk = small, chunk
+
+    def __enter__(self):
+        from repro_torch.models.recsys import nets as R
+        self.serve = R.serve_step.__wrapped__
+        self.ret = R.retrieval_step.__wrapped__
+        self.old = (self.serve.__defaults__, self.ret.__kwdefaults__,
+                    R.CAND_CHUNK)
+        self.serve.__defaults__ = (self.chunk, None)
+        if self.small:
+            self.ret.__kwdefaults__ = dict(self.ret.__kwdefaults__,
+                                           prefetch_k=32, top_k=10)
+            R.CAND_CHUNK = 32
+
+    def __exit__(self, *exc):
+        from repro_torch.models.recsys import nets as R
+        (self.serve.__defaults__, self.ret.__kwdefaults__,
+         R.CAND_CHUNK) = self.old
+
+
+def ids_tied(ids, scores, ids1, scores1, tie: float, what: str) -> int:
+    """``ids`` equal ``ids1`` apart from ties: where they differ at a rank,
+    ``scores1`` there lies within ``tie`` of a neighbour's. Returns the
+    ranks that differ; the scores must agree (rtol 1e-5, atol 1e-6)."""
+    close(scores, scores1, 1e-5, 1e-6, f"{what} scores")
+    ids, ids1 = ids.cpu().numpy(), ids1.cpu().numpy()
+    sc = scores1.float().cpu().numpy()
+    differ = np.flatnonzero(ids != ids1)
+    for j in differ:
+        near = [abs(sc[j] - sc[jj]) <= tie for jj in (j - 1, j + 1)
+                if 0 <= jj < len(sc)]
+        check(any(near), f"{what}: id at rank {j} differs without a tie "
+              f"within {tie}")
+    return len(differ)
+
+
+def part_recsys_card_vs_cpu(args) -> dict:
+    """(a) the recsys cells at the CPU tests' sizes in f32 on
+    ``["cuda:0"] * 4`` against ``["cpu"] * 4`` (the same seeded weights
+    and inputs), on (2, 2) and (1, 4): a train step (``part_step_close``),
+    ``serve_p99`` (8 rows), ``serve_bulk`` (32 rows in chunks of 8; rtol
+    1e-5, atol 1e-6) and ``retrieval_cand`` base and opt over 301
+    candidates padded to 304 (ids equal apart from ties within 1e-5)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import cells as C
+
+    shapes = {"train": ShapeSpec("train_batch", "train", {"batch": 16}),
+              "p99": ShapeSpec("serve_p99", "serve", {"batch": 8}),
+              "bulk": ShapeSpec("serve_bulk", "serve", {"batch": 32}),
+              "ret": ShapeSpec("retrieval_cand", "retrieval",
+                               {"batch": 1, "n_candidates": 301})}
+    out = {}
+    for arch in PART_RECSYS:
+        for mshape in ((2, 2), (1, 4)):
+            where = f"({mshape[0]}, {mshape[1]})"
+            res = []
+            with patched_config(part_recsys_cfg(arch)), recsys_small_calls():
+                for mesh in shard_meshes(mshape, ("data", "model")):
+                    def build(kind, variant="base"):
+                        return C.build_recsys_cell(
+                            arch, shapes[kind], variant=variant, mesh=mesh,
+                            generator=torch.Generator().manual_seed(
+                                args.seed))
+                    r = {}
+                    c = build("train")
+                    r["train"] = (c.fn(*c.args), c.args[0], c.args[1])
+                    for kind in ("p99", "bulk"):
+                        c = build(kind)
+                        r[kind] = c.fn(*c.args)
+                    for variant in ("base", "opt"):
+                        c = build("ret", variant)
+                        r[variant] = c.fn(*c.args)
+                    res.append(r)
+            card, cpu = res
+            st = part_step_close(f"{arch} train_batch on {where}",
+                                 card["train"], cpu["train"],
+                                 float(cpu["train"][0]["lr"]))
+            serve = max(close(card[k], cpu[k], 1e-5, 1e-6,
+                              f"(a) {arch} {k} on {where}")
+                        for k in ("p99", "bulk"))
+            swaps = sum(ids_tied(card[v][1], card[v][0], cpu[v][1],
+                                 cpu[v][0], 1e-5,
+                                 f"(a) {arch} retrieval_cand {v} on {where}")
+                        for v in ("base", "opt"))
+            out[f"{arch} {where}"] = dict(st, serve=serve, swaps=swaps)
+            log(f"[partitioned] (a) {arch} on {where}: train_batch loss "
+                f"{float(card['train'][0]['loss']):.7f} vs CPU mesh "
+                f"{float(cpu['train'][0]['loss']):.7f} (rel err "
+                f"{st['loss_rel']:.2e}, rtol 1e-5), every moment and "
+                f"row-wise accumulator within rtol 1e-3, parameters rtol "
+                f"1e-5; serve_p99 and serve_bulk (chunks of 8) max abs err "
+                f"{serve:.2e} (rtol 1e-5, atol 1e-6); retrieval_cand base "
+                f"and opt ids equal ({swaps} differ at ties within 1e-5)")
+    return out
+
+
+def part_place_host(host: dict, like: dict) -> dict:
+    """The host leaves ``host`` placed by the shardings of ``like``'s
+    (meta) slabs; a leaf shorter than its placed shape (a big table whose
+    rows the mesh pads to its tp shards) is padded with zero rows."""
+    from repro_torch.distributed.sharding import device_put
+    out = {}
+    for n, s in like.items():
+        x = host[n]
+        if tuple(x.shape) != tuple(s.shape):
+            x = torch.cat([x, x.new_zeros((s.shape[0] - x.shape[0],)
+                                          + tuple(x.shape[1:]))])
+        out[n] = device_put(x, s.sharding, copy=True)
+    return out
+
+
+def part_recsys_full(args, dev) -> dict:
+    """(b) each recsys arch at full width on its ``PART_RECSYS`` mesh,
+    beside the one-device cells on the same weights and inputs."""
+    return {arch: part_recsys_arch(args, dev, arch, mshape)
+            for arch, mshape in PART_RECSYS.items()}
+
+
+def part_recsys_arch(args, dev, arch: str, mshape: tuple) -> dict:
+    """One arch's cells, ``serve_p99`` (512 rows), ``serve_bulk`` (262144
+    rows), ``retrieval_cand`` base and opt (10^6 candidates) and
+    ``train_batch`` (65536 rows; bert4rec 8192), first on one device
+    (the model and inputs drawn from the seed, the weights kept on the
+    host), then on the mesh (the same weights placed from the host, the
+    same inputs placed): ms per call or step, the outputs' largest
+    difference (rtol 1e-4, atol 1e-5: other GEMM shapes), candidate ids
+    equal apart from ties within 1e-5, the first step's loss within rtol
+    1e-5, bytes a position holds of the parameters and optimizer state,
+    bytes per collective, peak memory."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import device_put
+    from repro_torch.launch import cells as C
+    from repro_torch.models.recsys import nets as R
+    from repro_torch.training import optimizer as OPT
+
+    t0 = time.perf_counter()
+    cfg = recsys_config(arch)
+    mesh, _ = shard_meshes(mshape, ("data", "model"))
+    where = f"({mshape[0]}, {mshape[1]})"
+    n = PART_SIZES["timed"]
+    B_train = PART_SIZES["b4r_train"] if arch == "bert4rec" else \
+        RECSYS_SIZES["train"]
+    N = RECSYS_SIZES["n_cand"]
+    shapes = {"train": ShapeSpec("train_batch", "train", {"batch": B_train}),
+              "p99": ShapeSpec("serve_p99", "serve",
+                               {"batch": RECSYS_SIZES["p99"]}),
+              "bulk": ShapeSpec("serve_bulk", "serve",
+                                {"batch": RECSYS_SIZES["bulk"]}),
+              "ret": ShapeSpec("retrieval_cand", "retrieval",
+                               {"batch": 1, "n_candidates": N})}
+    runs = (("p99", "base"), ("bulk", "base"), ("ret", "base"),
+            ("ret", "opt"), ("train", "base"))
+    with patched_config(cfg):
+        one = {r: C.build_recsys_cell(arch, shapes[r[0]], "meta", r[1])
+               for r in runs}
+        part = {r: C.build_recsys_cell(arch, shapes[r[0]], "meta", r[1],
+                                       mesh=mesh) for r in runs}
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = R.init_params(cfg, gen, dev)
+    host = {m: model.jax_leaf_params(m)[0].detach().to("cpu", copy=True)
+            for m in model.jax_leaf_names()}
+    inputs = {"p99": recsys_batch(cfg, RECSYS_SIZES["p99"], dev, gen,
+                                  "serve"),
+              "bulk": recsys_batch(cfg, RECSYS_SIZES["bulk"], dev, gen,
+                                   "serve"),
+              "train": recsys_batch(cfg, B_train, dev, gen, "train")}
+    q = recsys_batch(cfg, 1, dev, gen, "query")
+    rows = cfg.n_items if arch == "bert4rec" else \
+        cfg.vocab_sizes[R._item_field(cfg)]
+    q["candidates"] = torch.randint(0, rows, (N,), generator=gen, device=dev)
+    inputs["base"] = q
+    inputs["opt"] = dict(q, cand_proxy=torch.randn((N, 16), generator=gen,
+                                                   device=dev))
+
+    # bert4rec's bulk chunks: 16384 rows (with 32768 the other positions'
+    # item rows, held at a collective, ran the card out of memory)
+    chunk = PART_SIZES["b4r_bulk_chunk"] if arch == "bert4rec" else \
+        RECSYS_SIZES["chunk"]
+
+    def timed(fn, kind):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "bulk":
+            with recsys_small_calls(small=False, chunk=chunk):
+                outs, t = part_timed(fn, PART_SIZES["bulk_timed"],
+                                     warm=False)
+        else:
+            outs, t = part_timed(fn, n)
+        return outs, statistics.median(t), \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    def key(r):
+        return r[1] if r[0] == "ret" else r[0]
+
+    got1 = {}
+    labels = OPT.default_labels(dict(model.named_parameters()))
+    for r in runs:
+        if r[0] == "train":
+            st = OPT.init_opt_state(dict(model.named_parameters()), labels)
+            outs, ms, peak = timed(lambda: one[r].fn(model, st,
+                                                     inputs["train"]), "train")
+            got1[r] = (float(outs[0]["loss"]), ms, peak)
+            del st
+        else:
+            with torch.no_grad():
+                outs, ms, peak = timed(lambda: one[r].fn(model,
+                                                         inputs[key(r)]),
+                                       r[0])
+            got1[r] = (outs[0], ms, peak)
+        del outs
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = part_place_host(host, part[runs[0]].args[0])
+    del host
+    res = {}
+    for r in runs:
+        cell = part[r]
+        b = device_put(inputs[key(r)], {k: v.sharding for k, v in
+                                        cell.args[-1].items()}, copy=True)
+        what = f"(b) {arch} {shapes[r[0]].name} {r[1]} on {where}"
+        if r[0] == "train":
+            st = OPT.init_opt_state(params, OPT.default_labels(params))
+            outs, ms, peak = timed(lambda: cell.fn(params, st, b), "train")
+            l1 = got1[r][0]
+            lp = [float(m["loss"]) for m in outs]
+            gap = abs(lp[0] - l1) / abs(l1)
+            check(np.isfinite(lp).all() and gap <= 1e-5, f"{what}: loss "
+                  f"{lp[0]!r} vs one device {l1!r} (rel gap {gap:.2e})")
+            line = (f"first-step loss {lp[0]:.7f} vs one device {l1:.7f} "
+                    f"(rel gap {gap:.2e}, limit 1e-5); "
+                    f"{part_state_line(params, st)}")
+            res["train"] = dict(gap=gap)
+        elif r[0] == "ret":
+            outs, ms, peak = timed(lambda: cell.fn(params, b), "ret")
+            (s, i), (s1, i1) = outs[0], got1[r][0]
+            sw = ids_tied(i, s, i1, s1, 1e-5, what)
+            line = (f"top {i.shape[0]} ids equal the one-device cell's "
+                    f"({sw} differ at ties within 1e-5), scores max abs "
+                    f"diff {float((s - s1).abs().max()):.2e}")
+            res[r[1]] = dict(swaps=sw)
+        else:
+            outs, ms, peak = timed(lambda: cell.fn(params, b), r[0])
+            o, o1 = outs[0], got1[r][0]
+            err = float((o.float() - o1.float()).abs().max())
+            check(bool(torch.allclose(o, o1, rtol=1e-4, atol=1e-5)),
+                  f"{what}: output max abs diff {err:.3e} from the "
+                  "one-device cell (rtol 1e-4, atol 1e-5)")
+            line = f"output max abs diff {err:.2e} from the one-device cell"
+            res[r[0]] = dict(err=err)
+        one_ms, one_peak = got1[r][1], got1[r][2]
+        res.setdefault(key(r), {}).update(ms=ms, one_ms=one_ms, peak_gb=peak)
+        calls = (f"{PART_SIZES['bulk_timed']} call, no warm-up, chunks of "
+                 f"{chunk}" if r[0] == "bulk" else f"median of {n}")
+        log(f"[partitioned] {what}: {ms:.2f} ms ({calls}; one device "
+            f"{one_ms:.2f}, ratio {ms / one_ms:.2f}); {line}; "
+            f"{part_traffic_line(PART_SIZES['bulk_timed'] if r[0] == 'bulk' else n)}"
+            f"; peak {peak:.2f} GB (one device {one_peak:.2f})")
+        del outs, b
+    log(f"[partitioned] (b) {arch} on {where}: {len(runs)} cells in "
+        f"{time.perf_counter() - t0:.1f}s")
+    del params, inputs, q, got1
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def part_path(args, dev) -> dict:
     """Phase 4r: the partitioned cells on 4 positions of this one card:
     (a) against the CPU mesh at the tests' sizes, (b) at full width
@@ -6277,9 +6623,22 @@ def part_path(args, dev) -> dict:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     res = {"a": part_card_vs_cpu(args)}
-    log(f"[partitioned] (a) {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    res["a_recsys"] = part_recsys_card_vs_cpu(args)
+    t2 = time.perf_counter()
+    log(f"[partitioned] (a) {t2 - t0:.1f}s (the recsys cells "
+        f"{t2 - t1:.1f}s)")
     res["b"] = part_full(args, dev)
-    res["seconds"] = time.perf_counter() - t0
+    t3 = time.perf_counter()
+    res["b_recsys"] = part_recsys_full(args, dev)
+    t4 = time.perf_counter()
+    res["seconds"] = t4 - t0
+    gb = res["b"]
+    new = (t2 - t1) + (t4 - t3) + sum(
+        gb[f"full_graph_{v}"]["seconds"] for v in ("base", "opt"))
+    log(f"[partitioned] (b) {t4 - t2:.1f}s (the recsys cells "
+        f"{t4 - t3:.1f}s); the recsys and full_graph_sm parts "
+        f"{new:.1f}s in all")
     log(f"[partitioned] phase 4r {res['seconds']:.1f}s")
     return res
 

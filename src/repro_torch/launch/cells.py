@@ -42,16 +42,19 @@ layers, ``late_interaction``'s global in-batch negatives, the molecule
 batch by dp; the index cell pools through ``pool.cu`` on every position),
 and ``donate`` updates the placed arguments in place. These are the LM
 cells (train, prefill, decode; tensor, ZeRO and sequence sharding), the
-GNN ``molecule`` cell and the retrievers' train and index cells. On
-``meta`` only the slabs' shapes are made. The cells with explicit
-per-shard bodies run them (``distributed.shard_map``): the GNN minibatch
-cell's two-level dp x tp body and the vertex-cut body over the flat
-axis, the recsys ``opt`` candidate search's two-level top-k and the
-retriever search over the sharded corpus; their arguments live on the
-mesh's first device and the bodies split them. The recsys train, serve
-and base candidate cells (tables row-split over tp and gathered by XLA)
-and the small full-graph GNN cell (edges over ``flat``) raise: they wait
-for the last slice of the partitioned half.
+GNN ``molecule`` cell, the small full-graph GNN cell (its edges over
+``flat``, nodes and weights replicated: ``graph.FlatEdges`` sums each
+node's messages and its softmax across the positions), every recsys cell
+(the big embedding table, bert4rec's item table and their row-wise
+accumulators split by rows over tp, a batch over dp, the candidates and
+``cand_proxy`` over ``flat``; train through ``make_train_step(mesh=)``,
+serve and candidate search as bodies over the slabs) and the retrievers'
+train and index cells. On ``meta`` only the slabs' shapes are made. The
+cells with explicit per-shard bodies run them (``distributed.shard_map``):
+the GNN minibatch cell's two-level dp x tp body and the vertex-cut body
+over the flat axis, and the retriever search over the sharded corpus;
+their arguments live on the mesh's first device and the bodies split
+them. Every one of ``repro``'s 101 cells builds on a mesh.
 
 Also kept: ``repro``'s search ``model_flops`` counts the 2-stage rerank
 for the 1-stage (``stage1``) variant too.
@@ -201,17 +204,6 @@ def _building(dev):
     call without a device lands there too, so nothing is allocated."""
     return torch.device("meta") if dev.type == "meta" \
         else contextlib.nullcontext()
-
-
-def partitioned(arch: str, shape, variant: str):
-    """The error a cell whose partitioned form the port does not have yet
-    raises when it is given a mesh."""
-    return NotImplementedError(
-        f"{arch} x {shape.name} ({variant}) runs sharded in repro through "
-        "XLA partitioning of its embedding tables (row-split over tp) or "
-        "its edge list (split over flat), which waits for the last slice "
-        "of the partitioned half of the model sharding (ROADMAP.md "
-        "section 1). Build it without a mesh for one device.")
 
 
 def _placed_params(tmpl, shardings: dict, fill, make) -> dict:
@@ -543,9 +535,6 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
     base = get_config(arch)
     cfg = dataclasses.replace(base, msg_dtype="bfloat16",
                               fused_rotation=(variant == "opt"))
-    if mesh is not None and shape.kind == "full_graph" and \
-            shape.n_edges <= 2_000_000:
-        raise partitioned(arch, shape, variant)
     pol = ShardingPolicy(mesh)
     dev, gen, fill = _setup(device, generator, mesh)
     oc = OPT.OptConfig()
@@ -608,10 +597,13 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
         return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True),
                           note=f"two-level dp={G} x tp={tp}, cap={cap}")
 
-    # full_graph: small -> one edge list; large -> the vertex cut over
-    # every mesh position (one shard without a mesh)
+    # full_graph: small -> one edge list (over ``flat`` on a mesh); large
+    # -> the vertex cut over every mesh position (one shard without a mesh)
     NN, EE, F = shape.n_nodes, shape.n_edges, shape.d_feat
     n_cls = 47
+    if EE <= 2_000_000 and mesh is not None:     # Cora-scale, partitioned
+        return _full_graph_mesh_cell(arch, shape, cfg, oc, mesh, pol, dev,
+                                     fill, lambda: model_of(F, n_cls))
     model = model_of(F, n_cls)
     if EE <= 2_000_000:                          # Cora-scale
         def loss(m, b):
@@ -619,14 +611,9 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
             return E.node_ce_loss(cfg, m, plan, b["feat"], b["pos"],
                                   b["labels"], b["lmask"])
 
-        batch = {"feat": fill.normal((NN, F)),
-                 "pos": fill.uniform((NN, 3), -2.0, 2.0),
-                 "src": fill.ids((EE,), NN),
-                 "dst": fill.ids((EE,), NN),
-                 "emask": fill.ones((EE,)),
-                 "labels": fill.ids((NN,), n_cls),
-                 "lmask": fill.ones((NN,))}
-        return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True))
+        return train_cell(model, loss, _full_graph_batch(fill, NN, EE, F,
+                                                         n_cls, EE),
+                          _gnn_flops(cfg, EE, True))
 
     # ogbn-products scale: ``repro``'s vertex cut over every device
     S = n_devices(mesh) if mesh is not None else 1
@@ -650,6 +637,59 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
                               mesh is None)}
     return train_cell(model, loss, batch, _gnn_flops(cfg, EE, True),
                       note=f"vertex-cut S={S} cap={cap}")
+
+
+def _full_graph_batch(fill, NN: int, EE: int, F: int, n_cls: int,
+                      n_edges: int) -> dict:
+    """A full graph's batch of ``EE`` edge slots, the first ``n_edges`` of
+    them real (the rest padding, ``emask`` false)."""
+    emask = fill.ones((EE,))
+    if not fill.meta:
+        emask[n_edges:] = False
+    return {"feat": fill.normal((NN, F)),
+            "pos": fill.uniform((NN, 3), -2.0, 2.0),
+            "src": fill.ids((EE,), NN),
+            "dst": fill.ids((EE,), NN),
+            "emask": emask,
+            "labels": fill.ids((NN,), n_cls),
+            "lmask": fill.ones((NN,))}
+
+
+def _full_graph_mesh_cell(arch, shape, cfg, oc, mesh, pol, dev, fill,
+                          make) -> Cell:
+    """``full_graph_sm`` over ``mesh`` as ``repro`` places it: the edges
+    padded to a multiple of the positions and split over ``flat``, nodes,
+    weights and moments replicated. Each position computes its own
+    edges' messages; ``FlatEdges`` sums them (and each node's softmax)
+    across the positions, so every position holds every node's features
+    and computes the same loss, which enters the gradient once
+    (``shard_map``'s ``P()`` rule: each copy takes 1/S of the cotangent,
+    the replicated weights' gradients are summed over the S)."""
+    from repro_torch.models.gnn import equiformer_v2 as E
+    from repro_torch.models.gnn.graph import FlatEdges
+
+    NN, F, n_cls = shape.n_nodes, shape.d_feat, 47
+    S = n_devices(mesh)
+    EE = -(-shape.n_edges // S) * S              # pad edges to shard
+    with torch.device("meta"):
+        tmpl = E.init_params(cfg, F, n_cls, None, "meta")
+    lmap = PL.leaf_map(tmpl)
+    pshard = {n: pol.named() for n in tmpl.jax_leaf_names()}
+    with _building(dev):
+        params = _placed_params(tmpl, pshard, fill, make)
+    flat = pol.axes("flat")
+
+    def loss(p, b):
+        plan = FlatEdges(b["src"], b["dst"], b["emask"], NN, flat)
+        return E.node_ce_loss(cfg, PL.local_module(tmpl, p, lmap), plan,
+                              b["feat"], b["pos"], b["labels"], b["lmask"])
+
+    batch = _full_graph_batch(fill, NN, EE, F, n_cls, shape.n_edges)
+    bshard = {k: (pol.named("flat") if k in ("src", "dst", "emask") else
+                  pol.named(*([None] * v.ndim))) for k, v in batch.items()}
+    step, args = _placed_train(loss, oc, params, batch, bshard, mesh)
+    return Cell(arch, shape.name, step, args, donate=(0, 1),
+                model_flops=_gnn_flops(cfg, EE, True))
 
 
 def _molecule_batch(fill, shape) -> dict:
@@ -726,19 +766,40 @@ def _recsys_dense_flops(cfg, batch: float) -> float:
     return f * batch
 
 
+def _recsys_params(cfg, pol, dev, gen, fill) -> tuple:
+    """(the cell's first argument, ``local``): the model on one device
+    (``local`` the identity), or on a mesh its leaves placed by
+    ``param_specs`` (the big table and bert4rec's item table split by
+    rows over tp, their rows padded to a multiple of tp; the rest
+    replicated) with ``local`` binding one position's slabs to the
+    model's structure."""
+    from repro_torch.models.recsys import nets as R
+    if pol is None:
+        with _building(dev):
+            model = R.init_params(cfg, gen, dev)
+        return model, lambda m: m
+    tp = pol.axis_size("tp")
+    with torch.device("meta"):
+        tmpl = R.init_params(cfg, None, "meta", tp)
+    lmap = PL.leaf_map(tmpl)
+    specs = R.param_specs(cfg, tmpl)
+    pshard = {n: pol.named(*specs[n.replace("/", ".")])
+              for n in tmpl.jax_leaf_names()}
+    with _building(dev):
+        params = _placed_params(tmpl, pshard, fill,
+                                lambda: R.init_params(cfg, gen, dev, tp))
+    return params, lambda p: PL.local_module(tmpl, p, lmap)
+
+
 def build_recsys_cell(arch: str, shape, device=None, variant: str = "base",
                       generator=None, mesh=None) -> Cell:
     from repro_torch.models.recsys import nets as R
 
     cfg = get_config(arch)
-    if mesh is not None and not (shape.kind == "retrieval"
-                                 and variant == "opt"):
-        raise partitioned(arch, shape, variant)
     pol = ShardingPolicy(mesh) if mesh is not None else None
+    body = pol.body() if pol is not None else None
     dev, gen, fill = _setup(device, generator, mesh)
-    with _building(dev):
-        model = R.init_params(cfg, gen, dev,
-                              pol.axis_size("tp") if pol is not None else 1)
+    first, local = _recsys_params(cfg, pol, dev, gen, fill)
     item_rows = cfg.n_items if cfg.name == "bert4rec" else \
         cfg.vocab_sizes[R._item_field(cfg)]
 
@@ -757,15 +818,44 @@ def build_recsys_cell(arch: str, shape, device=None, variant: str = "base",
             b["dense"] = fill.normal((B, cfg.n_dense))
         return b
 
+    def by_rows(b):
+        """``repro``'s ``batch_for``: rows over dp, the shared negatives
+        replicated."""
+        return {k: pol.named(*((None,) if k == "neg_samples" else
+                               ("dp",) + (None,) * (v.ndim - 1)))
+                for k, v in b.items()}
+
+    def by_cands(b):
+        """The candidates and their proxies over ``flat``, the query
+        replicated."""
+        return {k: pol.named(*(("flat",) + (None,) * (v.ndim - 1)
+                               if k in ("candidates", "cand_proxy")
+                               else (None,) * v.ndim))
+                for k, v in b.items()}
+
+    def body_fn(fn, bshard, out_specs):
+        """``fn`` as a body over the placed slabs and batch."""
+        return SM.shard_map(fn, mesh, (SM.in_specs_of(first),
+                                       SM.in_specs_of(bshard)), out_specs)
+
     if shape.kind == "train":
         B = shape.batch
         oc = OPT.OptConfig(lr=1e-3)
-        opt_state, labels = _train_state(model, oc)
-        step = make_train_step(lambda m, b: R.loss_fn(cfg, m, b), oc,
-                               labels=labels)
-        return Cell(arch, shape.name, step,
-                    (model, opt_state, batch_for(B)), donate=(0, 1),
-                    model_flops=3.0 * _recsys_dense_flops(cfg, B))
+        batch = batch_for(B)
+
+        def loss(m, b):
+            return R.loss_fn(cfg, local(m), b, body)
+
+        flops = 3.0 * _recsys_dense_flops(cfg, B)
+        if pol is not None:
+            step, args = _placed_train(loss, oc, first, batch,
+                                       by_rows(batch), mesh)
+            return Cell(arch, shape.name, step, args, donate=(0, 1),
+                        model_flops=flops)
+        opt_state, labels = _train_state(first, oc)
+        step = make_train_step(loss, oc, labels=labels)
+        return Cell(arch, shape.name, step, (first, opt_state, batch),
+                    donate=(0, 1), model_flops=flops)
 
     if shape.kind == "serve":
         B = shape.batch
@@ -775,8 +865,13 @@ def build_recsys_cell(arch: str, shape, device=None, variant: str = "base",
                      "slate": fill.ids((B, 64), cfg.n_items)}
         else:
             batch.pop("labels")
-        return Cell(arch, shape.name, lambda m, b: R.serve_step(cfg, m, b),
-                    (model, batch),
+        fn = lambda m, b: R.serve_step(cfg, local(m), b, shard=body)
+        if pol is not None:
+            bshard = by_rows(batch)
+            fn = body_fn(fn, bshard, pol.spec("dp", None)
+                         if cfg.name == "bert4rec" else pol.spec("dp"))
+            batch = device_put(batch, bshard, copy=True)
+        return Cell(arch, shape.name, fn, (first, batch),
                     model_flops=_recsys_dense_flops(cfg, B))
 
     # retrieval_cand: the candidate list padded to shard over every mesh
@@ -800,12 +895,16 @@ def build_recsys_cell(arch: str, shape, device=None, variant: str = "base",
     def fn(m, b):
         # ``repro``'s opt adds its two-level top-k merge, which over one
         # device selects what ``lax.top_k`` selects
-        return R.retrieval_step(cfg, m, b, stages=n_stages,
+        return R.retrieval_step(cfg, local(m), b, stages=n_stages,
                                 two_level_topk=(variant == "opt"),
-                                shard=pol)
+                                shard=body)
 
+    if pol is not None:
+        bshard = by_cands(batch)
+        fn = body_fn(fn, bshard, (SM.P(), SM.P()))
+        batch = device_put(batch, bshard, copy=True)
     flops = _recsys_dense_flops(cfg, N if n_stages == 1 else 256)
-    return Cell(arch, shape.name, fn, (model, batch), model_flops=flops,
+    return Cell(arch, shape.name, fn, (first, batch), model_flops=flops,
                 note=f"stages={n_stages}")
 
 
@@ -1009,8 +1108,10 @@ def build_cell(arch: str, shape_name: str, device=None,
       - retriever search: int8 scan stage (+ the 2-stage cascade)
     ``device`` defaults to the card (and raises without one), or with
     ``mesh`` to the mesh's first device; ``meta`` sizes a cell without
-    allocating it. ``mesh`` runs the cell's per-shard bodies over it, and
-    raises for a cell that ``repro`` shards only through XLA."""
+    allocating it. ``mesh`` runs the cell over it: partitioned, its
+    arguments placed by ``repro``'s ``in_shardings``, or through its
+    explicit per-shard bodies (module docstring); every cell builds on a
+    mesh."""
     cfg = get_config(arch)
     shape = get_shapes(arch)[shape_name]
     fam = cfg.family

@@ -7,10 +7,17 @@ over edge-index arrays, outside any Pallas kernel; here they are
 card ``index_add`` adds with atomics, so sums come out in a varying order
 (allclose to the CPU, not bit for bit); on the CPU they add in edge order.
 
-Two plans expose the same interface to the model:
+Three plans expose the same interface to the model:
 
 - ``LocalEdges``: a plain COO edge list (small graphs, sampled
   minibatches, a batch of molecules as one disjoint union).
+- ``FlatEdges``: one position's block of a COO edge list split over the
+  ``flat`` mesh axes inside a ``shard_map`` body, every node on every
+  position (``repro``'s XLA-partitioned ``LocalEdges`` of the small
+  full-graph cell). Its two reductions over a node's edges are global:
+  ``aggregate`` ``psum``s the local segment sums, ``softmax`` takes the
+  global segment max (``pmax``, detached: the shift's gradient cancels)
+  and ``psum``s the local sums of the exponentials.
 - ``ShardedEdges``: the vertex-cut layout of ``partition_edges``, edges
   bucketed by (src shard, dst shard), one shard's buckets inside a
   ``shard_map`` body (``distributed.shard_map``): src gathers are local,
@@ -118,6 +125,32 @@ class LocalEdges:
     def softmax(self, scores, valid=None):
         m = self.mask if valid is None else (self.mask & valid)
         return segment_softmax(scores, self.dst, self.n_nodes, m)
+
+
+@dataclass
+class FlatEdges(LocalEdges):
+    """This position's block of the edges (``src``, ``dst``, ``mask`` over
+    ``axis_names``, the ``flat`` axes), inside ``shard_map``; nodes are
+    replicated. A node's edges may lie on any positions, all on one, or
+    on none; masked (padding) edges add nothing, to the max as to the
+    sums, as in ``LocalEdges``."""
+    axis_names: tuple = ()
+
+    def aggregate(self, msgs, valid=None):
+        return SM.psum(super().aggregate(msgs, valid), self.axis_names)
+
+    def softmax(self, scores, valid=None):
+        m = self.mask if valid is None else (self.mask & valid)
+        scores = torch.where(_bcast(m, scores), scores,
+                             torch.full_like(scores, NEG))
+        smax = SM.pmax(segment_max(scores, self.dst, self.n_nodes),
+                       self.axis_names)
+        smax = torch.nan_to_num(smax, neginf=0.0)
+        ex = torch.exp(scores - smax.index_select(0, self.dst))
+        ex = ex * _bcast(m, scores).to(ex.dtype)
+        den = SM.psum(segment_sum(ex, self.dst, self.n_nodes),
+                      self.axis_names)
+        return ex / torch.clamp(den.index_select(0, self.dst), min=1e-9)
 
 
 @dataclass

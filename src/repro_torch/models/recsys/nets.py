@@ -22,10 +22,25 @@ candidates, the full model reranks them exactly; ``stages=1`` scores every
 candidate with the full model. With ``two_level_topk`` and a ``shard``
 policy whose mesh has more than one position along ``flat``, each
 selection over the candidates is ``repro``'s two-level top-k: a top-k per
-position over its slab of the scores inside ``shard_map``, then a merge of
-the S x k (score, id) pairs on the mesh's first device. Selection is ``top_k``'s stable sort (equal
-scores keep the lower index first, ``jax.lax.top_k``'s order). Products
-run in float32 with TF32 off (``full_f32``).
+position over its slab of the scores, then a merge of the S x k (score,
+id) pairs. Selection is ``top_k``'s stable sort (equal scores keep the
+lower index first, ``jax.lax.top_k``'s order). Products run in float32
+with TF32 off (``full_f32``).
+
+Partitioned (a ``shard`` policy inside a ``shard_map`` body, as the cells
+run them on their placed slabs): the model holds this position's slabs,
+the big embedding table and bert4rec's item table split by rows over tp
+(``embedding.take_split_rows``), and the batch is this position's block.
+``repro``'s ``shard.constrain`` sites stay where it has them; the body's
+blocks already lie as they name, so each is the identity there. A batch
+is split over dp, and the losses are global means (local sums ``psum``'d
+over dp, over the global count). In ``retrieval_step`` the candidates
+(and ``cand_proxy``) are this position's block over ``flat`` and are
+scored where they lie: the query's encoding and the rerank of the
+prefetched ids run whole on every position; the selections read the
+scores on their positions (``_topk``: one gathered ``top_k``, or the
+two-level merge of each position's top-k); the prefetched candidates'
+ids are gathered from their owners.
 """
 from __future__ import annotations
 
@@ -34,12 +49,11 @@ import math
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import shard_map as SM
 from repro_torch.kernels.dispatch import full_f32, resolve_device
 from repro_torch.kernels.maxsim.ref import top_k as sorted_top_k
-from repro_torch.models.layers import _gelu, _normal
+from repro_torch.models.layers import _gelu, _normal, partitioned
 from repro_torch.models.recsys import embedding as EMB
 from repro_torch.models.recsys.embedding import take_rows
 
@@ -71,14 +85,30 @@ def mlp_apply(layers, x: torch.Tensor, final_act: bool = False):
     return x
 
 
-def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
+             shard=None) -> torch.Tensor:
+    """The mean binary cross-entropy; inside a body over the global batch
+    (the local sum ``psum``'d over dp, over the global count)."""
     z, y = logits.float(), labels.float()
-    return torch.mean(torch.maximum(z, torch.zeros_like(z)) - z * y
-                      + torch.log1p(torch.exp(-torch.abs(z))))
+    per = (torch.maximum(z, torch.zeros_like(z)) - z * y
+           + torch.log1p(torch.exp(-torch.abs(z))))
+    if not partitioned(shard):
+        return torch.mean(per)
+    dp = shard.axes("dp")
+    return SM.psum(per.sum(), dp) / SM.psum(float(per.numel()), dp)
 
 
 def layout_of(cfg) -> EMB.EmbeddingLayout:
     return EMB.EmbeddingLayout(tuple(cfg.vocab_sizes), cfg.embed_dim)
+
+
+def rows_over(shard, axes: tuple):
+    """A body policy whose batch axis ``dp`` names the mesh axes ``axes``:
+    the candidates' rows over ``flat``, or () for rows that every position
+    holds whole (one query, the prefetched candidates)."""
+    out = shard.body()
+    out.rules = dict(shard.rules, dp=tuple(axes))
+    return out
 
 
 def _jax_key(name: str) -> tuple:
@@ -253,8 +283,8 @@ def to_jax_leaves(model: RecsysModel) -> list:
 # DCN-v2, AutoInt, DLRM
 # ---------------------------------------------------------------------------
 
-def dcn_forward(cfg, model, dense, sparse_idx):
-    emb = EMB.lookup(model.emb, sparse_idx)
+def dcn_forward(cfg, model, dense, sparse_idx, shard=None):
+    emb = EMB.lookup(model.emb, sparse_idx, shard)
     B = dense.shape[0]
     x0 = torch.cat([dense, emb.reshape(B, -1)], dim=-1)
     x = x0
@@ -264,8 +294,8 @@ def dcn_forward(cfg, model, dense, sparse_idx):
     return mlp_apply(model.out, h)[:, 0]
 
 
-def autoint_forward(cfg, model, dense, sparse_idx):
-    x = EMB.lookup(model.emb, sparse_idx)                 # [B, F, d]
+def autoint_forward(cfg, model, dense, sparse_idx, shard=None):
+    x = EMB.lookup(model.emb, sparse_idx, shard)          # [B, F, d]
     for l in model.layers:
         q = torch.einsum("bfd,dhk->bfhk", x, l["wq"])
         k = torch.einsum("bfd,dhk->bfhk", x, l["wk"])
@@ -279,8 +309,8 @@ def autoint_forward(cfg, model, dense, sparse_idx):
     return mlp_apply(model.out, x.reshape(B, -1))[:, 0]
 
 
-def dlrm_forward(cfg, model, dense, sparse_idx):
-    emb = EMB.lookup(model.emb, sparse_idx)               # [B, 26, 128]
+def dlrm_forward(cfg, model, dense, sparse_idx, shard=None):
+    emb = EMB.lookup(model.emb, sparse_idx, shard)        # [B, 26, 128]
     dv = mlp_apply(model.bot, dense, final_act=True)      # [B, 128]
     vecs = torch.cat([dv[:, None, :], emb], dim=1)        # [B, 27, 128]
     B, n = vecs.shape[:2]
@@ -317,16 +347,28 @@ def _b4r_block(cfg, b, x, amask):
     return x + _gelu(h @ b["w1"] + b["b1"]) @ b["w2"] + b["b2"]
 
 
-def bert4rec_encode(cfg, model, seq, seq_mask):
+def items_of(model, ids: torch.Tensor, shard=None, rows=None):
+    """Rows of bert4rec's item table; inside a body the table is this
+    position's row slab over tp, the ids split over ``rows`` (default the
+    batch's axes)."""
+    if not partitioned(shard):
+        return take_rows(model.items, ids)
+    rows = shard.axes("dp") if rows is None else rows
+    return EMB.take_split_rows(model.items, ids, shard, rows)
+
+
+def bert4rec_encode(cfg, model, seq, seq_mask, shard=None):
     """seq [B,S] item ids (n_items = [MASK]) -> hidden [B,S,d]. Each block
     runs under ``torch.utils.checkpoint`` when gradients are on (``repro``
     wraps it in ``jax.checkpoint``); S must be ``cfg.seq_len``."""
     full_f32()
-    x = take_rows(model.items, seq) + model.pos
+    x = items_of(model, seq, shard) + model.pos
+    if shard is not None:
+        x = shard.constrain(x, "dp", None, None, have=("dp", None, None))
     amask = seq_mask[:, None, :] & seq_mask[:, :, None]
     for b in model.blocks:
         if torch.is_grad_enabled():
-            x = checkpoint(_b4r_block, cfg, b, x, amask, use_reentrant=False)
+            x = SM.checkpoint(_b4r_block, cfg, b, x, amask)
         else:
             x = _b4r_block(cfg, b, x, amask)
     return _b4r_norm(x, model.ln_f)
@@ -343,25 +385,29 @@ def take_along(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.gather(h, 1, idx).masked_fill(bad[..., None], float("nan"))
 
 
-def bert4rec_mlm_loss(cfg, model, batch):
+def bert4rec_mlm_loss(cfg, model, batch, shard=None):
     """Masked-item prediction with sampled softmax over ``neg_samples``
-    (shared by the batch)."""
-    h = bert4rec_encode(cfg, model, batch["seq"], batch["seq_mask"])
+    (shared by the batch); inside a body the mean over the global batch's
+    masked slots."""
+    h = bert4rec_encode(cfg, model, batch["seq"], batch["seq_mask"], shard)
     hm = take_along(h, batch["mlm_positions"])           # [B, M, d]
-    wpos = take_rows(model.items, batch["mlm_labels"])    # [B, M, d]
-    wneg = take_rows(model.items, batch["neg_samples"])   # [K, d]
+    wpos = items_of(model, batch["mlm_labels"], shard)    # [B, M, d]
+    wneg = items_of(model, batch["neg_samples"], shard, rows=())  # [K, d]
     s_pos = torch.sum(hm * wpos, dim=-1)                  # [B, M]
     s_neg = torch.einsum("bmd,kd->bmk", hm, wneg)         # [B, M, K]
     logits = torch.cat([s_pos[..., None], s_neg], dim=-1)
     logz = torch.logsumexp(logits, dim=-1)
     ce = logz - s_pos
     m = batch["mlm_mask"].to(torch.float32)
-    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+    num, den = torch.sum(ce * m), torch.sum(m)
+    if partitioned(shard):
+        num, den = SM.psum((num, den), shard.axes("dp"))
+    return num / torch.clamp(den, min=1.0)
 
 
-def bert4rec_query(cfg, model, seq, seq_mask):
+def bert4rec_query(cfg, model, seq, seq_mask, shard=None):
     """Encoded user vector = hidden at the last valid position. [B, d]."""
-    h = bert4rec_encode(cfg, model, seq, seq_mask)
+    h = bert4rec_encode(cfg, model, seq, seq_mask, shard)
     last = torch.clamp(seq_mask.to(torch.int64).sum(dim=1) - 1, min=0)
     return torch.gather(h, 1, last[:, None, None].expand(-1, 1, h.shape[-1])
                         )[:, 0]
@@ -371,36 +417,41 @@ def bert4rec_query(cfg, model, seq, seq_mask):
 # family dispatch + steps
 # ---------------------------------------------------------------------------
 
-def ctr_forward(cfg, model, batch):
+def ctr_forward(cfg, model, batch, shard=None):
     full_f32()
     if cfg.name == "dcn-v2":
-        return dcn_forward(cfg, model, batch["dense"], batch["sparse"])
+        return dcn_forward(cfg, model, batch["dense"], batch["sparse"],
+                           shard)
     if cfg.name == "autoint":
         return autoint_forward(cfg, model, batch.get("dense"),
-                               batch["sparse"])
+                               batch["sparse"], shard)
     if cfg.name == "dlrm-mlperf":
-        return dlrm_forward(cfg, model, batch["dense"], batch["sparse"])
+        return dlrm_forward(cfg, model, batch["dense"], batch["sparse"],
+                            shard)
     raise ValueError(cfg.name)
 
 
-def loss_fn(cfg, model, batch):
+def loss_fn(cfg, model, batch, shard=None):
     if cfg.name == "bert4rec":
-        return bert4rec_mlm_loss(cfg, model, batch)
-    return bce_loss(ctr_forward(cfg, model, batch), batch["labels"])
+        return bert4rec_mlm_loss(cfg, model, batch, shard)
+    return bce_loss(ctr_forward(cfg, model, batch, shard), batch["labels"],
+                    shard)
 
 
 @torch.no_grad()
-def serve_step(cfg, model, batch, chunk: int = 32768):
+def serve_step(cfg, model, batch, chunk: int = 32768, shard=None):
     """Batched inference: CTR probabilities [B], or bert4rec's scores of
     each row's ``slate`` [B, K]. A batch of more than ``chunk`` rows that
     ``chunk`` divides runs chunk by chunk (``repro``'s ``lax.map``), so
-    activation memory stays bounded; any other batch is one call."""
+    activation memory stays bounded; any other batch is one call. Inside
+    a body the batch is this position's rows, chunked alike (rows are
+    independent, so the outputs are the global batch's)."""
     def one(b):
         if cfg.name == "bert4rec":
-            q = bert4rec_query(cfg, model, b["seq"], b["seq_mask"])
+            q = bert4rec_query(cfg, model, b["seq"], b["seq_mask"], shard)
             return torch.einsum("bd,bkd->bk", q,
-                                take_rows(model.items, b["slate"]))
-        return torch.sigmoid(ctr_forward(cfg, model, b))
+                                items_of(model, b["slate"], shard))
+        return torch.sigmoid(ctr_forward(cfg, model, b, shard))
 
     B = next(v for v in batch.values() if v is not None).shape[0]
     if B <= chunk or B % chunk:
@@ -435,7 +486,11 @@ def _topk(scores: torch.Tensor, k: int, shard=None,
     top min(k, N/S) of its slab with global ids, and the S x k (score,
     id) pairs are merged on the mesh's first device; equal scores keep
     the lower id, as ``jax.lax.top_k`` keeps them.
+    Inside a body ``scores`` is this position's block over ``flat``
+    (``_topk_placed``).
     """
+    if partitioned(shard):
+        return _topk_placed(scores, k, shard, two_level)
     n = scores.shape[0]
     s = shard.axis_size("flat") if shard is not None else 1
     if not two_level or s <= 1 or n % s:
@@ -454,6 +509,40 @@ def _topk(scores: torch.Tensor, k: int, shard=None,
     return v2, gid.reshape(-1)[j]
 
 
+def _topk_placed(scores: torch.Tensor, k: int, shard,
+                 two_level: bool) -> tuple:
+    """``_topk`` inside a body, ``scores`` this position's block of the N
+    over ``flat`` (global ids: the block's offset plus its index).
+    two_level=False: the blocks gathered over ``flat`` in order and one
+    ``top_k`` over all N, ``repro``'s ``lax.top_k`` of the whole vector;
+    two_level=True: this position's top min(k, N/S), then the S x k
+    (score, id) pairs gathered and merged. Every position returns the
+    result."""
+    flat = shard.axes("flat")
+    if not two_level:
+        return sorted_top_k(SM.all_gather(scores, flat, axis=0, tiled=True),
+                            k)
+    n = scores.shape[0]
+    v, i = sorted_top_k(scores, min(k, n))
+    gid = i + SM.axis_index(flat) * n
+    v2, j = sorted_top_k(SM.all_gather(v, flat, axis=0, tiled=True), k)
+    return v2, SM.all_gather(gid, flat, axis=0, tiled=True)[j]
+
+
+def _ids_at(cand: torch.Tensor, pre: torch.Tensor, shard) -> torch.Tensor:
+    """``cand[pre]`` for global indices ``pre`` (the same on every
+    position); inside a body ``cand`` is this position's block over
+    ``flat`` and each id comes from its owner (the others add 0)."""
+    if not partitioned(shard):
+        return cand[pre]
+    flat = shard.axes("flat")
+    n = cand.shape[0]
+    loc = pre - SM.axis_index(flat) * n
+    ok = (loc >= 0) & (loc < n)
+    got = cand[loc.clamp(0, n - 1)]
+    return SM.psum(torch.where(ok, got, torch.zeros_like(got)), flat)
+
+
 @torch.no_grad()
 def retrieval_step(cfg, model, batch, *, stages: int = 2,
                    prefetch_k: int = 256, top_k: int = 100,
@@ -468,26 +557,39 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
               stage-1 proxy table in place of the item rows' prefixes.
     The CTR models score candidates ``CAND_CHUNK`` at a time.
     ``two_level_topk`` selects over the candidates with the two-level
-    top-k over ``shard``'s mesh (``_topk``).
+    top-k over ``shard``'s mesh (``_topk``). Inside a body the
+    candidates and ``cand_proxy`` are this position's block over
+    ``flat`` (module docstring).
     """
     full_f32()
     cand = batch["candidates"]                         # [N] item ids
+    whole = over = shard
+    if partitioned(shard):
+        whole, over = rows_over(shard, ()), rows_over(shard,
+                                                      shard.axes("flat"))
+
+    def placed(s):                                     # repro's constraint
+        return s if shard is None else shard.constrain(s, "flat",
+                                                       have=("flat",))
 
     if cfg.name == "bert4rec":
-        q = bert4rec_query(cfg, model, batch["seq"], batch["seq_mask"])[0]
+        q = bert4rec_query(cfg, model, batch["seq"], batch["seq_mask"],
+                           whole)[0]
 
-        def exact(ids):
-            return take_rows(model.items, ids) @ q
+        def exact(ids, pol):
+            return items_of(model, ids, pol) @ q
 
         if stages == 1:
-            return _topk(exact(cand), top_k, shard, two_level_topk)
+            return _topk(placed(exact(cand, over)), top_k, shard,
+                         two_level_topk)
         if "cand_proxy" in batch:
             vec_p = batch["cand_proxy"]
         else:
-            vec_p = take_rows(model.items, cand)[:, :d_proxy]
-        _, pre = _topk(vec_p @ q[:d_proxy], prefetch_k, shard,
+            vec_p = items_of(model, cand, over)[:, :d_proxy]
+        _, pre = _topk(placed(vec_p @ q[:d_proxy]), prefetch_k, shard,
                        two_level_topk)
-        sc, ix = sorted_top_k(exact(cand[pre]), top_k)
+        sc, ix = sorted_top_k(exact(_ids_at(cand, pre, shard), whole),
+                              top_k)
         return sc, pre[ix]
 
     # CTR models: user context broadcast over the candidate item field
@@ -495,37 +597,43 @@ def retrieval_step(cfg, model, batch, *, stages: int = 2,
     base_sparse = batch["sparse"][0]                   # [n_sparse]
     dense = batch["dense"][0] if batch.get("dense") is not None else None
 
-    def scores_of(ids):
+    def scores_of(ids, pol):
         n = ids.shape[0]
         sp = base_sparse.expand(n, -1).clone()
         sp[:, fld] = ids
         de = dense.expand(n, -1) if dense is not None else None
-        return ctr_forward(cfg, model, {"dense": de, "sparse": sp})
+        return ctr_forward(cfg, model, {"dense": de, "sparse": sp}, pol)
 
-    def full_scores(ids):
-        return torch.cat([scores_of(ids[i:i + CAND_CHUNK])
+    def full_scores(ids, pol):
+        return torch.cat([scores_of(ids[i:i + CAND_CHUNK], pol)
                           for i in range(0, ids.shape[0], CAND_CHUNK)])
 
     if stages == 1:
-        return _topk(full_scores(cand), top_k, shard, two_level_topk)
+        return _topk(placed(full_scores(cand, over)), top_k, shard,
+                     two_level_topk)
     # stage 1: truncated-dim dot between user-context proxy and item embeds
-    uvec = EMB.lookup(model.emb, base_sparse[None])[0]
+    uvec = EMB.lookup(model.emb, base_sparse[None], whole)[0]
     uq = uvec.mean(dim=0)[:d_proxy]                    # [d_proxy]
     if "cand_proxy" in batch:
         ivecs = batch["cand_proxy"]
     else:
-        ivecs = _field_embedding(model.emb, fld, cand)[:, :d_proxy]
-    _, pre = _topk(ivecs @ uq, prefetch_k, shard, two_level_topk)
-    sc, ix = sorted_top_k(full_scores(cand[pre]), top_k)
+        ivecs = _field_embedding(model.emb, fld, cand, over)[:, :d_proxy]
+    _, pre = _topk(placed(ivecs @ uq), prefetch_k, shard, two_level_topk)
+    sc, ix = sorted_top_k(full_scores(_ids_at(cand, pre, shard), whole),
+                          top_k)
     return sc, pre[ix]
 
 
-def _field_embedding(emb, fld: int, ids: torch.Tensor) -> torch.Tensor:
+def _field_embedding(emb, fld: int, ids: torch.Tensor,
+                     shard=None) -> torch.Tensor:
     """Rows of field ``fld`` for its local ``ids`` from the table that
-    holds it."""
+    holds it (inside a body, ``big`` by ``take_split_rows``)."""
     layout = emb.layout
     part = "big" if fld in layout.big_fields else "small"
     fields = getattr(layout, f"{part}_fields")
     offs, _ = layout.offsets(fields)
     off = int(offs[list(fields).index(fld)])
+    if part == "big" and partitioned(shard):
+        return EMB.take_split_rows(emb.big, ids + off, shard,
+                                   shard.axes("dp"))
     return take_rows(getattr(emb, part), ids + off)

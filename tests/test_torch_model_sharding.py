@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.configs import ShapeSpec, get_config
 from repro_torch.distributed import shard_map as SM
-from repro_torch.distributed.sharding import ShardingPolicy, device_put
+from repro_torch.distributed.sharding import (Sharded, ShardingPolicy,
+                                              device_put)
 from repro_torch.launch import cells as TC
 from repro_torch.launch import train as TR
 from repro_torch.launch.mesh import make_mesh
@@ -793,29 +794,54 @@ def test_lm_opt_cell_on_2x2_runs_as_repro(ref, monkeypatch):
     ("equiformer-v2", "full_graph_sm", "opt"),
     ("dcn-v2", "train_batch", "base"), ("dcn-v2", "retrieval_cand", "base"),
     ("equiformer-v2", "full_graph_sm", "base")])
-def test_partitioned_cells_refuse_a_mesh(arch, shape_name, variant):
-    """A cell whose partitioned form the port does not have yet (recsys
+def test_formerly_refused_cells_build_on_a_mesh(arch, shape_name, variant):
+    """The cells ``repro`` shards only through XLA partitioning (recsys
     tables row-split over tp, the small full graph's edges over flat)
-    raises when given a mesh, naming the last slice; nothing runs it on
-    one device quietly."""
-    with pytest.raises(NotImplementedError, match="last slice"):
-        TC.build_cell(arch, shape_name, variant=variant,
-                      mesh=port_mesh("2x2"))
+    build on a 2x2 mesh: every tensor argument is a placed ``Sharded`` on
+    that mesh, with no storage on ``meta``."""
+    mesh = port_mesh("2x2")
+    c = TC.build_cell(arch, shape_name, "meta", variant=variant, mesh=mesh)
+
+    def leaves(a):
+        if isinstance(a, dict):
+            return [x for v in a.values() for x in leaves(v)]
+        return [a]
+    args = [x for a in c.args for x in leaves(a)]
+    assert args and all(isinstance(a, Sharded) and a.sharding.mesh == mesh
+                        for a in args)
+    assert all(t.device.type == "meta" for t in TC.arg_tensors(c.args))
+
+
+def test_every_cell_builds_on_a_mesh():
+    """All of ``repro``'s 101 cells (every variant) build on ``meta`` with
+    a 2x2 mesh; none raises."""
+    from repro_torch.configs import ALL_ARCHS, get_cells
+    mesh = port_mesh("2x2")
+    built = [TC.build_cell(arch, shape, "meta", variant=v, mesh=mesh)
+             for arch, shape in get_cells(ALL_ARCHS)
+             for v in TC.variants(arch, shape)]
+    assert len(built) == 101
 
 
 def test_mesh_cells_build_on_the_mesh(monkeypatch):
     """The recsys ``opt`` candidate search pads its candidates to the
-    mesh and runs the two-level top-k over it; the search cell splits
-    the corpus over the mesh."""
+    mesh, places them over ``flat`` and runs the two-level top-k over
+    them: its ids are the one-level search's over the same weights and
+    candidates."""
     from test_torch_recsys import reduced
-    monkeypatch.setattr(TC, "get_config",
-                        lambda arch: reduced(get_config, "dcn-v2"))
+    cfg = reduced(get_config, "dcn-v2")
+    monkeypatch.setattr(TC, "get_config", lambda arch: cfg)
     shape = ShapeSpec("retrieval_cand", "retrieval",
                       dict(n_candidates=1001, batch=1))
     c = TC.build_recsys_cell("dcn-v2", shape, variant="opt",
                              generator=_gen(), mesh=port_mesh("2x2"))
-    assert c.args[1]["candidates"].shape == (1004,)
+    params, batch = c.args
+    assert batch["candidates"].shape == (1004,)
+    assert batch["candidates"].slabs[0].shape == (251,)
     s, i = c.fn(*c.args)
-    s1, i1 = R.retrieval_step(c.args[0].cfg, c.args[0], c.args[1],
-                              stages=2)
+    model = R.init_params(cfg, torch.Generator(), "cpu")
+    model.load_jax_leaves([params[n].gather().detach()
+                           for n in model.jax_leaf_names()])
+    s1, i1 = R.retrieval_step(cfg, model, {k: v.gather() for k, v in
+                                           batch.items()}, stages=2)
     assert torch.equal(i, i1)
