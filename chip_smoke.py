@@ -375,6 +375,25 @@ line) at the first phase that goes wrong:
             1e-4, atol 1e-5, ids equal apart from ties within 1e-5; and
             ``full_graph_sm`` base and opt on (2, 2) at full shape (loss
             within 2^-8);
+4s. dry    the dry run (``launch/dryrun.py`` over ``op_analysis``,
+            after 4r; it launches no kernel): (a) every cell of
+            ``get_cells(ALL_ARCHS)`` x its variants (101) on the 16 x 16
+            (data, model) mesh of ``meta`` devices, one position's run
+            each (``shard_map`` bodies once, as position 0; kernels
+            record their cost), in worker processes: a line per cell
+            with the argument, held and peak GB a position, TFLOP a
+            position, collective GB by kind and whether the peak fits
+            this card's ``total_memory``; all 101 must be ok, no worker
+            may touch CUDA and this process's ``memory_allocated`` must
+            not move; (b) minicpm-2b ``train_4k`` at 16 layers on (2, 2),
+            dlrm-mlperf ``train_batch`` (4m's capped table) on (1, 4) and
+            bert4rec ``train_batch`` at 8192 on (2, 2), 4r's sizes: each
+            cell's dry run on a meta mesh of its shape, its held bytes a
+            position times the 4 positions of ``cuda:0`` within 1% of
+            the growth of ``memory_allocated`` over the build on the
+            card; its peak a position printed beside one step's
+            ``max_memory_allocated`` (not held: the 4 positions take
+            turns on one card);
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -6643,6 +6662,167 @@ def part_path(args, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 4s. the dry run (every cell sized on the production mesh)
+# ---------------------------------------------------------------------------
+
+# 4s (a): the 101 cells on the 16 x 16 meta mesh in this many worker
+# processes (the card waits: nothing runs there); the decoder LMs' opt
+# train cells (8 checkpointed microbatches) go first, being the longest
+DRY_WORKERS = 8
+
+
+def dry_cell(key: str) -> dict:
+    """One cell of 4s (a), in a worker process: ``launch.dryrun.run_cell``
+    on the 16 x 16 meta mesh, or the failure as ``dryrun`` reports it;
+    and whether the worker touched CUDA."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun as DR
+    arch, shape, variant = key.split("|")
+    try:
+        r = DR.run_cell(arch, shape, DR.meta_mesh("single"), "single",
+                        variant)
+    except Exception as e:  # noqa: BLE001 - reported, then checked
+        r = DR.failed(arch, shape, "single", variant, e)
+    r["cuda_initialized"] = torch.cuda.is_initialized()
+    return r
+
+
+def dry_line(r: dict, total: int) -> str:
+    m, gb = r["memory"], 1e9
+    coll = ", ".join(f"{k} {v / gb:.3f}" for k, v in
+                     r["collectives"]["bytes"].items() if v) or "none"
+    fits = "fits" if m["peak_bytes"] <= total else "does NOT fit"
+    return (f"[dry] (a) {r['arch']} {r['shape']} {r['variant']}: a position "
+            f"holds {m['held_bytes'] / gb:.3f} GB (reads "
+            f"{m['argument_bytes'] / gb:.3f}), peak {m['peak_bytes'] / gb:.3f}"
+            f" GB, {r['struct']['flops'] / 1e12:.3f} TFLOP, collectives GB: "
+            f"{coll}; {fits} this card ({r['seconds']:.1f}s)")
+
+
+def dry_cells(args, dev) -> dict:
+    """4s (a): every cell of ``get_cells(ALL_ARCHS)`` x its variants on
+    the 16 x 16 meta mesh, in worker processes; all must be ok, and this
+    process's device memory must not move."""
+    import concurrent.futures as CF
+    import multiprocessing as mp
+    from repro_torch.configs import ALL_ARCHS, get_cells
+    from repro_torch.launch import cells as C
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    keys = [f"{a}|{s}|{v}" for a, s in get_cells(ALL_ARCHS)
+            for v in C.variants(a, s)]
+    check(len(keys) == 101, f"{len(keys)} cells, not 101")
+    order = sorted(keys, key=lambda k: not (k.endswith("|opt") and
+                                            "train_4k" in k))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with CF.ProcessPoolExecutor(DRY_WORKERS,
+                                mp_context=mp.get_context("spawn")) as ex:
+        got = dict(zip(order, ex.map(dry_cell, order)))
+    secs = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated(dev) == before,
+          "4s (a): device memory moved during the dry run")
+    res = {k: got[k] for k in keys}
+    for r in res.values():
+        check(r["ok"], f"4s (a) {r['arch']} {r['shape']} {r['variant']}: "
+              f"{r.get('error')}")
+        check(not r["cuda_initialized"], f"4s (a) {r['arch']} "
+              f"{r['shape']}: the dry run touched CUDA")
+        log(dry_line(r, total))
+    fits = [k for k, r in res.items() if r["memory"]["peak_bytes"] <= total]
+    log(f"[dry] (a) 101/101 cells ok on the 16 x 16 meta mesh, "
+        f"{len(fits)} fit one position of this card ({total} bytes); not: "
+        f"{sorted(set(keys) - set(fits))}; device memory unchanged "
+        f"({before} bytes allocated); {secs:.1f}s in {DRY_WORKERS} worker "
+        f"processes ({sum(r['seconds'] for r in res.values()):.1f}s of "
+        "cells)")
+    return {"n_fit": len(fits), "seconds": secs, "total": total}
+
+
+def dry_vs_card(args, dev) -> dict:
+    """4s (b): three of 4r's placed cells at 4r's sizes, the dry run of
+    each (a meta mesh of its shape) beside the card: its held bytes, over
+    the 4 positions of ``cuda:0``, within 1% of the growth of
+    ``memory_allocated`` over the build; its per-position peak printed
+    beside ``max_memory_allocated`` over one step."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import cells as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_mesh
+
+    cases = (
+        ("minicpm-2b train_4k base, 16 of 40 layers, batch 2 x 4096, bf16",
+         "minicpm-2b", C.build_lm_cell, dataclasses.replace(
+             get_config("minicpm-2b"), n_layers=PART_SIZES["lm_layers"]),
+         part_shape("train", seq_len=PART_SIZES["lm_seq"],
+                    global_batch=PART_SIZES["lm_batch"]), (2, 2)),
+        ("dlrm-mlperf train_batch (4m's capped table), batch 65536",
+         "dlrm-mlperf", C.build_recsys_cell, recsys_config("dlrm-mlperf"),
+         ShapeSpec("train_batch", "train",
+                   {"batch": RECSYS_SIZES["train"]}), (1, 4)),
+        (f"bert4rec train_batch, batch {PART_SIZES['b4r_train']}",
+         "bert4rec", C.build_recsys_cell, recsys_config("bert4rec"),
+         ShapeSpec("train_batch", "train",
+                   {"batch": PART_SIZES["b4r_train"]}), (2, 2)))
+    out = {}
+    for what, arch, build, cfg, shape, mshape in cases:
+        n = int(np.prod(mshape))
+        axes = ("data", "model")
+        with patched_config(cfg):
+            dry = DR.count_cell(build(arch, shape, "meta", mesh=make_mesh(
+                mshape, axes, devices=["meta"] * n)))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated(dev)
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            cell = build(arch, shape, dev, generator=gen,
+                         mesh=make_mesh(mshape, axes,
+                                        devices=["cuda:0"] * n))
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated(dev) - a0
+            held = n * dry["memory"]["held_bytes"]
+            err = abs(held - grown) / max(grown, 1)
+            torch.cuda.reset_peak_memory_stats(dev)
+            m = cell.fn(*cell.args)
+            check(bool(torch.isfinite(m["loss"])), f"4s (b) {what}: loss "
+                  "not finite")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - a0
+            del cell, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        pk = dry["memory"]["peak_bytes"]
+        log(f"[dry] (b) {what}, on {mshape}: held by the dry run "
+            f"{dry['memory']['held_bytes'] / 1e9:.4f} GB a position, x {n} "
+            f"= {held / 1e9:.4f} GB; the card grew {grown / 1e9:.4f} GB over "
+            f"the build ({100 * err:.3f}% apart); peak a position by the dry "
+            f"run {pk / 1e9:.3f} GB, x {n} = {n * pk / 1e9:.3f} GB; one "
+            f"step's max_memory_allocated above the memory before the "
+            f"build {peak / 1e9:.3f} GB ({n} positions taking turns on one "
+            "card)")
+        check(err <= 0.01, f"4s (b) {what}: held bytes {held} vs the card's "
+              f"growth {grown}, {100 * err:.3f}% apart (limit 1%)")
+        out[arch] = dict(held=held, grown=grown, err=err, peak_dry=pk,
+                         peak_card=peak, n=n)
+    return out
+
+
+def dry_path(args, dev) -> dict:
+    """Phase 4s: (a) the dry run of every cell on the 16 x 16 meta mesh,
+    (b) three placed cells' dry runs beside the card."""
+    t0 = time.perf_counter()
+    res = {"a": dry_cells(args, dev)}
+    t1 = time.perf_counter()
+    res["b"] = dry_vs_card(args, dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[dry] phase 4s {res['seconds']:.1f}s ((a) {t1 - t0:.1f}s, (b) "
+        f"{res['seconds'] - (t1 - t0):.1f}s)")
+    return res
+
+
 def kernel_times(args, dev, main) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.maxsim import ops as KOPS
@@ -7045,6 +7225,7 @@ def main() -> None:
     train_res = train_path(args, dev)
     shard_res = shard_path(args, dev, lm_res)
     part_res = part_path(args, dev)
+    dry_res = dry_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
@@ -7241,6 +7422,15 @@ def main() -> None:
         f"{pb['index']['ms']:.1f} ms (one device {pb['index']['one_ms']:.1f})"
         f"; minicpm loss gap {pb['minicpm']['gap']:.2e}; phase 4r "
         f"{part_res['seconds']:.1f}s")
+    da, db = dry_res["a"], dry_res["b"]
+    log(f"[summary] dry run (4s): 101/101 cells ok on the 16 x 16 meta mesh,"
+        f" {da['n_fit']} fit one position of this card, device memory "
+        f"unchanged, {da['seconds']:.1f}s; held bytes vs the card's growth: "
+        + ", ".join(f"{a} {100 * r['err']:.3f}%" for a, r in db.items())
+        + "; peak a position (dry) / one step on the card: " + ", ".join(
+            f"{a} {r['peak_dry'] / 1e9:.2f} / {r['peak_card'] / 1e9:.2f} GB"
+            for a, r in db.items())
+        + f"; phase 4s {dry_res['seconds']:.1f}s")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

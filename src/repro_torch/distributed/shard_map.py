@@ -56,6 +56,33 @@ softmax subtracts it), and ``relayout`` the move behind
 positions (a chunk or operand that stays on its own position is not
 counted); a caller zeroes it and reads it around a call.
 
+On a meta mesh (``sharding.is_meta_mesh``: shapes only) a call runs the
+body ONCE, on the caller's thread, as position 0 (every coordinate 0,
+the position that does the first-copy work): the counterpart of XLA's
+one per-device SPMD program, so a 512-position mesh costs what a
+4-position one does. Each collective then returns an empty meta tensor
+of position 0's result shape, worked out from the group size n:
+``psum`` the operand's shape, ``all_gather`` n times it along its axis
+(or a new axis of n), ``psum_scatter`` 1/n along its dimension,
+``all_to_all`` 1/n along its split axis and n times along its concat
+axis; ``axis_index`` is 0 and ``axis_size`` n. The outputs are empty
+meta tensors of their global shapes (``Placed``: one slab standing for
+every position). A placed argument with another spec than its in_spec
+enters as its block under the in_spec, an ``all_gather`` where that
+block is larger than the slab, told where the body first reads it
+(``repro``'s partitioner reshards what the program reads).
+
+Every collective, on any mesh, tells ``sharding.OBSERVERS`` the kind
+and position 0's result in ``repro``'s names and convention of result
+buffers (``launch/dryrun.py``): ``psum`` is "all-reduce",
+``all_gather`` "all-gather", ``psum_scatter`` "reduce-scatter",
+``all_to_all`` "all-to-all"; the backward of each is told too (a
+``psum``'s is an all-reduce, an ``all_gather``'s a reduce-scatter, a
+``psum_scatter``'s an all-gather, an ``all_to_all``'s an all-to-all).
+``pmax`` and ``relayout`` are built from these and are told as them;
+the sum of a replicated input's gradient over the positions is told as
+an all-reduce of position 0's block when that gradient arrives.
+
 ``checkpoint`` is ``torch.utils.checkpoint`` for bodies: a checkpointed
 region that calls a collective replays that collective's forward result
 when the backward recomputes the region (the recomputation runs on
@@ -70,11 +97,13 @@ from math import prod
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
-from repro_torch.distributed.sharding import (NamedSharding, P,
+from repro_torch.distributed.sharding import (OBSERVERS, NamedSharding, P,
                                               PartitionSpec, Sharded,
                                               axes_of, block, check_spec,
-                                              group_size, linear_index,
-                                              mesh_coords, split)
+                                              first_coords, group_size,
+                                              is_meta_mesh, linear_index,
+                                              mesh_coords, notify,
+                                              shard_shape, split)
 
 __all__ = ["P", "Placed", "shard_map", "psum", "psum_scatter", "pmax",
            "all_to_all", "all_gather", "axis_index", "axis_size",
@@ -253,16 +282,25 @@ def _group_sums(xs: list, groups: list, devices: tuple) -> list:
     return out
 
 
+def _told(kind: str, outs: list) -> tuple:
+    """``outs`` (every position's result, mesh order) as a tuple, after
+    telling the observers position 0's result and whose each result is."""
+    if OBSERVERS:
+        notify("collective", kind, outs[0])
+        notify("owners", outs)
+    return tuple(outs)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, groups, devices, *xs):
         ctx.groups, ctx.devices = groups, devices
-        return tuple(_group_sums(list(xs), groups, devices))
+        return _told("all-reduce", _group_sums(list(xs), groups, devices))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None) + tuple(_group_sums(list(gs), ctx.groups,
-                                                ctx.devices))
+        return (None, None) + _told("all-reduce", _group_sums(
+            list(gs), ctx.groups, ctx.devices))
 
 
 def _a2a(xs: list, groups: list, devices: tuple, split_axis: int,
@@ -287,14 +325,14 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, groups, devices, split_axis, concat_axis, *xs):
         ctx.args = (groups, devices, split_axis, concat_axis)
-        return tuple(_a2a(list(xs), groups, devices, split_axis,
-                          concat_axis))
+        return _told("all-to-all", _a2a(list(xs), groups, devices,
+                                        split_axis, concat_axis))
 
     @staticmethod
     def backward(ctx, *gs):
         groups, devices, split_axis, concat_axis = ctx.args
-        return (None,) * 4 + tuple(_a2a(list(gs), groups, devices,
-                                        concat_axis, split_axis))
+        return (None,) * 4 + _told("all-to-all", _a2a(
+            list(gs), groups, devices, concat_axis, split_axis))
 
 
 class _AllGather(torch.autograd.Function):
@@ -307,7 +345,7 @@ class _AllGather(torch.autograd.Function):
         for g in groups:
             for i in g:
                 out[i] = join([xs[r].to(devices[i]) for r in g], dim=axis)
-        return tuple(out)
+        return _told("all-gather", out)
 
     @staticmethod
     def backward(ctx, *gs):
@@ -319,7 +357,7 @@ class _AllGather(torch.autograd.Function):
                 parts = [gs[r].narrow(axis, off, sizes[i]) for r in g]
                 s = _sum_to(parts, devices[i])
                 out[i] = s if tiled else s.squeeze(axis)
-        return (None,) * 4 + tuple(out)
+        return (None,) * 4 + _told("reduce-scatter", out)
 
 
 class _PSumScatter(torch.autograd.Function):
@@ -336,7 +374,7 @@ class _PSumScatter(torch.autograd.Function):
             total = _sum_to([xs[i] for i in g], devices[g[0]])
             for i, c in zip(g, torch.chunk(total, n, dim)):
                 out[i] = c.to(devices[i], copy=True)
-        return tuple(out)
+        return _told("reduce-scatter", out)
 
     @staticmethod
     def backward(ctx, *gs):
@@ -346,7 +384,7 @@ class _PSumScatter(torch.autograd.Function):
             for i in g:
                 out[i] = torch.cat([gs[r].to(devices[i]) for r in g],
                                    dim=dim)
-        return (None,) * 3 + tuple(out)
+        return (None,) * 3 + _told("all-gather", out)
 
 
 def _run_psum_scatter(runner, axes, opts, xs):
@@ -390,6 +428,86 @@ def _run_gather(runner, axes, opts, xs):
     axis = opts["axis"] % (xs[0].ndim + (0 if opts["tiled"] else 1))
     return list(_AllGather.apply(runner.groups(axes), runner.devices, axis,
                                  opts["tiled"], *xs))
+
+
+# ---------------------------------------------------------------------------
+# a meta mesh: position 0 alone, results of the right shapes
+# ---------------------------------------------------------------------------
+
+class _MetaCollective(torch.autograd.Function):
+    """One collective at position 0 of a meta mesh: an empty result of
+    ``shape``, told as ``kind``; its backward an empty operand-shaped
+    gradient, told as ``back``."""
+
+    @staticmethod
+    def forward(ctx, kind, back, shape, x):
+        ctx.back, ctx.shape = back, tuple(x.shape)
+        return _told(kind, [x.new_empty(shape)])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, _told(ctx.back,
+                                       [g.new_empty(ctx.shape)])[0]
+
+
+def _meta_result(kind: str, n: int, opts: dict, x) -> torch.Tensor:
+    shape = list(x.shape)
+    if kind == "psum":
+        return _MetaCollective.apply("all-reduce", "all-reduce", shape, x)
+    if kind == "all_gather":
+        axis = opts["axis"] % (x.ndim + (0 if opts["tiled"] else 1))
+        if opts["tiled"]:
+            shape[axis] *= n
+        else:
+            shape.insert(axis, n)
+        return _MetaCollective.apply("all-gather", "reduce-scatter", shape,
+                                     x)
+    if kind == "psum_scatter":
+        dim = opts["dim"] % x.ndim
+        if shape[dim] % n:
+            raise ValueError(f"psum_scatter: dimension {dim} of size "
+                             f"{shape[dim]} does not split into {n}")
+        shape[dim] //= n
+        return _MetaCollective.apply("reduce-scatter", "all-gather", shape,
+                                     x)
+    if kind == "all_to_all":
+        if not opts["tiled"]:
+            raise NotImplementedError("all_to_all is ported with repro's "
+                                      "tiled=True semantics only")
+        sa, ca = opts["split_axis"] % x.ndim, opts["concat_axis"] % x.ndim
+        if shape[sa] % n:
+            raise ValueError(f"all_to_all: dimension {sa} of size "
+                             f"{shape[sa]} does not split into {n}")
+        shape[sa] //= n
+        shape[ca] *= n
+        return _MetaCollective.apply("all-to-all", "all-to-all", shape, x)
+    raise ValueError(kind)
+
+
+class _MetaRunner:
+    """Position 0 of a meta mesh, alone: a collective is its result's
+    shape (module docstring), ``done`` nothing."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.coords = [first_coords(mesh)]
+        self.devices = (mesh.devices.flat[0],)
+
+    def call(self, pos: _Position, op: tuple, x):
+        kind, axes, opts = op
+        if kind == "done":
+            return None
+        n = group_size(self.mesh, axes)
+        opts = dict(opts)
+        if kind == "psum" and isinstance(x, list):
+            return [self._one(kind, n, opts, v) for v in x]
+        return self._one(kind, n, opts, x)
+
+    @staticmethod
+    def _one(kind, n, opts, x):
+        if not isinstance(x, torch.Tensor):         # psum of a number
+            return x * n
+        return _meta_result(kind, n, opts, x)
 
 
 _COLLECTIVES = {"psum": _run_psum, "psum_scatter": _run_psum_scatter,
@@ -588,31 +706,74 @@ def in_specs_of(tree):
     return tree
 
 
-def _split_arg(x, spec, mesh) -> list:
+def _split_arg(x, spec, mesh, n: int | None = None) -> list:
     """One argument (a tensor, or a dict, list or tuple of them, with a
-    spec or a matching tree of specs) as per-position values; anything
-    else goes to every position as it is."""
-    n = mesh.size
+    spec or a matching tree of specs) as per-position values (the first
+    ``n`` positions', by default all); anything else goes to every
+    position as it is."""
+    n = mesh.size if n is None else n
     if isinstance(x, dict):
         specs = spec if isinstance(spec, dict) else {k: spec for k in x}
-        parts = {k: _split_arg(v, specs[k], mesh) for k, v in x.items()}
+        parts = {k: _split_arg(v, specs[k], mesh, n) for k, v in x.items()}
         return [{k: parts[k][i] for k in x} for i in range(n)]
     if isinstance(x, (list, tuple)) and not isinstance(x, torch.Tensor):
         specs = (spec if isinstance(spec, (list, tuple))
                  and not _is_leaf_spec(spec) else [spec] * len(x))
-        parts = [_split_arg(v, s, mesh) for v, s in zip(x, specs)]
+        parts = [_split_arg(v, s, mesh, n) for v, s in zip(x, specs)]
         return [type(x)(p[i] for p in parts) for i in range(n)]
     if isinstance(x, Sharded):
         if not _is_leaf_spec(spec):
             raise TypeError(f"in_specs entry {spec!r} for a placed tensor")
         if x.sharding.mesh == mesh and _same_spec(x.sharding.spec, spec):
-            return list(x.slabs)
-        x = x.gather()
+            return list(x.slabs[:n])
+        if is_meta_mesh(mesh):
+            return [_meta_reshard(x, spec, mesh)] * n
+        # the gather reads every slab; as on a meta mesh, a slab counts
+        # as read where its block is (``_tell_reshard``)
+        notify("reshard", True)
+        try:
+            out = _split_arg(x.gather(), spec, mesh, n)
+        finally:
+            notify("reshard", False)
+        _tell_reshard(x.slabs[0], out[0])
+        return out
     if not isinstance(x, torch.Tensor):
         return [x] * n
     if not _is_leaf_spec(spec):
         raise TypeError(f"in_specs entry {spec!r} for a tensor: use P(...)")
-    return list(split(x, mesh, spec))
+    out = split(x, mesh, spec)
+    if OBSERVERS and x.requires_grad and len(
+            {a for e in spec for a in axes_of(e)}) < len(mesh.axis_names):
+        _tell_grad_sum(x, out[0])
+    return list(out[:n])
+
+
+def _tell_grad_sum(x: torch.Tensor, blk: torch.Tensor) -> None:
+    """Tell the observers, once, when ``x``'s gradient arrives: the sum of
+    a replicated input's gradient over the positions, ``repro``'s
+    all-reduce of position 0's block."""
+    def hook(g):
+        handle.remove()
+        notify("collective", "all-reduce", blk)
+    handle = x.register_hook(hook)
+
+
+def _tell_reshard(slab: torch.Tensor, blk: torch.Tensor) -> None:
+    """Tell the observers that ``blk``, position 0's block under another
+    spec, is derived from the placed ``slab``: an all-gather where it is
+    larger than the slab, a local slice otherwise. The all-gather counts
+    where the block is read (XLA reshards only what the program reads)."""
+    notify("derived", slab, blk, "all-gather"
+           if blk.numel() > slab.numel() else None)
+
+
+def _meta_reshard(x: Sharded, spec, mesh) -> torch.Tensor:
+    """Position 0's block under ``spec`` of a placed meta tensor laid out
+    by another spec (``_tell_reshard``)."""
+    shape = shard_shape(NamedSharding(mesh, PartitionSpec(*spec)), x.shape)
+    out = torch.empty(shape, dtype=x.slabs[0].dtype, device="meta")
+    _tell_reshard(x.slabs[0], out)
+    return out
 
 
 def _same_spec(a, b) -> bool:
@@ -648,6 +809,8 @@ class _Assemble(torch.autograd.Function):
                                      f"{tuple(b.shape)} and "
                                      f"{tuple(blocks[0].shape)}")
                 block(out, mesh, spec, c).copy_(b)
+        if OBSERVERS:
+            notify("split", out, blocks[0])
         return out
 
     @staticmethod
@@ -657,6 +820,8 @@ class _Assemble(torch.autograd.Function):
         for c, d in zip(coords, devs):
             b = block(g, mesh, spec, c)
             grads.append((b / n_rest if n_rest > 1 else b.clone()).to(d))
+        if OBSERVERS:
+            notify("owners", grads)
         return (None, None, None) + tuple(grads)
 
 
@@ -681,8 +846,30 @@ def _assemble(outs: list, spec, mesh):
         for d, e in enumerate(spec):
             shape[d] *= group_size(mesh, axes_of(e))
         return Sharded(NamedSharding(mesh, PartitionSpec(*spec)),
-                       tuple(shape), tuple(outs))
+                       tuple(shape), tuple(outs) if len(outs) > 1
+                       else tuple(outs) * mesh.size)
+    if is_meta_mesh(mesh):
+        return _MetaAssemble.apply(mesh, spec, first)
     return _Assemble.apply(mesh, spec, mesh.devices.flat[0], *outs)
+
+
+class _MetaAssemble(torch.autograd.Function):
+    """Position 0's block of one output -> an empty meta tensor of the
+    global shape (a meta mesh); the gradient an empty block."""
+
+    @staticmethod
+    def forward(ctx, mesh, spec, b):
+        ctx.shape = tuple(b.shape)
+        shape = list(b.shape)
+        for d, e in enumerate(spec):
+            shape[d] *= group_size(mesh, axes_of(e))
+        out = b.new_empty(shape)
+        notify("split", out, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g.new_empty(ctx.shape)
 
 
 def _thread_state(mesh):
@@ -695,7 +882,9 @@ def _thread_state(mesh):
     streams = {d: torch.cuda.current_stream(d) for d in set(mesh.devices.flat)
                if d.type == "cuda"}
 
-    def enter(stack: ExitStack, device):
+    def enter(stack: ExitStack, device, index: int = 0):
+        if OBSERVERS:
+            notify("position", stack, index)
         stack.enter_context(torch.inference_mode(inference))
         stack.enter_context(torch.set_grad_enabled(grad))
         for dt, dtype in casts:
@@ -723,6 +912,8 @@ def shard_map(body, mesh, in_specs, out_specs):
         if len(args) != len(in_specs):
             raise TypeError(f"{len(args)} arguments for {len(in_specs)} "
                             "in_specs")
+        if is_meta_mesh(mesh):
+            return _meta_call(body, mesh, in_specs, out_specs, args)
         per_arg = [_split_arg(a, s, mesh) for a, s in zip(args, in_specs)]
         runner = _Runner(mesh)
         n = mesh.size
@@ -735,7 +926,7 @@ def shard_map(body, mesh, in_specs, out_specs):
             try:
                 runner.wait_turn(i)
                 with ExitStack() as stack:
-                    enter(stack, pos.device)
+                    enter(stack, pos.device, i)
                     outs[i] = body(*[a[i] for a in per_arg])
                     runner.call(pos, ("done", (), ()), None)
                     # after the last rendezvous, hand the turn on
@@ -763,3 +954,17 @@ def shard_map(body, mesh, in_specs, out_specs):
         return _assemble(outs, out_specs, mesh)
 
     return call
+
+
+def _meta_call(body, mesh, in_specs, out_specs, args):
+    """``shard_map`` on a meta mesh: the body once, on this thread, as
+    position 0 (module docstring)."""
+    per_arg = [_split_arg(a, s, mesh, 1)[0]
+               for a, s in zip(args, in_specs)]
+    runner = _MetaRunner(mesh)
+    _local.pos = _Position(runner, 0, runner.coords[0], runner.devices[0])
+    try:
+        out = body(*per_arg)
+    finally:
+        _local.pos = None
+    return _assemble([out], out_specs, mesh)

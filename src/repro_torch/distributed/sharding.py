@@ -265,15 +265,54 @@ def block(x: torch.Tensor, mesh, spec, coords: dict) -> torch.Tensor:
     return x
 
 
+# Observers of a run (``launch.op_analysis`` registers its counter here
+# while it counts): each is called as ``o(event, *args)``, with
+# ("split", whole, block) where a mesh splits a tensor (position 0's
+# block); ("collective", kind, result) where a collective of ``repro``'s
+# kind ("all-reduce", "all-gather", "reduce-scatter", "all-to-all") gives
+# position 0 its result; ("owners", results) with every position's
+# result of a collective, in mesh order; ("derived", slab, block, kind)
+# where a mesh reshards a placed slab into a block (``kind`` the
+# collective that reading it costs, or None); ("reshard", on) around a
+# real mesh's gather of a placed tensor for that reshard; ("position",
+# stack, index) where a thread starts running position ``index``'s body.
+OBSERVERS: list = []
+
+
+def notify(event: str, *args) -> None:
+    for o in OBSERVERS:
+        o(event, *args)
+
+
+def is_meta_mesh(mesh) -> bool:
+    """A mesh of ``meta`` devices (shapes only)."""
+    return mesh.devices.flat[0].type == "meta"
+
+
+def first_coords(mesh) -> dict:
+    """Position 0's coordinates: every index 0."""
+    return {a: 0 for a in mesh.axis_names}
+
+
 def split(x: torch.Tensor, mesh, spec, copy: bool = False) -> tuple:
     """``x`` laid out over ``mesh`` by ``spec``: one slab per position in
     mesh order, on that position's device (a view when ``x`` is already
     there and ``copy`` is False). Differentiable: a slab's gradient flows
-    back into ``x``, summed over the positions that hold the same slab."""
+    back into ``x``, summed over the positions that hold the same slab.
+    On a meta mesh only position 0's block is made (every position's
+    entry is that block). A split is told to ``OBSERVERS`` with position
+    0's block."""
     spec = PartitionSpec(*spec)
     check_spec(mesh, spec, x.ndim)
-    return tuple(block(x, mesh, spec, c).to(dev, copy=copy)
-                 for c, dev in zip(mesh_coords(mesh), mesh.devices.flat))
+    if is_meta_mesh(mesh):
+        b = block(x, mesh, spec, first_coords(mesh)).to("meta", copy=copy)
+        notify("split", x, b)
+        return (b,) * mesh.size
+    out = tuple(block(x, mesh, spec, c).to(dev, copy=copy)
+                for c, dev in zip(mesh_coords(mesh), mesh.devices.flat))
+    if OBSERVERS:
+        notify("split", x, out[0])
+    return out
 
 
 def shard_shape(sharding: NamedSharding, shape: tuple) -> tuple:
@@ -361,9 +400,13 @@ def empty_placed(sharding: NamedSharding, shape: tuple, dtype,
                  device=None) -> Sharded:
     """A ``Sharded`` of uninitialised slabs of ``shape``'s shard shape,
     each on its position's device (or all on ``device``, e.g. ``meta``:
-    shapes only, nothing allocated)."""
+    shapes only, nothing allocated, one storage-free slab standing for
+    every position)."""
     ss = shard_shape(sharding, tuple(shape))
     devs = sharding.mesh.devices.flat
+    if torch.device(device or devs[0]).type == "meta":
+        return Sharded(sharding, tuple(shape), (torch.empty(
+            ss, dtype=dtype, device="meta"),) * len(devs))
     return Sharded(sharding, tuple(shape), tuple(
         torch.empty(ss, dtype=dtype, device=device or d) for d in devs))
 

@@ -16,8 +16,20 @@ variants), ``maxsim_scan_db`` (the double-buffered chunk scan, any
 document type), ``pooling``, ``embed_bag`` (the EmbeddingBag kernel) and
 ``ivf_route`` (the scan kernel launched on a D=1 view of an IVF centroid
 table by ``centroid_scores``, counted under the routing op's name).
+
+Shapes only: inside ``costing(sink)`` (the dry run's counting context,
+``launch.op_analysis``) a wrapper given ``meta`` tensors launches
+nothing and runs no plain version. It returns empty meta outputs of its
+result shape and hands ``sink(name, flops, nbytes, inputs)`` its
+kernel's cost and the tensors the kernel reads,
+from the ``cost`` function beside the wrapper (the operations and bytes
+of the kernel's bound; on meta, with no data, every mask entry is taken
+as set and every candidate or slot id as distinct). Outside that context
+a meta tensor still raises (``on_cuda``).
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -26,6 +38,36 @@ KERNELS = ("maxsim_scan", "maxsim_scan_int8", "maxsim_scan_db",
            "ivf_route")
 
 _COUNTS = {name: 0 for name in KERNELS}
+
+
+_SINK = []                   # the active cost sink, at most one
+
+
+@contextmanager
+def costing(sink):
+    """Within this context, kernel wrappers given ``meta`` tensors record
+    their kernel's cost with ``sink(name, flops, nbytes, inputs)`` and
+    return
+    empty meta outputs (module docstring)."""
+    _SINK.append(sink)
+    try:
+        yield sink
+    finally:
+        _SINK.remove(sink)
+
+
+def shapes_only(t: torch.Tensor) -> bool:
+    """True for a ``meta`` tensor inside ``costing``: the wrapper records
+    its cost and returns shapes (``record_cost``)."""
+    return t.device.type == "meta" and bool(_SINK)
+
+
+def record_cost(name: str, flops: float, nbytes: float,
+                inputs: tuple = ()) -> None:
+    """Hand one kernel call's cost, and the tensors it reads, to the
+    active sink."""
+    _SINK[-1](name, float(flops), float(nbytes),
+              tuple(t for t in inputs if isinstance(t, torch.Tensor)))
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -60,8 +102,9 @@ def resolve_device(device) -> torch.device:
     entry point) requires a card: without one this raises instead of
     carrying on on the CPU. ``meta`` builds tensors of the right shapes
     and dtypes with no storage (what ``launch/cells.py`` sizes cells
-    with, ``jax.eval_shape``'s counterpart); nothing runs on it, and a
-    kernel wrapper given a meta tensor raises (``on_cuda``)."""
+    with, ``jax.eval_shape``'s counterpart); a kernel wrapper given a
+    meta tensor raises (``on_cuda``), except inside the dry run's
+    ``costing``, where it returns shapes."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -45,6 +45,23 @@ def _embed_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def embed_bag_cost(table: torch.Tensor, idx: torch.Tensor,
+                   w: torch.Tensor) -> tuple:
+    """(operations, bytes) of one bag call (the bound of PERF.md's kernel
+    table): every slot's distinct row once (a zero-weight slot reads its
+    clipped row too), the int32 ids and f32 weights, the f32 output; 2*d
+    operations per weighted slot. On meta every slot id counts as
+    distinct (at most V) and every weight as nonzero."""
+    B, L = idx.shape
+    V, d = table.shape
+    if table.device.type == "meta":
+        need, slots = min(B * L, V), B * L
+    else:
+        need, slots = torch.unique(idx).numel(), int((w != 0).sum())
+    nbytes = need * d * table.element_size() + B * L * 8 + B * d * 4
+    return 2.0 * slots * d, nbytes
+
+
 def embed_bag(table: torch.Tensor, indices: torch.Tensor,
               valid: torch.Tensor | None = None, *,
               mode: str = "sum") -> torch.Tensor:
@@ -71,6 +88,11 @@ def embed_bag(table: torch.Tensor, indices: torch.Tensor,
     elif mode != "sum":
         raise ValueError(mode)
     idx = indices.clamp(0, table.shape[0] - 1).to(torch.int32)
+    if DSP.shapes_only(table):
+        DSP.record_cost("embed_bag", *embed_bag_cost(table, idx, w),
+                        (table, idx, w))
+        return table.new_empty((idx.shape[0], table.shape[1]),
+                               dtype=torch.float32)
     if DSP.on_cuda(table):
         return _embed_bag_cuda(table, idx, w)
     return embed_bag_ref(table, idx, w)

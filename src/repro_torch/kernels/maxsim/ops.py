@@ -225,6 +225,56 @@ def _check_aligned_16(docs, what: str) -> None:
                          "16-byte copies; docs must be 16-byte aligned")
 
 
+def scan_cost(q, q_mask, docs, doc_mask=None, scales=None) -> tuple:
+    """(operations, bytes) of one scan, the db scan's too (the bound of
+    PERF.md's kernel table): the f32 query and its mask, the documents
+    (and int8 scales), the mask bytes and the [B, N] f32 scores read or
+    written once; 2*d operations per (valid query token, unmasked
+    document vector). On meta tensors every mask entry counts as set."""
+    B, Q, _ = q.shape
+    N, D, d = docs.shape
+    meta = docs.device.type == "meta"
+    qv = B * Q if q_mask is None or meta else int((q_mask > 0).sum())
+    if doc_mask is None:
+        nd, mask_bytes = N * D, D
+    else:
+        mask_bytes = doc_mask.numel()
+        nd = (N * D if meta else int((doc_mask > 0).sum())
+              * (N if doc_mask.shape[0] == 1 else 1))
+    nbytes = (2 * B * Q * 4 + docs.numel() * docs.element_size()
+              + (0 if scales is None else scales.numel() * 4) + mask_bytes
+              + B * N * 4)
+    return 2.0 * qv * nd * d, nbytes
+
+
+def rerank_cost(q, q_mask, docs, rows, doc_mask=None, scales=None) -> tuple:
+    """(operations, bytes) of one rerank (the bound of PERF.md's kernel
+    table): the rows, the f32 query and its mask, the [B, L] scores, and
+    each DISTINCT candidate's vectors, mask bytes and int8 scales once;
+    2*d operations per (valid query token, unmasked candidate vector).
+    On meta tensors every mask entry counts as set and every candidate
+    as distinct (at most N of them)."""
+    B, Q, _ = q.shape
+    N, D, d = docs.shape
+    L = rows.shape[1]
+    row_bytes = d * docs.element_size() + 1 + (0 if scales is None else 4)
+    if docs.device.type == "meta":
+        uniq, vecs = min(B * L, N), B * L * D * Q
+    else:
+        r = rows.long().clamp(0, N - 1)
+        uniq = torch.unique(r).numel()
+        per_cand = (torch.full((B, L), float(D)) if doc_mask is None else
+                    (doc_mask > 0).float().sum(-1)[
+                        0 if doc_mask.shape[0] == 1 else r]
+                    .expand(B, L).cpu())
+        per_q = (torch.full((B, 1), float(Q)) if q_mask is None
+                 else (q_mask > 0).float().sum(-1, keepdim=True).cpu())
+        vecs = int((per_cand.cpu() * per_q).sum())
+    nbytes = (rows.numel() * 4 + 2 * B * Q * 4 + uniq * D * row_bytes
+              + B * L * 4)
+    return 2.0 * vecs * d, nbytes
+
+
 def _scan_launch(entry: str, counter: str, q, q_mask, docs, doc_mask,
                  scales, cap: int = 0, operand=None) -> torch.Tensor:
     """Launch the scan ``entry`` ("maxsim_scan" or "maxsim_scan_db").
@@ -277,7 +327,13 @@ def maxsim_scores(q: torch.Tensor, docs: torch.Tensor,
     N, D, _ = docs.shape
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
-    if DSP.on_cuda(docs):
+    if DSP.shapes_only(docs):
+        DSP.record_cost("maxsim_scan_int8" if scales is not None
+                        else "maxsim_scan",
+                        *scan_cost(q, q_mask, docs, doc_mask, scales),
+                        (q, q_mask, docs, doc_mask, scales))
+        out = docs.new_empty((B, N), dtype=torch.float32)
+    elif DSP.on_cuda(docs):
         cap = _tensor_cap(q, docs, "maxsim_scan")
         if not cap:
             _check_query_smem(q, "maxsim_scan", warp_query_cap(d))
@@ -341,6 +397,13 @@ def maxsim_scores_pipelined(q: torch.Tensor, docs: torch.Tensor,
     only sets the plain version's chunk and changes no score. For CPU
     tensors, ``maxsim_chunked_ref``."""
     B, Q, _ = q.shape
+    if DSP.shapes_only(docs):
+        DSP.record_cost("maxsim_scan_db",
+                        *scan_cost(q, q_mask, docs, doc_mask, scales),
+                        (q, q_mask, docs, doc_mask, scales))
+        out = docs.new_empty((B, docs.shape[0]), dtype=torch.float32)
+        return out if doc_valid is None else out.masked_fill(
+            ~doc_valid[None, :], NEG)
     if not DSP.on_cuda(docs):
         return maxsim_chunked_ref(q, docs, q_mask, doc_mask, doc_valid,
                                   chunk=chunk, scales=scales)
@@ -462,7 +525,14 @@ def maxsim_rerank(q: torch.Tensor, docs: torch.Tensor, rows: torch.Tensor,
     rows = rows.clamp(0, N - 1)
     if q_mask is None:
         q_mask = _ones_mask((B, Q), q.device)
-    if DSP.on_cuda(docs):
+    if DSP.shapes_only(docs):
+        DSP.record_cost("maxsim_rerank_int8" if scales is not None
+                        else "maxsim_rerank",
+                        *rerank_cost(q, q_mask, docs, rows, doc_mask,
+                                     scales),
+                        (q, q_mask, docs, rows, doc_mask, scales))
+        out = docs.new_empty(tuple(rows.shape), dtype=torch.float32)
+    elif DSP.on_cuda(docs):
         out = _rerank_cuda(q, q_mask, docs, rows, doc_mask, scales,
                            operand)
     else:
@@ -552,7 +622,8 @@ def maxsim_topk_chunked(q: torch.Tensor, docs: torch.Tensor,
     k = min(k, N)
 
     operand = None
-    if (use_kernel and DSP.on_cuda(docs) and B and N
+    if (use_kernel and not DSP.shapes_only(docs) and DSP.on_cuda(docs)
+            and B and N
             and scan_route(docs.dtype, docs.shape[1], q.shape[-1])
             == "tensor"):
         # one packed query operand for every chunk's launch

@@ -218,11 +218,30 @@ def _pool_cuda(x, mask, pool_mat, l2_norm: bool) -> torch.Tensor:
     return out
 
 
+def pool_cost(x: torch.Tensor, mask: torch.Tensor,
+              pool_mat: torch.Tensor) -> tuple:
+    """(operations, bytes) of one pooling call (the bound of PERF.md's
+    kernel table): the f32 pages, the mask bytes, P and the f32 output
+    once; 2*(d+1) operations per (page, nonzero of P), the mask sums
+    included. On meta every entry of P counts as nonzero."""
+    B, S, d = x.shape
+    n_out = pool_mat.shape[0]
+    nnz = (n_out * S if pool_mat.device.type == "meta"
+           else int((pool_mat != 0).sum()))
+    nbytes = B * S * d * 4 + B * S + n_out * S * 4 + B * n_out * d * 4
+    return 2.0 * B * nnz * (d + 1), nbytes
+
+
 def pool_pages_fused(x: torch.Tensor, mask: torch.Tensor,
                      pool_mat: torch.Tensor, *,
                      l2_norm: bool = True) -> torch.Tensor:
     """x [B,S,d] + mask [B,S] + pool_mat [n_out,S] -> pooled [B,n_out,d]:
     ``(P @ (x*m)) / max(P @ m, 1e-9)`` per page, then an L2 renorm."""
+    if DSP.shapes_only(x):
+        DSP.record_cost("pooling", *pool_cost(x, mask, pool_mat),
+                        (x, mask, pool_mat))
+        return x.new_empty((x.shape[0], pool_mat.shape[0], x.shape[2]),
+                           dtype=torch.float32)
     if DSP.on_cuda(x):
         return _pool_cuda(x, mask, pool_mat, l2_norm)
     return pool_ref(x, mask, pool_mat, l2_norm)

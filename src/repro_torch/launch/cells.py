@@ -79,7 +79,8 @@ from repro_torch.distributed import placement as PL
 from repro_torch.distributed import shard_map as SM
 from repro_torch.distributed.placement import bind_params
 from repro_torch.distributed.sharding import (Sharded, ShardingPolicy,
-                                              device_put, zeros_placed)
+                                              device_put, is_meta_mesh,
+                                              zeros_placed)
 from repro_torch.launch.mesh import home_device, n_devices
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_loop import make_train_step
@@ -348,12 +349,20 @@ def _lm_mesh_cell(arch, shape, cfg, micro, mesh, dev, gen, fill) -> Cell:
             # each its own global mean, averaged
             n, s = b["tokens"].shape
             dpn = B // n
-            if micro % dpn or (B // micro) % dpn:
+            if (B // micro) % dpn:
                 raise ValueError(f"{micro} microbatches of a batch of {B} "
                                  f"do not split over dp = {dpn}")
             mpol = pol.body(batch=B // micro)
 
             def microbatches(x):
+                if micro % dpn:
+                    # more dp positions than microbatches (the production
+                    # meshes): a position's rows lie in one microbatch, so
+                    # the batch is gathered and each position keeps its
+                    # rows of every microbatch
+                    x = pol.constrain(x, None, None, have=("dp", None))
+                    return pol.constrain(x.reshape(micro, B // micro, s),
+                                         None, "dp", None)
                 x = x.reshape(micro // dpn, B // micro, s)
                 return pol.constrain(x, None, "dp", None,
                                      have=("dp", None, None))
@@ -395,8 +404,15 @@ def _lm_mesh_cell(arch, shape, cfg, micro, mesh, dev, gen, fill) -> Cell:
                                                       dtype))]
     tshard = pol.named("dp", None) if B > 1 else pol.named(None, None)
     tok = device_put(fill.ids((B, 1), cfg.vocab_size), tshard, copy=True)
-    pos = device_put(torch.full((), S - 1, dtype=torch.int32, device=dev),
-                     pol.named(), copy=True)
+    if is_meta_mesh(mesh):
+        # the body reads the position's value on the host (``int``); a
+        # meta device holds no value, so on a meta mesh (the dry run)
+        # every position's slab is one host tensor
+        pos = Sharded(pol.named(), (), (torch.full(
+            (), S - 1, dtype=torch.int32),) * mesh.size)
+    else:
+        pos = device_put(torch.full((), S - 1, dtype=torch.int32,
+                                    device=dev), pol.named(), copy=True)
 
     def body(p, c, t, ps):
         return T.decode_step(local(p), c, t, ps, shard=body_pol)[0]
@@ -594,6 +610,14 @@ def build_gnn_cell(arch: str, shape, device=None, variant: str = "base",
                  "lmask": fill.ones((G, N_pad)),
                  **_sharded_batch(fill, (G, tp, tp), n_local, N_pad, cap,
                                   mesh is None)}
+        if mesh is not None:
+            # placed as ``repro`` places the batch (its ``in_shardings``:
+            # edge buckets over dp x tp, which the body reshards to dp),
+            # so a position holds what a device holds
+            batch = device_put(batch, {
+                k: pol.named("dp", None, None) if k == "pos" else
+                pol.named("dp", "tp", *([None] * (v.ndim - 2)))
+                for k, v in batch.items()})
         return train_cell(model, loss, batch, _gnn_flops(cfg, G * EE, True),
                           note=f"two-level dp={G} x tp={tp}, cap={cap}")
 

@@ -67,7 +67,10 @@ def make_mesh(shape: tuple, axes: tuple, devices=None) -> Mesh:
     sequence of ``prod(shape)`` devices or device strings, repeats
     allowed) fills it in mesh order; by default the first ``prod(shape)``
     CUDA devices, and fewer cards than that raise. The CPU is never
-    picked unless ``devices`` names it."""
+    picked unless ``devices`` names it. ``["meta"] * n`` gives a
+    shapes-only mesh (``sharding.is_meta_mesh``: ``shard_map`` runs a body
+    once, as position 0, and nothing is allocated); a mesh mixing meta
+    with other devices raises."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} for axes {axes}")
@@ -86,11 +89,13 @@ def make_mesh(shape: tuple, axes: tuple, devices=None) -> Mesh:
     flat = np.empty((n,), dtype=object)
     for i, d in enumerate(devices):
         d = resolve_device(d)
-        if d.type == "meta":
-            raise ValueError("a mesh holds cuda or cpu devices, not meta")
         if d.type == "cuda" and d.index is None:   # as tensors report it
             d = torch.device("cuda", torch.cuda.current_device())
         flat[i] = d
+    metas = sum(d.type == "meta" for d in flat)
+    if 0 < metas < n:
+        raise ValueError("a mesh is all meta (shapes only) or holds no meta "
+                         "device")
     return Mesh(flat.reshape(shape), axes)
 
 
@@ -98,7 +103,8 @@ def make_production_mesh(devices, *, multi_pod: bool = False) -> Mesh:
     """``repro``'s production layout over ``devices``: one pod is 16 x 16
     = 256 devices (data, model); two pods 2 x 16 x 16 = 512 (pod, data,
     model), the pod axis an extra data-parallel dimension. One card
-    cannot hold 256 devices, so the caller names them."""
+    cannot hold 256 devices, so the caller names them (``["meta"] *
+    256`` for the dry run)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, devices)

@@ -318,6 +318,14 @@ def moe_dense(cfg, p, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(B, S, D)
 
 
+def _even_sizes(total: int, n: int) -> list:
+    """``total`` rows in ``n`` groups as evenly as they go: the group sizes
+    of a shapes-only (meta) run, which has no routing to count. A ragged
+    product's operations depend only on the total, so the count is
+    exact."""
+    return [total // n + (1 if e < total % n else 0) for e in range(n)]
+
+
 def _ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor, sizes: list):
     """``jax.lax.ragged_dot``: rows of ``lhs`` [M, K] in contiguous groups
     of ``sizes`` (one per expert), group e times ``rhs[e]`` [K, N]."""
@@ -340,7 +348,10 @@ def moe_ragged(cfg, p, x: torch.Tensor) -> torch.Tensor:
     order = torch.argsort(flat_e, stable=True)
     tok_of = order // moe.top_k
     xs = x2.index_select(0, tok_of)                         # [T*k, D] sorted
-    sizes = torch.bincount(flat_e, minlength=moe.n_experts).tolist()
+    if flat_e.device.type == "meta":                # no data: T*k rows
+        sizes = _even_sizes(flat_e.shape[0], moe.n_experts)
+    else:
+        sizes = torch.bincount(flat_e, minlength=moe.n_experts).tolist()
     h = act(_ragged_dot(xs, p["w1"].to(x.dtype), sizes))
     g = _ragged_dot(xs, p["w3"].to(x.dtype), sizes)
     y = _ragged_dot(h * g, p["w2"].to(x.dtype), sizes)
@@ -439,17 +450,22 @@ def _ragged_ep_body(cfg, xb, router, w1, w3, w2, tp_ax, cap):
     valid = le_sel < e_loc
     tok = torch.div(order, moe.top_k, rounding_mode="floor")
     xs = x2.index_select(0, tok) * valid[:, None].to(x2.dtype)
-    counts = torch.bincount(le, minlength=e_loc + 1).tolist()[:e_loc]
-    # ``order`` is sorted by group and cut at ``cap``: group e keeps
-    # what of its count still fits after the groups before it
-    sizes, before = [], 0
-    for c in counts:
-        sizes.append(min(c, max(0, cap - before)))
-        before += c
-    EP_STATS["assigned"] += sum(counts)
-    EP_STATS["kept"] += sum(sizes)
-    # park the capacity padding in the last group
-    sizes[-1] += order.shape[0] - sum(sizes)
+    if le.device.type == "meta":
+        # no data: the capacity, the static bound of ``repro``'s compiled
+        # cell, is every row the products run over
+        sizes = _even_sizes(order.shape[0], e_loc)
+    else:
+        counts = torch.bincount(le, minlength=e_loc + 1).tolist()[:e_loc]
+        # ``order`` is sorted by group and cut at ``cap``: group e keeps
+        # what of its count still fits after the groups before it
+        sizes, before = [], 0
+        for c in counts:
+            sizes.append(min(c, max(0, cap - before)))
+            before += c
+        EP_STATS["assigned"] += sum(counts)
+        EP_STATS["kept"] += sum(sizes)
+        # park the capacity padding in the last group
+        sizes[-1] += order.shape[0] - sum(sizes)
     h = act(_ragged_dot(xs, w1.to(xs.dtype), sizes))
     g = _ragged_dot(xs, w3.to(xs.dtype), sizes)
     y = _ragged_dot(h * g, w2.to(xs.dtype), sizes)

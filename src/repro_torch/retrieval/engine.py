@@ -59,6 +59,10 @@ Stores come placed (``SegmentedStore.place_on``; ``shards()`` hands
 over a tuple of slab dicts per segment) or as one raw dict
 (``make_search_fn``), which the search splits over the mesh on each call
 (``store.split_slabs``; views on the tensors' own device). No step of the per-shard body reads a value back to the host.
+On a meta mesh (shapes only, ``launch.dryrun``) shard 0 runs alone and
+each gather is the gathered shape (``topk.all_gather``); the owner
+compaction is already static (``cap_slots`` rows a shard), so nothing
+of the body depends on data.
 
 The oracle is ``repro_torch.core.multistage.search``.
 """
@@ -68,6 +72,7 @@ import torch
 
 from repro_torch.core import maxsim as MS
 from repro_torch.core.multistage import DEFAULT_SCAN_TOPK_CHUNK, Stage, top_k
+from repro_torch.distributed.sharding import is_meta_mesh
 from repro_torch.kernels.maxsim import ops as KOPS
 from repro_torch.kernels.maxsim.ref import dequantize
 from repro_torch.retrieval.store import (ROUTING_KEYS, VALIDITY_KEY,
@@ -371,6 +376,10 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
     devices = tuple(mesh.devices.flat)
     gdev = devices[0]
     n_shards = len(devices)
+    # a meta mesh runs shard 0 alone and gathers shapes (``topk``)
+    meta = is_meta_mesh(mesh)
+    ran = 1 if meta else n_shards
+    gather_n = n_shards if meta else None
     for cap in capacities:
         # segment capacities are shard-padded at allocation, raw corpora
         # by make_search_fn: no corpus-size constraint, only this one
@@ -448,10 +457,10 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
         arrays = as_filter_arrays(fspec, filter_words(slabs[0][0]), gdev)
         # the query and the request filter are replicated: every shard
         # applies them to its own slab
-        qs = [q.to(d) for d in devices]
-        qms = [q_mask.to(d) for d in devices]
+        qs = [q.to(d) for d in devices[:ran]]
+        qms = [q_mask.to(d) for d in devices[:ran]]
         effs = [[effective_validity(sl[r], tuple(t.to(d) for t in arrays))
-                 for r, d in enumerate(devices)] for sl in slabs]
+                 for r, d in enumerate(devices[:ran])] for sl in slabs]
         scores = cand = None
         for si, stage in enumerate(stages):
             parts_v, parts_i = [], []
@@ -459,16 +468,17 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
                 for sl, eff, cap, off in zip(slabs, effs, capacities,
                                              offsets):
                     got = [stage0(stage, sl[r], eff[r], cap, off, r, qs[r],
-                                  qms[r]) for r in range(n_shards)]
+                                  qms[r]) for r in range(ran)]
                     k0 = min(stage.k, cap)
                     if stage.n_probe > 0 or stage.scan_topk:
                         v, i = gathered_merge_topk([g[0] for g in got],
                                                    [g[1] for g in got], k0,
-                                                   gdev)
+                                                   gdev, gather_n)
                     else:
                         v, i = allgather_topk(got, k0, cap // n_shards,
                                               valid_local=eff,
-                                              seg_offset=off, device=gdev)
+                                              seg_offset=off, device=gdev,
+                                              n=gather_n)
                     parts_v.append(v)
                     parts_i.append(i)
                 k = min(stage.k, total_cap)
@@ -476,14 +486,16 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
                 L = cand.shape[1]
                 cap_slots = min(L, max(1, -(-L // n_shards))
                                 * RERANK_OVERCOMMIT)
-                cands = [cand.to(d) for d in devices]
+                cands = [cand.to(d) for d in devices[:ran]]
                 for sl, eff, cap, off in zip(slabs, effs, capacities,
                                              offsets):
                     got = [rerank(stage, sl[r], eff[r], cap, off, r, qs[r],
                                   qms[r], cands[r], cap_slots)
-                           for r in range(n_shards)]
-                    parts_v.append(all_gather([g[0] for g in got], gdev))
-                    parts_i.append(all_gather([g[1] for g in got], gdev))
+                           for r in range(ran)]
+                    parts_v.append(all_gather([g[0] for g in got], gdev,
+                                              gather_n))
+                    parts_i.append(all_gather([g[1] for g in got], gdev,
+                                              gather_n))
                 k = min(stage.k, L)
             scores, cand = merge_topk(torch.cat(parts_v, dim=1),
                                       torch.cat(parts_i, dim=1), k)

@@ -62,6 +62,8 @@ def test_encoder_and_training_modules_are_checked():
                 "src/repro_torch/models/gnn/equiformer_v2.py",
                 "src/repro_torch/launch/cells.py",
                 "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/launch/op_analysis.py",
+                "src/repro_torch/launch/dryrun.py",
                 "src/repro_torch/distributed/sharding.py",
                 "src/repro_torch/distributed/shard_map.py",
                 "examples/train_retriever_torch.py"):
@@ -85,6 +87,27 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 15          # every module imported
+
+
+def test_dry_run_loads_neither_jax_nor_repro_nor_the_card():
+    """The dry run of a cell on the 16 x 16 meta mesh, in a fresh
+    process: no ``jax`` or ``repro`` module is loaded, no CUDA state is
+    touched, nothing is allocated on any device."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import dryrun as DR\n"
+        "r = DR.run_cell('dcn-v2', 'train_batch', DR.meta_mesh('single'),"
+        " 'single')\n"
+        "assert r['ok'] and r['memory']['argument_bytes'] > 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('DRY_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0 and "DRY_OK" in out.stdout, out.stderr
 
 
 def _tiny_store_inputs():

@@ -201,8 +201,12 @@ def test_make_mesh_defaults_to_cuda_devices():
             make_mesh((S,), ("data",))
     with pytest.raises(ValueError):
         make_mesh((S,), ("data",), devices=["cpu"] * (S - 1))
+    # a meta mesh is all meta (shapes only, the dry run's); a mesh never
+    # mixes meta with a real device
     with pytest.raises(ValueError):
-        make_mesh((2,), ("data",), devices=["meta"] * 2)
+        make_mesh((2,), ("data",), devices=["meta", "cpu"])
+    assert mesh_types(make_mesh((2,), ("data",),
+                                devices=["meta"] * 2)) == {"meta"}
     with pytest.raises(ValueError):
         home_device(mesh4(), "meta")
 
