@@ -394,6 +394,19 @@ line) at the first phase that goes wrong:
             card; its peak a position printed beside one step's
             ``max_memory_allocated`` (not held: the 4 positions take
             turns on one card);
+4t. audit  the port's contract auditor (``repro_torch.analysis``, after
+            4s): (a) the AST layer over this checkout's
+            ``src/repro_torch`` has no gated finding (R1-R5); (b) the op
+            audit's six scenarios (``op_audit.SCENARIOS``, the JAX
+            auditor's geometry) built on the card with their kernels:
+            no gated D1-D4 finding, and each scenario's launches show a
+            kernel of its path; (c) after one warm call, each body runs
+            once more under ``torch.cuda.set_sync_debug_mode("error")``,
+            where any synchronising CUDA call raises; (d) each
+            scenario's ids (the ingest's int8 codes) equal its CPU run's
+            apart from near-exact ties within 1e-4 (codes: bit for bit);
+            (e) each body's ``max_memory_allocated`` growth over one warm
+            call beside the audit's largest op output, printed only;
 5. times    each kernel's median time (CUDA events) at the main path's
             shapes beside its plain version, one PyTorch library call
             computing the same function, and its bound: the larger of the
@@ -6823,6 +6836,110 @@ def dry_path(args, dev) -> dict:
     return res
 
 
+def audit_ids(sc, out, ref, what: str) -> int:
+    """4t (d): a scenario's card output against its CPU run's: the
+    ingest's int8 codes bit for bit, search ids equal apart from
+    near-exact ties (``row_swaps`` over the CPU scores, within 1e-4) and
+    scores within rtol 1e-5, atol 1e-4. Returns the tie-swapped
+    positions."""
+    got, want = sc.key(out).cpu(), sc.key(ref).cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+          f"the CPU's {tuple(want.shape)}")
+    if got.dtype == torch.int8:
+        check(bool(torch.equal(got, want)), f"{what}: int8 codes differ "
+              "from the CPU's")
+        return 0
+    sc_k, sc_p = out[0].float().cpu().numpy(), ref[0].float().cpu().numpy()
+    check(np.isfinite(sc_k).all() and np.isfinite(sc_p).all(),
+          f"{what}: non-finite scores")
+    check(np.allclose(sc_k, sc_p, rtol=1e-5, atol=1e-4),
+          f"{what}: scores differ beyond rtol=1e-5, atol=1e-4 (max "
+          f"{np.abs(sc_k - sc_p).max():.3e})")
+    ids_k, ids_p = got.numpy(), want.numpy()
+    swaps = 0
+    for r in range(ids_k.shape[0]):
+        m, j = row_swaps(ids_k[r], ids_p[r], sc_p[r], 1e-4)
+        if j is not None:
+            fail(f"{what}: query {r} rank {j} id {ids_k[r, j]} != "
+                 f"{ids_p[r, j]} without a tie")
+        swaps += m
+    return swaps
+
+
+def audit_path(args, dev) -> dict:
+    """Phase 4t: the contract auditor, (a) the AST layer, (b) the op
+    audit's scenarios with their kernels, (c) each body sync-free under
+    ``set_sync_debug_mode("error")``, (d) ids against the CPU, (e) memory
+    growth beside the audit's largest op output."""
+    from repro_torch.analysis import apply_baseline, load_baseline
+    from repro_torch.analysis import op_audit as OA
+    from repro_torch.analysis.astlint import lint_tree
+    from repro_torch.kernels import dispatch as DSP
+
+    t0 = time.perf_counter()
+    before = {k: DSP.launch_count(k) for k in DSP.KERNELS}
+    root = Path(__file__).resolve().parent
+    allow = load_baseline(root / "src" / "repro_torch" / "analysis"
+                          / "baseline.json")
+    fs = lint_tree(root / "src", repo_root=root)
+    gated, _ = apply_baseline(fs, allow)
+    check(not gated, "4t (a) the AST layer has gated findings: " + "; ".join(
+        f"{f.rule} {f.path}:{f.line} [{f.symbol}]" for f in gated))
+    n_mod = len(list((root / "src" / "repro_torch").rglob("*.py")))
+    log(f"[audit] (a) AST layer over {n_mod} modules of src/repro_torch: "
+        f"{len(fs)} findings, 0 gated (baseline of {len(allow)})")
+    cpu = torch.device("cpu")
+    rows, sync_free = {}, []
+    for name, make in OA.SCENARIOS.items():
+        sc = make(dev)
+        # (b) the audit's two calls: the first warms the body
+        f, m, out = OA.audit_scenario(sc)
+        gated, _ = apply_baseline(f, allow)
+        check(not gated, f"4t (b) {name}: gated findings: " + "; ".join(
+            f"{x.rule} [{x.symbol}] {x.message}" for x in gated))
+        for k in sc.kernels:
+            check(m["launches"].get(k, 0) > 0, f"4t (b) {name}: kernel {k} "
+                  f"was never launched (launches {m['launches']})")
+        # (c) one more call under the sync debug mode: a synchronising
+        # CUDA call raises there
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                sc.body(*sc.args)
+        except RuntimeError as e:
+            fail(f"4t (c) {name}: a synchronising CUDA call in the body: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync_free.append(name)
+        # (e) memory growth over one warm call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with torch.no_grad():
+            sc.body(*sc.args)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated(dev) - base
+        # (d) the CPU's run of the same scenario
+        ref_sc = make(cpu)
+        with torch.no_grad():
+            ref = ref_sc.body(*ref_sc.args)
+        swaps = audit_ids(sc, out, ref, f"4t (d) {name}")
+        rows[name] = dict(m, grown=grown, swaps=swaps)
+        log(f"[audit] {name}: {m['n_ops']} ops, largest op output "
+            f"{m['max_live_bytes']} B ({m['max_live_op']}), budget "
+            f"{m['budget_bytes']} B, {m['syncs']} host waits, launches "
+            f"{m['launches']}; sync-free under set_sync_debug_mode('error')"
+            f"; max_memory_allocated growth over one call {grown} B; ids "
+            f"vs the CPU: {swaps} tie-swapped positions")
+    counts = {k: DSP.launch_count(k) - before[k] for k in DSP.KERNELS}
+    secs = time.perf_counter() - t0
+    log(f"[audit] sync-free on the card: {', '.join(sync_free)}; phase 4t "
+        f"{secs:.1f}s")
+    return {"rows": rows, "sync_free": sync_free, "n_ast": len(fs),
+            "counts": counts, "seconds": secs}
+
+
 def kernel_times(args, dev, main) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.maxsim import ops as KOPS
@@ -7226,6 +7343,7 @@ def main() -> None:
     shard_res = shard_path(args, dev, lm_res)
     part_res = part_path(args, dev)
     dry_res = dry_path(args, dev)
+    audit_res = audit_path(args, dev)
     lm_res["f"] = lm_profiles(args, dev, lm_res)
     recsys_res["f"] = recsys_profiles(args, dev, recsys_res)
     gnn_res["f"] = gnn_profiles(args, dev, gnn_res)
@@ -7345,7 +7463,8 @@ def main() -> None:
                                       ("train", train_res),
                                       ("recsys", recsys_res),
                                       ("gnn", gnn_res),
-                                      ("cells", cells_res))}
+                                      ("cells", cells_res),
+                                      ("audit", audit_res))}
     tr = train_res["res"]
     log(f"[summary] train (ColPali, 16 layers, batch 16, f32): "
         f"{tr['b']['ms']:.1f} ms/step, {tr['b']['pages_s']:.1f} pages/s, "
@@ -7431,6 +7550,16 @@ def main() -> None:
             f"{a} {r['peak_dry'] / 1e9:.2f} / {r['peak_card'] / 1e9:.2f} GB"
             for a, r in db.items())
         + f"; phase 4s {dry_res['seconds']:.1f}s")
+    ar = audit_res["rows"]
+    log(f"[summary] audit (4t): AST layer {audit_res['n_ast']} findings, 0 "
+        f"gated; {len(ar)} op-audit scenarios with their kernels, 0 gated "
+        f"D1-D4, sync-free under set_sync_debug_mode('error'): "
+        f"{', '.join(audit_res['sync_free'])}; largest op output / "
+        "max_memory_allocated growth: " + ", ".join(
+            f"{n} {r['max_live_bytes'] / 2**20:.2f} / "
+            f"{r['grown'] / 2**20:.2f} MiB" for n, r in ar.items())
+        + f"; ids equal the CPU's ({sum(r['swaps'] for r in ar.values())} "
+        f"tie swaps); phase 4t {audit_res['seconds']:.1f}s")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

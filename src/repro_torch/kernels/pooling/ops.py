@@ -226,8 +226,11 @@ def pool_cost(x: torch.Tensor, mask: torch.Tensor,
     included. On meta every entry of P counts as nonzero."""
     B, S, d = x.shape
     n_out = pool_mat.shape[0]
-    nnz = (n_out * S if pool_mat.device.type == "meta"
-           else int((pool_mat != 0).sum()))
+    # a direct caller's data: a body reaches this function only under
+    # dispatch.costing, on meta tensors
+    meta = pool_mat.device.type == "meta"
+    # audit: allow-R3 meta skips this read (costing only in bodies)
+    nnz = n_out * S if meta else int((pool_mat != 0).sum())
     nbytes = B * S * d * 4 + B * S + n_out * S * 4 + B * n_out * d * 4
     return 2.0 * B * nnz * (d + 1), nbytes
 

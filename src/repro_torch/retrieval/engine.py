@@ -518,10 +518,10 @@ def make_segment_scan_fn(stages: tuple, capacity: int):
     record_trace()
     stage = _resolve_stage0(stages)
 
-    def seg_scan(store, q, q_mask, fspec, offset):
+    def seg_scan(store, q, q_mask, fspec, offset: int):
         arrays = as_filter_arrays(fspec, filter_words(store), q.device)
         eff = effective_validity(store, arrays)
-        return _segment_stage0(stage, store, eff, capacity, int(offset), q,
+        return _segment_stage0(stage, store, eff, capacity, offset, q,
                                q_mask)
 
     return seg_scan
@@ -539,10 +539,10 @@ def make_segment_rerank_fn(stages: tuple, stage_index: int, capacity: int):
     record_trace()
     stage = tuple(stages)[stage_index]
 
-    def seg_rerank(store, q, q_mask, fspec, offset, cand):
+    def seg_rerank(store, q, q_mask, fspec, offset: int, cand):
         arrays = as_filter_arrays(fspec, filter_words(store), q.device)
         eff = effective_validity(store, arrays)
-        return _segment_rerank(stage, store, eff, capacity, int(offset), q,
+        return _segment_rerank(stage, store, eff, capacity, offset, q,
                                q_mask, cand)
 
     return seg_rerank

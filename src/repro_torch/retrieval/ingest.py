@@ -245,7 +245,8 @@ class IngestPipeline:
         end = start + n_real
         seg.fill(VALIDITY_KEY, start, end, True)
         seg.fill(TENANT_KEY, start, end, int(tenant))
-        seg.fill(FILTER_KEY, start, end, words_tensor(words)[None, :])
+        seg.fill(FILTER_KEY, start, end,
+                 words_tensor(words, pages.device)[None, :])
 
     # ------------------------------------------------------------------
     # host entry points

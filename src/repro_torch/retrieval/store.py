@@ -284,9 +284,16 @@ def pack_tags(tags, n_words: int) -> np.ndarray:
 
 
 def words_tensor(words: np.ndarray, device=None) -> torch.Tensor:
-    """uint32 tag words as the int32 bit patterns the store holds."""
-    return torch.from_numpy(
-        np.ascontiguousarray(words, np.uint32).view(np.int32)).to(device)
+    """uint32 tag words as the int32 bit patterns the store holds, made
+    on ``device`` by fills: a copy from the host would make the host
+    wait for the device's queue (a blocking copy synchronises the
+    stream), and this runs inside serving and ingest bodies."""
+    bits = np.ascontiguousarray(words, np.uint32).view(np.int32)
+    out = torch.zeros(bits.shape, dtype=torch.int32, device=device)
+    flat = out.view(-1)
+    for j in np.flatnonzero(bits):
+        flat[int(j)].fill_(int(bits.flat[j]))
+    return out
 
 
 @dataclass(frozen=True)
@@ -332,7 +339,7 @@ def as_filter_arrays(spec, n_words: int, device=None) -> tuple:
     if spec is None:
         spec = NULL_FILTER
     w = max(n_words, 1)
-    return (torch.tensor(spec.tenant, dtype=torch.int32, device=device),
+    return (torch.full((), spec.tenant, dtype=torch.int32, device=device),
             words_tensor(pack_tags(spec.require_tags, w), device),
             words_tensor(pack_tags(spec.any_tags, w), device))
 
