@@ -51,7 +51,14 @@ line) at the first phase that goes wrong:
             decimals, and the plain engine must match the
             ``multistage.search`` oracle. Here and in 4b-4e and 4i the
             plain side ranks one result deeper (k + 1), so that a tie of
-            the 10th with the 11th plain score is seen as a tie;
+            the 10th with the 11th plain score is seen as a tie. After
+            4d, ``[cost]`` lines print the cascade cost model for phase
+            4's float cascades, 4b's int8 ones and 4d's routed 2-stage
+            (n_probe 64 and 8): ``multistage.qps_cost_model``'s
+            multiply-adds a query and their ratio to the 1-stage
+            cascade's, ``cascade_hbm_bytes``' bytes a batch of 32 per
+            stage and in all, those bytes at 3.35 TB/s, and the run's
+            measured ms a batch (no limit);
 4b. int8    indexes the corpus again as ``serve.py --int8`` does:
             ``IngestPipeline`` pools and quantises each 256-page batch
             (the scan vector's float copy dropped when no later stage
@@ -296,7 +303,17 @@ line) at the first phase that goes wrong:
             same ids apart from exact ties; (e) QPS at one device, 1 and
             4 shards, per-shard scan and rerank kernel ms against the
             whole store's (the rerank scores all 256 rows on every
-            shard), search peak memory, the phase's seconds. The mesh
+            shard), search peak memory, the phase's seconds; (f) the
+            2-stage cascade on the 4 shards at ``rerank_overcommit`` 1,
+            2 and 8 (``cap_slots`` 64, 128, 256 of 256): at 8 (b)'s
+            result bit for bit, at 1 and 2 every query row whose
+            stage-0 candidates no shard owns more than ``cap_slots`` of
+            gives overcommit 8's ids and scores bit for bit, and the other
+            rows' count, their recall@10 against overcommit 8, NDCG@10,
+            QPS and the per-shard rerank kernel ms at ``cap_slots`` rows
+            are printed; a store built with ``place=False`` (split over
+            the mesh on each call) gives the placed 1- and 2-stage
+            results bit for bit, with its QPS. The mesh
             runs must launch the scan, rerank, pool, db scan, int8 scan,
             int8 rerank and ``ivf_route`` kernels, and their launches
             join the kernels line;
@@ -1313,7 +1330,8 @@ def main_path(args, dev) -> dict:
                     for k in ("maxsim_scan", "maxsim_rerank")}
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
         results[n] = dict(ids=ids, scores=sc, qps=nq / dt, metrics=m,
-                          per_call=per_call)
+                          per_call=per_call,
+                          ms_batch=1e3 * dt / -(-nq // args.batch))
         log(f"[main] {n}-stage kernels: QPS={nq / dt:.1f} (batch "
             f"{args.batch}) " + "  ".join(f"{k}={v:.4f}"
                                           for k, v in m.items())
@@ -1450,7 +1468,8 @@ def main_path_int8(args, dev, main) -> dict:
             rerank_kernel=True)
         ids, sc, dt, nq = run_cascade(r, bench, st, args.batch)
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
-        results[name] = dict(ids=ids, scores=sc, qps=nq / dt, metrics=m)
+        results[name] = dict(ids=ids, scores=sc, qps=nq / dt, metrics=m,
+                             ms_batch=1e3 * dt / -(-nq // args.batch))
         log(f"[int8] {name}: QPS={nq / dt:.1f} " + "  ".join(
             f"{k}={v:.4f}" for k, v in m.items()) + f"; float "
             f"{len(stages)}-stage ndcg@10={float_ndcg[len(stages)]:.4f}")
@@ -1491,7 +1510,8 @@ def main_path_int8(args, dev, main) -> dict:
                              f"{name} engine vs multistage.search oracle")
     check(all(DSP.launch_count(k) == 0 for k in DSP.KERNELS),
           "the plain int8 path launched a kernel")
-    return dict(results=results, counts=counts, ra=ra, rb=rb)
+    return dict(results=results, counts=counts, ra=ra, rb=rb,
+                cascades=cascades)
 
 
 # ---------------------------------------------------------------------------
@@ -1660,7 +1680,8 @@ def routed_path(args, dev, main) -> dict:
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
         recall = float(np.mean([len(set(a) & set(b)) / len(b)
                                 for a, b in zip(ids, ex["ids"])]))
-        results[n_probe] = dict(qps=nq / dt, metrics=m, recall_vs_ex=recall)
+        results[n_probe] = dict(qps=nq / dt, metrics=m, recall_vs_ex=recall,
+                                ms_batch=1e3 * dt / -(-nq // args.batch))
         line = (f"[routed] 2-stage n_probe={n_probe}/{n_clusters}: QPS="
                 f"{nq / dt:.1f} (exhaustive {ex['qps']:.1f}); recall@10 vs "
                 f"the exhaustive ids {recall:.4f}; " + "  ".join(
@@ -1714,6 +1735,69 @@ def routed_stage0_times(args, dev, r, bench, two, n_clusters: int) -> None:
                      f"{list(rows.shape)} ({100 * live / rows.numel():.1f}% "
                      f"live) {ms:.3f} ms")
     log("[routed] stage-0 times, one batch: " + "; ".join(parts))
+
+
+HBM_TBS = 3.35          # the H100 SXM's memory rate, TB/s
+
+
+def cost_model_path(args, main, int8, routed) -> dict:
+    """Phase 4's per-stage account: for the float 1-, 2- and 3-stage
+    kernel cascades, 4b's int8 cascades and 4d's routed 2-stage (n_probe
+    64 and 8), ``multistage.qps_cost_model``'s multiply-adds a query (and
+    the ratio to the 1-stage cascade's) and ``cascade_hbm_bytes``' bytes a
+    batch per stage and in all, those bytes at ``HBM_TBS``, beside this
+    run's measured ms a batch. Printed, with no limit: the models bill
+    what a stage must read and compute, not what the kernels take."""
+    from repro_torch.core import multistage as MST
+
+    store = main["retriever"].store
+    n = main["retriever"].n_docs
+    dims, vdims = store.dims(), store.vec_dims()
+    qv = int(main["bench"].query_mask.sum(1).max())     # valid tokens
+    d = main["bench"].queries.shape[-1]
+    B = args.batch
+
+    def kern(stages, **scan):
+        return MST.with_rerank_policy(MST.with_scan_policy(
+            stages, use_kernel=True, **scan), rerank_kernel=True)
+
+    one, two = MST.one_stage(10), MST.two_stage(256, 10)
+    rows = {f"{k}-stage float": (kern(st), {}, main["results"][k])
+            for k, st in ((1, one), (2, two),
+                          (3, MST.three_stage(1024, 256, 10)))}
+    for name, (r, stages, topk) in int8["cascades"].items():
+        codes = "initial" if r is int8["ra"] else "mean_pooling"
+        rows[name] = (kern(stages, chunk=256, scan_topk=topk), {codes: 1},
+                      int8["results"][name])
+    for n_probe, res in routed["results"].items():
+        rows[f"routed 2-stage n_probe={n_probe}"] = (
+            MST.with_routing_policy(kern(two), n_probe=n_probe,
+                                    n_clusters=routed["n_clusters"]),
+            {}, res)
+    base = MST.qps_cost_model(n, qv, d, rows["1-stage float"][0], dims,
+                              vdims)
+    out = {}
+    for name, (st, bpc, res) in rows.items():
+        madds = MST.qps_cost_model(n, qv, d, st, dims, vdims)
+        bill = MST.cascade_hbm_bytes(n, qv, d, st, dims, vdims, batch=B,
+                                     bytes_per_coord=bpc)
+        model_ms = bill["total_bytes"] / (HBM_TBS * 1e12) * 1e3
+        out[name] = dict(madds=madds, ratio=base / madds, bytes=bill,
+                         model_ms=model_ms, ms=res["ms_batch"])
+        log(f"[cost] {name}: {madds:.4e} madds a query ({base / madds:.2f}x"
+            f" fewer than the 1-stage cascade); bytes a batch of {B}: "
+            + "; ".join(f"{e['kind']} {e['stage']} {e['read_bytes']:.4e} "
+                        f"read + {e['score_write_bytes']:.4e} written"
+                        for e in bill["stages"])
+            + f"; total {bill['total_bytes']:.4e} B = {model_ms:.4f} ms at "
+            f"{HBM_TBS} TB/s; measured {res['ms_batch']:.4f} ms a batch "
+            f"({res['ms_batch'] / model_ms:.2f}x the byte model)")
+    log(f"[cost] inputs: N={n}, {qv} valid query tokens (of "
+        f"{main['bench'].queries.shape[1]} slots), d={d}, vectors per page "
+        f"{dims}, widths {vdims}; madds from multistage.qps_cost_model, "
+        "bytes from multistage.cascade_hbm_bytes (the query reads not "
+        "billed), ms a batch over this run's timed batches")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2575,6 +2659,103 @@ def exact_rankings(ids, sc, ref_ids, ref_sc, what: str) -> int:
     return swaps
 
 
+def overcommit_and_place(args, dev, bench, r4, got_b, kern, counted, rows,
+                         n: int) -> dict:
+    """4p (f): the 2-stage cascade on the 4 shards at ``rerank_overcommit``
+    1, 2 and 8 (retrievers sharing (b)'s placed store). At 8: (b)'s
+    result bit for bit. At 1 and 2: every query row whose 256 stage-0
+    candidates no shard owns more than ``cap_slots = 64 * overcommit`` of
+    gives overcommit 8's ids and scores bit for bit; the other rows'
+    count, recall@10 against overcommit 8, NDCG@10, QPS and the per-shard
+    rerank kernel ms at ``cap_slots`` rows are printed. Then a store held
+    with ``place=False`` (the same upserts, split over the mesh on each
+    call) gives the placed search's results bit for bit."""
+    from repro_torch.core import multistage as MST
+    from repro_torch.data.synthetic import evaluate_ranking
+    from repro_torch.kernels.maxsim import ops as KOPS
+    from repro_torch.retrieval.retriever import Retriever
+
+    S, B = MESH_SHARDS, args.batch
+    mesh, cap = r4.mesh, r4.store.capacities[0]
+    n_local = cap // S
+    two = kern(MST.two_stage(256, 10))
+    q, qm = bench.queries, bench.query_mask
+    # stage 0's 256 candidates per query (slot ids), and how many of them
+    # each shard owns
+    cand = np.concatenate([
+        r4.search(q[i:i + B], qm[i:i + B], stages=(two[0],),
+                  translate_ids=False)[1].cpu().numpy()
+        for i in range(0, len(q), B)])
+    check(bool((cand >= 0).all()), "(f) a stage-0 candidate is filler")
+    owned = np.stack([(cand // n_local == r).sum(1) for r in range(S)], 1)
+    ids8, sc8 = got_b[2]
+    out = {"owned_max": int(owned.max()), "owned_min": int(owned.min())}
+    qb = torch.as_tensor(q[:B]).to(dev)
+    mb = torch.as_tensor(qm[:B]).to(dev)
+    slab0 = r4.store.segments[0].slabs[0]
+    c0 = torch.as_tensor(cand[:B]).to(dev)
+    mine = c0 // n_local == 0
+    order = torch.sort((~mine).to(torch.uint8), dim=1, stable=True)[1]
+    rsel = torch.gather(c0 % n_local, 1, order)
+    ok = torch.gather(mine, 1, order)
+    for oc in (8, 2, 1):
+        r = Retriever(r4.store, mesh=mesh, rerank_overcommit=oc)
+        ids, sc, dt, nq = counted(lambda: run_cascade(r, bench, two, B))
+        cap_slots = min(256, 64 * oc)
+        keep = owned.max(1) <= cap_slots
+        for i in np.flatnonzero(keep):
+            check(np.array_equal(ids[i], ids8[i])
+                  and np.array_equal(sc[i], sc8[i]),
+                  f"(f) overcommit {oc}: query {i} drops nothing but "
+                  "differs from overcommit 8")
+        drop = np.flatnonzero(~keep)
+        recall = (float(np.mean([len(set(ids[i]) & set(ids8[i])) / 10
+                                 for i in drop])) if len(drop) else 1.0)
+        m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
+        kms = time_ms(lambda: KOPS.maxsim_rerank(
+            qb, slab0["initial"], rsel[:, :cap_slots], mb,
+            slab0["initial_mask"], ok[:, :cap_slots]))
+        out[oc] = dict(qps=nq / dt, n_drop=len(drop), recall=recall,
+                       ndcg=m["ndcg@10"], rerank_ms=kms, cap_slots=cap_slots)
+        log(f"[mesh] (f) rerank_overcommit={oc} (cap_slots {cap_slots} of "
+            f"256): QPS {nq / dt:.1f}; {len(keep) - len(drop)} rows that "
+            "drop nothing == overcommit 8 bit for bit (ids and scores); "
+            f"{len(drop)} rows drop owned candidates: recall@10 vs "
+            f"overcommit 8 {recall:.4f}; ndcg@10={m['ndcg@10']:.4f}; "
+            f"per-shard rerank kernel [{B}, {cap_slots}] on a slab "
+            f"{kms:.3f} ms")
+        if oc == 8:
+            check(np.array_equal(ids, ids8) and np.array_equal(sc, sc8),
+                  "(f) overcommit 8 != (b)'s 2-stage result bit for bit")
+        del r
+    log(f"[mesh] (f) stage-0 candidates a shard owns per query: "
+        f"{out['owned_min']}..{out['owned_max']} of 256")
+
+    # a store held with place=False: (b)'s upserts, never laid out
+    ru = Retriever(rows(0, 0), capacity=cap, mesh=mesh, filter_words=2,
+                   place=False)
+    for lo, hi, tenant, tags in tenant_groups(n):
+        ru.upsert(rows(lo, hi), tenant=tenant, tags=tags)
+    check(ru.store.mesh is None
+          and all(len(sg.slabs) == 1 for sg in ru.store.segments),
+          "(f) the place=False store was laid out on the mesh")
+    check(ru.store.capacities == r4.store.capacities,
+          f"(f) place=False capacities {ru.store.capacities}")
+    for ns in (1, 2):
+        st = kern(MST.one_stage(10)) if ns == 1 else two
+        ids, sc, dt, nq = counted(lambda: run_cascade(ru, bench, st, B))
+        check(np.array_equal(ids, got_b[ns][0])
+              and np.array_equal(sc, got_b[ns][1]),
+              f"(f) place=False {ns}-stage != the placed search bit for "
+              "bit")
+        out[f"unplaced {ns}"] = nq / dt
+        log(f"[mesh] (f) place=False {ns}-stage on {S} shards (split on "
+            f"each call): QPS {nq / dt:.1f}; == the placed search bit for "
+            "bit")
+    del ru
+    return out
+
+
 def mesh_path(args, dev, main, int8, filt, routed) -> dict:
     """Phase 4p: the phase-4 corpus on a mesh of 4 shards of this card
     (``make_mesh((4,), ("data",), devices=["cuda:0"] * 4)``), held against
@@ -2672,11 +2853,13 @@ def mesh_path(args, dev, main, int8, filt, routed) -> dict:
     log(f"[mesh] (b) {n} pages upserted onto {S} slabs in groups of 64 "
         f"(4c's tenants and tags) in {time.perf_counter() - t0:.2f}s")
     single = main["retriever"]
+    got_b = {}
     for ns, st in cascades.items():
         ref_ids, ref_sc, _, _ = run_cascade(single, bench,
                                             plus_one(kern(st)), B)
         ids, sc, dt, nq = counted(lambda: run_cascade(r4, bench, kern(st),
                                                       B))
+        got_b[ns] = (ids, sc)
         swaps = exact_rankings(ids, sc, ref_ids, ref_sc,
                                f"(b) 4 shards {ns}-stage vs one device")
         m = evaluate_ranking(ids, bench.qrels, ks=(5, 10))
@@ -2691,8 +2874,11 @@ def mesh_path(args, dev, main, int8, filt, routed) -> dict:
             f"({swaps} exact-tie swaps), scores bit for bit; "
             f"ndcg@10={m['ndcg@10']:.4f}")
 
-    # int8: 4b's quantised stores placed on the mesh
     one, two = MST.one_stage(10), MST.two_stage(256, 10)
+    res["f"] = overcommit_and_place(args, dev, bench, r4, got_b, kern,
+                                    counted, rows, n)
+
+    # int8: 4b's quantised stores placed on the mesh
     stores8 = {"a": int8["ra"], "b": int8["rb"]}
     cascades8 = {
         "1-stage int8 initial (db scan)": ("a", one, False),
@@ -3022,22 +3208,40 @@ def train_step_flops(cfg, B: int, Q: int) -> tuple:
     return 2.0 * (3 * fwd + blocks), formula
 
 
+PROFILE_TRIES = 3
+
+
+def profiled(fn) -> tuple:
+    """(``fn()``, the device events of one call under ``torch.profiler``
+    with CUDA activity). The profiler has recorded no device event for
+    a call on the card now and then; such a call is run and profiled
+    again, up to ``PROFILE_TRIES`` times in all, and the caller's check
+    fails if none of them recorded any."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+        if sum(e.device_time for e in events) > 0:
+            break
+        log(f"[profile] torch.profiler recorded no device time (try "
+            f"{attempt} of {PROFILE_TRIES})")
+    return out, events
+
+
 def profile_device_time(fn) -> tuple:
     """(``fn()``, device milliseconds of its kernels by kind): one call
-    under ``torch.profiler`` with CUDA activity, each device event counted
+    under ``torch.profiler`` (``profiled``), each device event counted
     once, GEMM kernels (cuBLAS's ``gemm``/``xmma`` and Hopper ``nvjet``
     kernels; a CUTLASS kernel counts when its name says ``gemm``),
     softmax kernels and the rest."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    out, events = profiled(fn)
     by_kind = {"gemm": 0.0, "softmax": 0.0, "other": 0.0}
-    for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
+    for e in events:
         name = e.name.lower()
         kind = ("gemm" if any(t in name for t in GEMM_NAMES) else
                 "softmax" if "softmax" in name else "other")
@@ -4824,18 +5028,11 @@ def gnn_path(args, dev) -> dict:
 
 def gnn_profile_kinds(fn) -> tuple:
     """(``fn()``, device ms by kind: gemm, scatter, gather, elementwise,
-    other) of one call under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    other) of one call under ``torch.profiler`` (``profiled``)."""
+    out, events = profiled(fn)
     by = {"gemm": 0.0, "scatter": 0.0, "gather": 0.0, "elementwise": 0.0,
           "other": 0.0}
-    for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
+    for e in events:
         name = e.name.lower()
         kind = ("gemm" if any(t in name for t in GEMM_NAMES) else
                 "scatter" if any(t in name for t in GNN_SCATTER) else
@@ -7319,6 +7516,7 @@ def main() -> None:
     int8_res = main_path_int8(args, dev, main_res)
     filt_res = filtered_path(args, dev, main_res)
     route_res = routed_path(args, dev, main_res)
+    cost_res = cost_model_path(args, main_res, int8_res, route_res)
     dtype_res = dtype_path(args, dev, main_res)
     dup_res = duplicate_routed_path(args, dev, main_res)
     ingest_res = ingest_path(args, dev, main_res)
@@ -7560,6 +7758,20 @@ def main() -> None:
             f"{r['grown'] / 2**20:.2f} MiB" for n, r in ar.items())
         + f"; ids equal the CPU's ({sum(r['swaps'] for r in ar.values())} "
         f"tie swaps); phase 4t {audit_res['seconds']:.1f}s")
+    f4 = mesh_res["f"]
+    log("[summary] cost model (phase 4; ms a batch measured / bytes at "
+        f"{HBM_TBS} TB/s): " + "; ".join(
+            f"{k} {c['ratio']:.2f}x fewer madds, {c['ms']:.3f} / "
+            f"{c['model_ms']:.4f} ms" for k, c in cost_res.items())
+        + "; mesh (4p f) rerank_overcommit 1 / 2 / 8: QPS "
+        + " / ".join(f"{f4[oc]['qps']:.1f}" for oc in (1, 2, 8))
+        + ", rows dropping candidates " + " / ".join(
+            str(f4[oc]["n_drop"]) for oc in (1, 2, 8))
+        + ", ndcg@10 " + " / ".join(f"{f4[oc]['ndcg']:.4f}"
+                                    for oc in (1, 2, 8))
+        + ", per-shard rerank " + " / ".join(
+            f"{f4[oc]['rerank_ms']:.3f}" for oc in (1, 2, 8))
+        + f" ms; place=False 2-stage {f4['unplaced 2']:.1f} QPS")
     log(f"[summary] launches of the new phases: {new_launches}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

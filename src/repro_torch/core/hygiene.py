@@ -47,6 +47,12 @@ def apply_hygiene(embeddings: torch.Tensor,
     return embeddings * mask[..., None].to(embeddings.dtype), mask
 
 
+def retained_counts(mask: torch.Tensor) -> torch.Tensor:
+    """Number of retained (visual) tokens per page, int32 — the paper
+    reports e.g. ColPali 1024/1030 and ColQwen 720–768 (mean 743)."""
+    return torch.sum(mask.to(torch.int32), dim=-1, dtype=torch.int32)
+
+
 def require_visual_tail(token_types, n_vis: int) -> None:
     """Validate the static token layout the index path assumes.
 

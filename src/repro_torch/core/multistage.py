@@ -223,3 +223,148 @@ def search(store: dict, q: torch.Tensor, stages: tuple,
         cand = top_i if cand is None else torch.gather(cand, 1, top_i)
         scores = top_s
     return scores, cand
+
+
+def qps_cost_model(n_docs: int, q_tokens: int, dim: int, stages: tuple,
+                   store_dims: dict, vec_dims: dict | None = None) -> int:
+    """Eq.-1 multiply-add count for one query through a cascade.
+
+    Counts MADDS, NOT BYTES: an int8 store halves the scan stage's memory
+    traffic but does the same multiply-adds after dequantisation, so it
+    is invisible here (``cascade_hbm_bytes`` bills the bytes). ``cand`` is
+    clamped to ``n_docs`` before each stage's term, so no stage bills
+    more candidates than documents exist.
+
+    ``store_dims`` maps vector name -> vectors per page (D, 1 for a
+    single-vector stage); ``vec_dims`` maps vector name -> stored
+    embedding dim. A Matryoshka stage narrower than the query scores the
+    matching query prefix, so it is billed at ``min(vec_dim, dim)``;
+    without ``vec_dims`` every stage is billed at ``dim``
+    (``VectorStore.vec_dims()`` / ``SegmentedStore.vec_dims()`` supply the
+    real widths).
+
+    A routed scan stage (``n_probe > 0`` with ``n_clusters > 0``) is
+    billed at the centroid product (K centroid rows at the stage dim; the
+    query tokens collapse to one summed vector first, so no q_tokens
+    factor) plus the expected probed members ``ceil(N * n_probe / K)``
+    instead of all N.
+    """
+    total, cand = 0, n_docs
+    for si, stage in enumerate(stages):
+        cand = min(cand, n_docs)
+        d_vecs = store_dims[stage.vector]
+        stage_dim = dim if vec_dims is None else \
+            min(dim, vec_dims.get(stage.vector, dim))
+        if si == 0 and stage.n_probe > 0 and stage.n_clusters > 0:
+            k_c = stage.n_clusters
+            probed = min(cand, -(-n_docs * min(stage.n_probe, k_c) // k_c))
+            total += k_c * stage_dim                      # centroid product
+            total += q_tokens * d_vecs * probed * stage_dim
+        else:
+            total += q_tokens * d_vecs * cand * stage_dim
+        cand = min(stage.k, cand)
+    return total
+
+
+def cascade_hbm_bytes(n_docs: int, q_tokens: int, dim: int, stages: tuple,
+                      store_dims: dict, vec_dims: dict | None = None,
+                      *, batch: int = 1,
+                      bytes_per_coord: dict | None = None,
+                      cold_rows: int = 0) -> dict:
+    """Per-stage device-memory byte model for one query BATCH through a
+    cascade, the bytes companion of ``qps_cost_model``'s madds. The scan
+    and candidate paths are memory-bound, so a stage's predicted time is
+    its bytes over the card's memory rate.
+
+    Billed per stage, from the ``Stage`` fields:
+
+    - **scan**: one corpus read (``N * D' * d' * bytes``, plus the f32
+      scales of int8 codes) + the score write, ``B * N * 4`` for
+      score-then-select, ``B * min(k, chunk) * 8 * n_chunks`` (values +
+      ids per chunk) when ``scan_topk`` streams a running top-k over a
+      multi-vector stage (chunk ``DEFAULT_SCAN_TOPK_CHUNK`` when the stage
+      sets none).
+    - **rerank**: the candidate gather, 3x the candidate bytes for the
+      plain path (read the rows, write the gathered [B, L, D, d] copy,
+      read it again) and 1x with ``rerank_kernel`` (the fused gather),
+      plus the ``B * L * 4`` score write.
+    - **routed-scan** (scan stage with ``n_probe`` and ``n_clusters``
+      set): one f32 centroid read (``K * d * 4``) plus a candidate-style
+      gather of the expected probed members ``ceil(N * n_probe / K)``
+      (3x plain, 1x with ``use_kernel`` or ``rerank_kernel``), plus the
+      ``B * (K + probed) * 4`` score writes.
+    - **tier-transfer** (``cold_rows`` > 0): ``cold_rows`` rows of the
+      WHOLE per-row storage (every named vector at its stored precision,
+      plus the f32 scales of int8 names: a promotion moves a segment's
+      whole vectors dict), which crosses the host link, not device
+      memory.
+
+    ``bytes_per_coord`` maps vector name -> stored bytes per coordinate
+    (default 2 = bf16; 1 for int8 codes). The query reads (``B * Q * d``)
+    are noise at corpus scale and not billed. Returns {"stages": [{
+    "stage", "kind", "read_bytes", "score_write_bytes", "total_bytes"},
+    ...], "total_bytes"}.
+    """
+    bpc = bytes_per_coord or {}
+    per_stage, cand = [], n_docs
+    for si, stage in enumerate(stages):
+        cand = min(cand, n_docs)
+        d_vecs = store_dims[stage.vector]
+        vd = dim if vec_dims is None else \
+            min(dim, vec_dims.get(stage.vector, dim))
+        b = bpc.get(stage.vector, 2)
+        k = min(stage.k, cand)
+        if si == 0 and stage.n_probe > 0 and stage.n_clusters > 0:
+            k_c = stage.n_clusters
+            probed = min(n_docs,
+                         -(-n_docs * min(stage.n_probe, k_c) // k_c))
+            read = k_c * vd * 4                      # f32 centroids
+            gather = batch * probed * d_vecs * vd * b
+            if b == 1:
+                gather += batch * probed * d_vecs * 4
+            factor = 1 if (stage.use_kernel or stage.rerank_kernel) else 3
+            entry = {"stage": stage.vector, "kind": "routed-scan",
+                     "read_bytes": read + factor * gather,
+                     "score_write_bytes": batch * (k_c + probed) * 4}
+        elif si == 0:
+            read = n_docs * d_vecs * vd * b
+            if b == 1:        # int8 codes stream per-vector f32 scales too
+                read += n_docs * d_vecs * 4
+            # a single-vector scan keeps score-then-select in the engine
+            # (``_dispatch_scan_topk``): bill the [B, N] write it does
+            if stage.scan_topk and d_vecs > 1:
+                chunk = min(stage.chunk if stage.chunk > 0
+                            else DEFAULT_SCAN_TOPK_CHUNK, n_docs)
+                n_chunks = -(-n_docs // chunk)
+                write = batch * min(k, chunk) * 8 * n_chunks
+            else:
+                write = batch * n_docs * 4
+            entry = {"stage": stage.vector, "kind": "scan",
+                     "read_bytes": read, "score_write_bytes": write}
+        else:
+            gather = batch * cand * d_vecs * vd * b
+            if b == 1:
+                gather += batch * cand * d_vecs * 4
+            factor = 1 if stage.rerank_kernel else 3
+            entry = {"stage": stage.vector, "kind": "rerank",
+                     "read_bytes": factor * gather,
+                     "score_write_bytes": batch * cand * 4}
+        entry["total_bytes"] = (entry["read_bytes"]
+                                + entry["score_write_bytes"])
+        per_stage.append(entry)
+        cand = k
+    if cold_rows > 0:
+        row_bytes = 0
+        for name, d_vecs in store_dims.items():
+            vd = dim if vec_dims is None else \
+                min(dim, vec_dims.get(name, dim))
+            b = bpc.get(name, 2)
+            row_bytes += d_vecs * vd * b
+            if b == 1:            # int8 names ship their f32 scales too
+                row_bytes += d_vecs * 4
+        xfer = cold_rows * row_bytes
+        per_stage.append({"stage": "host->device", "kind": "tier-transfer",
+                          "read_bytes": xfer, "score_write_bytes": 0,
+                          "total_bytes": xfer})
+    return {"stages": per_stage,
+            "total_bytes": sum(e["total_bytes"] for e in per_stage)}

@@ -75,6 +75,12 @@ def adaptive_matrix(h: int, t_max: int) -> np.ndarray:
     return p
 
 
+def global_matrix(s: int) -> np.ndarray:
+    """[1, S] ones: the single-vector (global) pooling row over S
+    tokens."""
+    return np.ones((1, s), np.float32)
+
+
 def pooling_matrix(cfg) -> np.ndarray:
     """Compose the model-aware pooling stack into one matrix [n_pooled, S]."""
     if cfg.geometry == "tiles":

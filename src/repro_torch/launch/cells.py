@@ -1026,7 +1026,10 @@ def search_stages(shape, variant: str) -> tuple:
 
 def build_retriever_cell(arch: str, shape, device=None,
                          variant: str = "base", generator=None,
-                         mesh=None) -> Cell:
+                         mesh=None, stages=None) -> Cell:
+    """A ColX cell: train, index, or search over a synthetic corpus.
+    ``stages`` sets a search cell's cascade; ``None`` keeps the variant's
+    (``search_stages``: 1-stage for "stage1", else 2-stage)."""
     from repro_torch.models import late_interaction as LI
 
     cfg = get_config(arch)
@@ -1077,7 +1080,8 @@ def build_retriever_cell(arch: str, shape, device=None,
     from repro_torch.retrieval.store import codes_key, mask_key, scale_key
     ndev = n_devices(mesh) if mesh is not None else 1
     N, Bq = -(-shape.corpus // ndev) * ndev, shape.query_batch
-    stages = search_stages(shape, variant)
+    stages = search_stages(shape, variant) if stages is None \
+        else tuple(stages)
     Dfull, Dp, d = cfg.n_patches, cfg.n_pooled, cfg.out_dim
     store = {
         "initial": fill.unit((N, Dfull, d), torch.bfloat16),

@@ -579,11 +579,14 @@ def _main(argv, live: dict) -> dict:
         for i in range(0, len(part), step):
             pages = part[i:i + step]
             if retriever is None:                 # seed batch = tenant 0
+                # --chunk is also the retriever's default scan chunk, as
+                # in repro's traffic and ingest modes (the stages set it
+                # already, so results do not change)
                 retriever = Retriever(
                     pipe.index(pages, bench.token_types),
                     capacity=args.capacity or bucket_capacity(total),
                     device=device, routing=args.n_clusters or None,
-                    ingest=pipe)
+                    ingest=pipe, scan_chunk=args.chunk)
             else:
                 retriever.ingest(pages, bench.token_types, tenant=tenant)
     _sync(device)

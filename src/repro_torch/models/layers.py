@@ -180,6 +180,23 @@ def _sdpa(cfg, qh, k, v, positions, window, q_pos=None):
         for c in range(0, S, ATTN_CHUNK)], dim=1)
 
 
+def _decode_valid(j: torch.Tensor, pos: int, Sc: int, window: int):
+    """The cache slots ``j`` that a decode query at ``pos`` attends to,
+    in a cache of ``Sc`` slots written at slot ``pos % Sc`` (window) or
+    ``min(pos, Sc - 1)``: the slots written so far, and for a window
+    layer only keys under ``window`` positions back. A ring (Sc <=
+    window) holds only such keys; a full-length cache of a window layer
+    (Sc > window, ``prefill_step(windowed_cache=False)``) is masked by
+    each slot's position."""
+    if window and pos + 1 >= Sc:
+        valid = torch.ones_like(j, dtype=torch.bool)
+    else:
+        valid = j <= pos
+    if window and Sc > window:
+        valid = valid & ((pos - j) % Sc < window)
+    return valid
+
+
 def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, window: int,
               kv_cache: dict | None = None, decode_pos: int | None = None,
               shard=None):
@@ -217,9 +234,8 @@ def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, window: int,
         ck[:, slot:slot + 1] = k.to(ck.dtype)
         cv[:, slot:slot + 1] = v.to(cv.dtype)
         new_cache = kv_cache
-        j = torch.arange(Sc, device=x.device)
-        valid = (torch.ones_like(j, dtype=torch.bool)
-                 if window and pos + 1 >= Sc else j <= pos)
+        valid = _decode_valid(torch.arange(Sc, device=x.device), pos, Sc,
+                              window)
         qh = q.reshape(B, S, KV, rep, hd)
         scores = torch.einsum("bskrh,bjkh->bkrsj", qh, ck.to(x.dtype))
         scores = softcap(scores, cfg.attn_softcap)
@@ -673,9 +689,8 @@ def _decode_attention(cfg, q, k, v, kv_cache, window, pos, shard):
     if off <= slot < off + Sc_l:
         ck[:, slot - off:slot - off + 1] = k.to(ck.dtype)
         cv[:, slot - off:slot - off + 1] = v.to(cv.dtype)
-    j = off + torch.arange(Sc_l, device=q.device)
-    valid = (torch.ones_like(j, dtype=torch.bool)
-             if window and pos + 1 >= Sc else j <= pos)
+    valid = _decode_valid(off + torch.arange(Sc_l, device=q.device), pos,
+                          Sc, window)
     qh = q.reshape(B, 1, KV, H // KV, hd)
     scores = torch.einsum("bskrh,bjkh->bkrsj", qh, ck.to(q.dtype))
     scores = softcap(scores, cfg.attn_softcap)

@@ -466,21 +466,26 @@ def loss_fn(model: DecoderLM, batch: dict, shard=None) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill_step(model: DecoderLM, batch: dict,
-                 decode_budget: int = 0, shard=None) -> tuple:
+                 decode_budget: int = 0, shard=None,
+                 windowed_cache: bool = True) -> tuple:
     """Prefill: build KV caches + last-position logits. batch: tokens [B,S].
 
     ``decode_budget`` reserves extra cache capacity for subsequent decode
     steps (global-attention slots grow by it; ring windows don't need to).
+    ``windowed_cache=False`` gives window layers full-length caches too
+    (``kv_cache.cache_len``), with the ring's logits.
     Returns (logits [B,1,Vp], caches). Inside a body: this position's
     vocab slice of the logits and its cache slabs (``cache_logical_axes``).
     """
     if L.partitioned(shard):
-        return _prefill_part(model, batch, decode_budget, shard)
+        return _prefill_part(model, batch, decode_budget, shard,
+                             windowed_cache)
     cfg = model.cfg
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
     caches = KV.init_cache(cfg, segment_plan(cfg), B, S + decode_budget,
-                           compute_dtype(cfg), device=model.device)
+                           compute_dtype(cfg), device=model.device,
+                           windowed=windowed_cache)
     h, caches = forward(model, tokens, caches=caches)
     return _logits(model, h[:, -1:]), caches
 
@@ -618,7 +623,8 @@ def _local_logits(model: DecoderLM, h, shard):
     return _logits_of(model.cfg, emb.to(h.dtype), h, off)
 
 
-def _prefill_part(model: DecoderLM, batch, decode_budget, shard):
+def _prefill_part(model: DecoderLM, batch, decode_budget, shard,
+                  windowed_cache: bool = True):
     cfg = model.cfg
     tokens = torch.as_tensor(batch["tokens"])
     Bl, S = tokens.shape
@@ -626,7 +632,8 @@ def _prefill_part(model: DecoderLM, batch, decode_budget, shard):
     pol = shard.body(batch=B, sp=_sp(cfg, shard, B, S))
     caches = KV.init_cache(cfg, segment_plan(cfg), Bl, S + decode_budget,
                            compute_dtype(cfg), device=model.device,
-                           seq_shards=L._size(L._seq_axes(pol)))
+                           seq_shards=L._size(L._seq_axes(pol)),
+                           windowed=windowed_cache)
     h, caches = _forward_part(model, tokens, caches, pol)
     last = h[:, -1:]
     if pol.sp:                        # the last row lives on the last block

@@ -50,8 +50,10 @@ does, once per mesh position on that position's device and slab:
   companions give every shard the identical probed rows) compact each
   shard's OWNED candidates to the front with a stable sort, keeping the
   candidate order, and score the first ``cap_slots = min(L, ceil(L / S)
-  * RERANK_OVERCOMMIT)`` of them: exact when no shard owns more than
-  that (always, when S <= RERANK_OVERCOMMIT);
+  * rerank_overcommit)`` of them (default 8, ``repro``'s): exact when no
+  shard owns more than that (always, when S <= rerank_overcommit);
+  otherwise a shard drops its owned candidates past the first
+  ``cap_slots``, as ``repro``'s does, trading exactness for rerank work;
 - a non-owned copy scores NEG AND drops its id to -1, so NEG filler can
   never duplicate a live page when k exceeds the live candidates.
 
@@ -86,9 +88,6 @@ from repro_torch.retrieval.tracing import record_trace
 
 NEG = -1e30
 INT8_REF_CHUNK = 1024      # plain int8 scan chunk when the stage sets none
-# each shard of a mesh scores at most ceil(L / S) * RERANK_OVERCOMMIT of a
-# stage's L candidates (``repro``'s default overcommit)
-RERANK_OVERCOMMIT = 8
 
 
 def _mesh_shards(mesh) -> int:
@@ -221,12 +220,23 @@ def _offsets(capacities: tuple) -> tuple:
     return tuple(offs)
 
 
-def _routed_rows(store: dict, stage: Stage, q, q_mask):
+def _slot_order(rows):
+    """Per query, the permutation that puts ``rows`` [B, R] in slot-id
+    order, -1 (padding) last, ties kept in place."""
+    key = torch.where(rows >= 0, rows, torch.iinfo(torch.int64).max)
+    return torch.sort(key, dim=1, stable=True)[1]
+
+
+def _routed_rows(store: dict, stage: Stage, q, q_mask,
+                 slot_order: bool = True):
     """Stage-0 candidate rows by centroid routing for ONE segment: score
     the query against the segment's [K, d] centroids, keep the top
     ``n_probe`` clusters, and emit their member-slot lists as one
     [B, n_probe * C] row set in slot-id order, -1 (padded member slots)
-    last, so a stable select breaks score ties by slot id."""
+    last, so a stable select breaks score ties by slot id. With
+    ``slot_order=False`` the rows stay in ``repro``'s order (cluster rank,
+    then member), which decides the rows a mesh shard keeps when it owns
+    more than it may score."""
     routing = routing_arrays(store)
     if routing is None:
         raise ValueError(
@@ -240,8 +250,9 @@ def _routed_rows(store: dict, stage: Stage, q, q_mask):
     cs = score(q, cents, q_mask)                      # [B, K]
     _, cid = top_k(cs, min(stage.n_probe, cents.shape[0]))
     rows = members[cid].reshape(q.shape[0], -1).long()
-    key = torch.where(rows >= 0, rows, torch.iinfo(torch.int64).max)
-    return torch.gather(rows, 1, torch.sort(key, dim=1, stable=True)[1])
+    if not slot_order:
+        return rows
+    return torch.gather(rows, 1, _slot_order(rows))
 
 
 def _segment_stage0(stage: Stage, store: dict, eff, cap: int, off: int, q,
@@ -303,7 +314,8 @@ def _resolve_stage0(stages: tuple) -> Stage:
     return stages[0]
 
 
-def make_segmented_search_fn(stages: tuple, capacities: tuple, mesh=None):
+def make_segmented_search_fn(stages: tuple, capacities: tuple, mesh=None,
+                             rerank_overcommit: int = 8):
     """The cascade over a tuple of segment stores.
 
     Returns fn(stores: tuple, q [B,Q,d], q_mask [B,Q], fspec=None) ->
@@ -313,9 +325,11 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple, mesh=None):
     ``mesh`` each store is one dict; with it the cascade runs sharded
     (``_mesh_search``), each store being a segment's slabs
     (``SegmentedStore.shards``) or one dict, and the results land on the
-    mesh's first device. Each build counts
-    one ``tracing.record_trace`` (``Retriever`` caches the function per
-    stages, store layout and mesh, so steady-state serving builds none).
+    mesh's first device; each shard scores at most ``ceil(L / S) *
+    rerank_overcommit`` of a stage's L candidates (module docstring).
+    Each build counts one ``tracing.record_trace`` (``Retriever`` caches
+    the function per stages, store layout, mesh and overcommit, so
+    steady-state serving builds none).
     """
     record_trace()
     stages = tuple(stages)
@@ -324,7 +338,7 @@ def make_segmented_search_fn(stages: tuple, capacities: tuple, mesh=None):
     if not capacities:
         raise ValueError("search needs at least one segment")
     if mesh is not None:
-        return _mesh_search(mesh, stages, capacities)
+        return _mesh_search(mesh, stages, capacities, rerank_overcommit)
     offsets = _offsets(capacities)
     total_cap = sum(capacities)
 
@@ -369,7 +383,8 @@ def _owned_first(mine, n: int):
     return torch.sort(key, dim=1, stable=True)[1][:, :n]
 
 
-def _mesh_search(mesh, stages: tuple, capacities: tuple):
+def _mesh_search(mesh, stages: tuple, capacities: tuple,
+                 rerank_overcommit: int = 8):
     """The sharded cascade: ``repro``'s ``shard_map`` body, run once per
     mesh position on its device, with each stage's (score, id) lists
     gathered in mesh order onto the mesh's first device."""
@@ -399,13 +414,20 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
             # the replicated routing companions give every shard the same
             # rows; it scores the ones it owns, compacted to cap_slots
             # (>= n_local when K * C >= capacity, the member-width
-            # invariant, so full probe stays exact)
-            rows = _routed_rows(slab, stage, q, q_mask)
+            # invariant, so full probe stays exact). The compaction keeps
+            # the first owned rows in ``repro``'s row order, so a shard
+            # that owns more than cap_slots keeps the rows ``repro``'s
+            # does; the kept rows are then put in slot-id order, the
+            # single-device path's tie order
+            rows = _routed_rows(slab, stage, q, q_mask, slot_order=False)
             R = rows.shape[1]
             rclip = rows.clamp(0, cap - 1)
-            cap_slots = min(R, max(1, -(-R // n_shards)) * RERANK_OVERCOMMIT)
+            cap_slots = min(R, max(1, -(-R // n_shards)) * rerank_overcommit)
             mine = (rows >= 0) & (rclip // n_local == r)
             order = _owned_first(mine, cap_slots)
+            ok = torch.gather(mine, 1, order)
+            order = torch.gather(order, 1, _slot_order(torch.where(
+                ok, torch.gather(rows, 1, order), -1)))
             rsel = torch.gather(rclip % n_local, 1, order)
             gsel = torch.gather(rclip, 1, order)
             ok = torch.gather(mine, 1, order)
@@ -485,7 +507,7 @@ def _mesh_search(mesh, stages: tuple, capacities: tuple):
             else:
                 L = cand.shape[1]
                 cap_slots = min(L, max(1, -(-L // n_shards))
-                                * RERANK_OVERCOMMIT)
+                                * rerank_overcommit)
                 cands = [cand.to(d) for d in devices[:ran]]
                 for sl, eff, cap, off in zip(slabs, effs, capacities,
                                              offsets):
@@ -548,7 +570,8 @@ def make_segment_rerank_fn(stages: tuple, stage_index: int, capacity: int):
     return seg_rerank
 
 
-def make_search_fn(stages: tuple, n_docs: int, mesh=None):
+def make_search_fn(stages: tuple, n_docs: int, mesh=None,
+                   rerank_overcommit: int = 8):
     """The cascade over ONE raw store dict of ``n_docs`` rows (no
     segments): fn(store_vectors: dict, q [B,Q,d], q_mask [B,Q],
     fspec=None) -> (scores [B,k], ids [B,k]), ids being row numbers.
@@ -560,9 +583,10 @@ def make_search_fn(stages: tuple, n_docs: int, mesh=None):
     The store is served as one segment. On a ``mesh`` of S positions its
     rows are padded with zeros to a multiple of S (``doc_valid`` with
     False) on each call, so any ``n_docs`` shards; the routing companions
-    are left whole."""
+    are left whole; ``rerank_overcommit`` as in
+    ``make_segmented_search_fn``."""
     cap = -(-n_docs // _mesh_shards(mesh)) * _mesh_shards(mesh)
-    body = make_segmented_search_fn(stages, (cap,), mesh)
+    body = make_segmented_search_fn(stages, (cap,), mesh, rerank_overcommit)
 
     def pad(v):
         if v.shape[0] == cap:

@@ -140,7 +140,8 @@ class ServingFrontend:
                  deadline_ms: float = 0.0, engine=None, degrade=None,
                  clock=time.perf_counter):
         self.retriever = retriever
-        self.stages = tuple(stages)
+        # the retriever's scan_chunk default applies, as in its search
+        self.stages = retriever._normalize(stages)
         # per-request wall budget (0 = none): a request whose deadline is
         # already blown at admission or flush time is SHED (completed
         # with DeadlineExceeded) instead of queued or dispatched;

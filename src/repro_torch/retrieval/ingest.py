@@ -93,7 +93,12 @@ class IngestPipeline:
     def __init__(self, cfg, *, store_dtype=torch.bfloat16,
                  experimental_smooth: str | None = None,
                  quantize: tuple = (), stages: tuple | None = None,
-                 use_kernel: bool = True, device="cuda"):
+                 use_kernel: bool = True, device="cuda",
+                 min_bucket: int = INGEST_BUCKET_MIN):
+        """``min_bucket`` is the smallest ingest-batch bucket
+        (``batch_bucket``): a batch of n pages is padded to the smallest
+        power of two >= max(n, min_bucket), and ``ingest`` reserves that
+        many slots of segment headroom."""
         self.cfg = cfg
         self.store_dtype = store_dtype
         self.experimental_smooth = experimental_smooth
@@ -101,6 +106,7 @@ class IngestPipeline:
         self.stages = None if stages is None else tuple(stages)
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
+        self.min_bucket = min_bucket
         for name in self.quantize:
             if name not in self._produced_names():
                 raise ValueError(
@@ -118,21 +124,22 @@ class IngestPipeline:
     def for_config(cls, cfg, *, store_dtype=torch.bfloat16,
                    experimental_smooth: str | None = None,
                    quantize: tuple = (), stages: tuple | None = None,
-                   use_kernel: bool = True,
-                   device="cuda") -> "IngestPipeline":
+                   use_kernel: bool = True, device="cuda",
+                   min_bucket: int = INGEST_BUCKET_MIN) -> "IngestPipeline":
         """Shared pipeline per (cfg, options, device): the process-wide
         cache behind ``build_store``, so repeated builds reuse one
         pipeline (and its pooling operator on the device)."""
         dev = resolve_device(device)
         key = (cfg, store_dtype, experimental_smooth, tuple(quantize),
                None if stages is None else tuple(stages), use_kernel,
-               str(dev))
+               str(dev), min_bucket)
         pipe = _PIPELINES.get(key)
         if pipe is None:
             pipe = _PIPELINES[key] = cls(
                 cfg, store_dtype=store_dtype,
                 experimental_smooth=experimental_smooth, quantize=quantize,
-                stages=stages, use_kernel=use_kernel, device=dev)
+                stages=stages, use_kernel=use_kernel, device=dev,
+                min_bucket=min_bucket)
         return pipe
 
     # ------------------------------------------------------------------
@@ -267,7 +274,7 @@ class IngestPipeline:
         d], token types, n real pages)."""
         pages, tt = self._admit(pages, token_types)
         n = int(pages.shape[0])
-        bucket = batch_bucket(n)
+        bucket = batch_bucket(n, self.min_bucket)
         if tt.ndim == 2:
             tt = _pad_rows(tt, bucket, fill=HG.PAD)
         return _pad_rows(pages, bucket), tt, n

@@ -4,8 +4,8 @@ cascade fns.
 ``Retriever`` wraps the engine (``repro_torch.retrieval.engine``) over a
 SEGMENTED, capacity-padded corpus (``repro_torch.retrieval.segments``) on
 one device or sharded over a mesh (``launch.mesh``), and caches the
-cascade function per ``(stages, segment layout, mesh)`` — not per fill
-level.
+cascade function per ``(stages, segment layout, mesh, overcommit)`` — not
+per fill level.
 
     store = build_store(cfg, pages, token_types)         # on cuda
     r = Retriever(store, capacity=4096,                  # ingest headroom
@@ -19,6 +19,7 @@ level.
 
     mesh = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
     r4 = Retriever(store, mesh=mesh, capacity=4096)      # 4 shards
+    r4x = Retriever(store, mesh=mesh, rerank_overcommit=2)   # inexact
 
 The no-retrace contract (``retrieval.tracing``): ``upsert``/``ingest``
 into preallocated padding and ``delete`` keep the layout, so steady-state
@@ -31,7 +32,9 @@ traffic.
 Scan-dispatch policy (``Stage.use_kernel`` / ``chunk`` / ``scan_topk``)
 and rerank policy
 (``Stage.rerank_kernel``) ride on the stages tuple, and so does IVF
-routing (``Stage.n_probe``, on a store built with ``routing=``). Returned
+routing (``Stage.n_probe``, on a store built with ``routing=``);
+``scan_chunk`` supplies a default chunk for scan stages that set none,
+bounding the plain scan's score block. Returned
 ids are STABLE page ids (assigned at upsert); slots that never matched
 (k > live docs, or documents the request's filter excluded) come back as
 -1.
@@ -41,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import multistage as MST
 from repro_torch.launch.mesh import home_device
 from repro_torch.retrieval import engine, tracing
 from repro_torch.retrieval.segments import SegmentedStore
@@ -50,7 +54,8 @@ from repro_torch.retrieval.store import VectorStore
 class Retriever:
     def __init__(self, store, capacity: int | None = None, device=None,
                  filter_words: int = 1, routing=None, ingest=None,
-                 mesh=None):
+                 mesh=None, rerank_overcommit: int = 8, scan_chunk: int = 0,
+                 place: bool = True):
         """``store`` is a built ``VectorStore`` (wrapped as segment 0 —
         exact fit by default, or preallocated to ``capacity`` slots for
         ingestion headroom) or an existing ``SegmentedStore``, which must
@@ -66,21 +71,34 @@ class Retriever:
         the clusters. ``ingest`` is an optional ``IngestPipeline`` that
         enables ``Retriever.ingest`` (raw pages in, stable ids out).
 
-        ``mesh`` shards the search over the mesh's S positions: the corpus
-        is laid out on the mesh once (``SegmentedStore.place_on``), with
+        ``mesh`` shards the search over the mesh's S positions, with
         capacities rounded to multiples of S (a ``SegmentedStore`` whose
-        capacities do not divide by S raises). Without a mesh, a store
-        placed on a mesh of several positions raises: restore it onto one
-        device (``tiering.restore_store``) or pass its mesh."""
+        capacities do not divide by S raises). ``place=True`` lays the
+        corpus out on the mesh once (``SegmentedStore.place_on``);
+        ``place=False`` leaves it where it is (a ``VectorStore`` is
+        wrapped on the mesh's first device) and each search splits it
+        over the mesh (``store.split_slabs``: views, no copy), with the
+        same results. Each shard scores at most ``ceil(L / S) *
+        rerank_overcommit`` of a rerank stage's L candidates, so with
+        more than ``rerank_overcommit`` shards a shard that owns more
+        drops the rest (``engine``'s module docstring). Without a mesh,
+        a store placed on a mesh of several positions raises: restore it
+        onto one device (``tiering.restore_store``) or pass its mesh.
+
+        ``scan_chunk`` > 0 is the chunk of every scan stage whose own
+        ``chunk`` is 0; a stage's own chunk wins."""
         self.mesh = mesh
         self.device = home_device(mesh, device)
+        self.rerank_overcommit = rerank_overcommit
+        self.scan_chunk = scan_chunk
         self._ingest = ingest
         self._fns: dict = {}
         n_shards = engine._mesh_shards(mesh)
         if isinstance(store, VectorStore):
             store = SegmentedStore.from_store(
                 store, capacity=capacity, device=self.device,
-                filter_words=filter_words, n_shards=n_shards, mesh=mesh)
+                filter_words=filter_words, n_shards=n_shards,
+                mesh=mesh if place else None)
         else:
             if store.device.type != self.device.type:
                 raise ValueError(f"store lives on {store.device}, retriever "
@@ -90,9 +108,11 @@ class Retriever:
                     raise ValueError(
                         f"segment capacity {cap} not divisible by "
                         f"{n_shards} shards — allocate with n_shards set")
-            if mesh is not None:
+            store.n_shards = max(store.n_shards, n_shards)
+            if mesh is not None and place:
                 store.place_on(mesh)
-            elif any(len(seg.slabs) > 1 for seg in store.segments):
+            elif mesh is None and any(len(seg.slabs) > 1
+                                      for seg in store.segments):
                 raise ValueError(
                     f"the store is placed on a mesh of {store.mesh.size} "
                     "positions; pass mesh= to search it sharded, or "
@@ -181,34 +201,45 @@ class Retriever:
     @classmethod
     def from_snapshot(cls, directory: str, mesh=None, *,
                       step: int | None = None, device=None,
-                      **kwargs) -> "Retriever":
+                      place: bool = True, **kwargs) -> "Retriever":
         """Cold-start a retriever from a ``snapshot`` directory (this
         package's or ``repro``'s), bit for bit the store that was saved,
-        every segment resident on ``device`` or, with ``mesh``, placed on
-        the mesh. Extra kwargs go to the constructor (``ingest``, ...)."""
+        every segment resident on ``device`` or, with ``mesh`` (and
+        ``place``), placed on the mesh. Extra kwargs go to the constructor
+        (``scan_chunk``, ``ingest``, ...)."""
         from repro_torch.retrieval import tiering
         store = tiering.restore_store(directory, mesh=mesh, step=step,
-                                      device=device)
-        return cls(store, device=device, mesh=mesh, **kwargs)
+                                      device=device, place=place)
+        return cls(store, device=device, mesh=mesh, place=False, **kwargs)
 
     # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
 
-    def search_fn(self, stages: tuple):
-        """The cascade function for ``stages``, built at most once per
-        (stages, segment layout, mesh); functions of an older layout are
-        dropped. Signature: fn(stores: tuple, q, q_mask, fspec=None) ->
-        (scores, slot ids)."""
+    def _normalize(self, stages: tuple) -> tuple:
+        """``stages`` with ``scan_chunk`` as the scan stage's chunk where
+        the stage sets none."""
         stages = tuple(stages)
+        if self.scan_chunk and stages and stages[0].chunk == 0:
+            stages = MST.with_scan_policy(stages, chunk=self.scan_chunk)
+        return stages
+
+    def search_fn(self, stages: tuple):
+        """The cascade function for ``stages`` (after ``scan_chunk``),
+        built at most once per (stages, segment layout, mesh,
+        overcommit); functions of an older layout are dropped.
+        Signature: fn(stores: tuple, q, q_mask, fspec=None) -> (scores,
+        slot ids)."""
+        stages = self._normalize(stages)
         layout = self.store.layout_key()
-        key = (stages, layout, self.mesh)
+        key = (stages, layout, self.mesh, self.rerank_overcommit)
         fn = self._fns.get(key)
         if fn is None:
             self._fns = {k: v for k, v in self._fns.items()
                          if k[1] == layout}
             fn = engine.make_segmented_search_fn(
-                stages, self.store.capacities, self.mesh)
+                stages, self.store.capacities, self.mesh,
+                self.rerank_overcommit)
             self._fns[key] = fn
         return fn
 
@@ -230,8 +261,10 @@ class Retriever:
                                 device=self.device)
         else:
             q_mask = torch.as_tensor(q_mask).to(self.device).bool()
-        stores = (self.store.stores() if self.mesh is None
-                  else self.store.shards())
+        # a placed store hands over its slabs; an unplaced one its dicts,
+        # which a mesh search splits on each call
+        placed = self.mesh is not None and self.store.mesh is not None
+        stores = self.store.shards() if placed else self.store.stores()
         scores, slots = self.search_fn(stages)(stores, q, q_mask, filter)
         if not translate_ids:
             return scores, slots

@@ -606,3 +606,9 @@ class SegmentedStore:
 
     def dims(self) -> dict:
         return self.schema().dims()
+
+    def vec_dims(self) -> dict:
+        """Stored embedding dim per named vector (``VectorStore.vec_dims``'s
+        twin, so ``multistage.qps_cost_model`` and ``cascade_hbm_bytes``
+        bill a live corpus)."""
+        return self.schema().vec_dims()

@@ -230,16 +230,18 @@ def snapshot(store: SegmentedStore, directory: str, *,
 
 
 def restore_store(directory: str, *, mesh=None, step: int | None = None,
-                  device=None) -> SegmentedStore:
+                  device=None, place: bool = True) -> SegmentedStore:
     """Rebuild a ``SegmentedStore`` from a ``snapshot`` directory (one
     written by this package or by ``repro``), bit for bit: tensors
     through the checkpoint's bit-pattern round trip, slot maps, tenants,
     filters, IVF companions and their ``RouteState``, and ``n_shards``
     from the meta. Every segment comes back resident ("device" tier) on
-    ``device`` ("cuda" by default) or, with ``mesh``, placed on the mesh
-    (routing companions on every shard): restore doubles as a restart
-    onto another topology, and a store saved from a mesh restores onto
-    one device as well. Wrap the store in a
+    ``device`` ("cuda" by default) or, with ``mesh`` (and ``place``),
+    placed on the mesh (routing companions on every shard): restore
+    doubles as a restart onto another topology, and a store saved from a
+    mesh restores onto one device as well. With ``mesh`` and
+    ``place=False`` the segments stay whole on the mesh's first device,
+    and a mesh search splits them on each call. Wrap the store in a
     ``TieredEngine`` to impose a budget again."""
     dev = home_device(mesh, device)
     if step is None:
@@ -265,7 +267,7 @@ def restore_store(directory: str, *, mesh=None, step: int | None = None,
                 fills=np.asarray(sm["routing"]["fills"], np.int64),
                 drift=int(sm["routing"]["drift"]))
         out.segments.append(seg)
-    if mesh is not None:
+    if mesh is not None and place:
         out.place_on(mesh)
     out.generation = int(m["generation"])
     return out
@@ -979,10 +981,14 @@ class TieredEngine:
             fn = self._fns.get(key)
             if fn is None:
                 fn = engine.make_segmented_search_fn(
-                    stages, tuple(seg.capacity for seg in segs), self.r.mesh)
+                    stages, tuple(seg.capacity for seg in segs), self.r.mesh,
+                    self.r.rerank_overcommit)
                 self._fns[key] = fn
-            scores, slots = fn(tuple(seg.slabs for seg in segs), q, q_mask,
-                               fspec)
+            # an unplaced store's segments are one dict each, which the
+            # search splits over the mesh
+            scores, slots = fn(tuple(seg.slabs if self.store.mesh is not None
+                                     else seg.vectors for seg in segs),
+                               q, q_mask, fspec)
         finally:
             for si in scope:
                 self._release(si)

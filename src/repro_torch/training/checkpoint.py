@@ -60,6 +60,26 @@ def _crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).view(np.uint8).reshape(-1))
 
 
+def named_dtype(name: str) -> np.dtype:
+    """np.dtype from its recorded string name (``meta.json``'s
+    ``dtypes``). numpy has no bfloat16 or float8 types and the port does
+    not use ``ml_dtypes``, so "bfloat16" and the "float8_*" names map to
+    the unsigned integer type of the same width, the form this checkpoint
+    stores their bit patterns in (``_stored``); ``repro``'s returns the
+    ``ml_dtypes`` type there. Any other name numpy does not know raises
+    TypeError. The extended names are looked up first, so the answer does
+    not depend on whether another module has registered ``ml_dtypes``'
+    types with numpy."""
+    dt = getattr(torch, name, None)
+    if isinstance(dt, torch.dtype) and (name == "bfloat16"
+                                        or name.startswith("float8")):
+        return np.dtype(f"uint{8 * dt.itemsize}")
+    try:
+        return np.dtype(name)
+    except TypeError:
+        raise TypeError(f"unknown dtype name {name!r}") from None
+
+
 def _stored(x) -> tuple:
     """(host numpy array in stored form, dtype name) of one leaf."""
     if not isinstance(x, torch.Tensor):
